@@ -1,0 +1,206 @@
+// Length-bounded decode attention for Hopper (sm_90a), plain C interface.
+//
+// Replaces the TPU kernel paddle_tpu/ops/pallas/decode_attention.py:
+// _decode_kernel (launched by _pallas_decode_attention), the dense-cache
+// form: a window of Q query rows q [B, H, Q, D] (Q = 1 is a decode tick,
+// Q > 1 a speculative verify window) against a K/V cache [B, H, S, D] in
+// bf16 or f32, with per-row positions pos [B] int32. Query row j of batch
+// row b attends keys 0 .. pos[b] + j. Scores, softmax and accumulation run
+// in f32 and the output [B, H, Q, D] is f32.
+//
+// What bounds it on the H100: memory. A decode tick does 2*D multiply-adds
+// per key per query row and reads 2*D cache elements per key, far below
+// the card's ~295 operations per byte, so the least time is the live K and
+// V bytes, 2*B*H*(pos+Q)*D*elem, over 3.35 TB/s. What the design does:
+//   - one block per (head, batch row) walks only that row's live keys,
+//     [0, min(pos + Q, S)): the work and the bytes follow each row's own
+//     length, and the cache tail past it is never read (the TPU kernel
+//     predicated those blocks off but still streamed them);
+//   - the four warps split the keys in interleaved groups of 8; within a
+//     warp each lane holds D/32 consecutive elements of a key row, so a
+//     warp reads whole rows with neighbouring lanes on neighbouring
+//     addresses, and 8 rows are in flight per warp before any arithmetic;
+//   - each warp keeps its own online-softmax state (m, l, acc) in
+//     registers; the four states merge once through shared memory at the
+//     end, so nothing but q, the live cache and the output touches device
+//     memory.
+// One block per (b, h) leaves the card under-filled when B*H is small and
+// the cache is long; splitting the keys across blocks (flash-decoding) is
+// the next design.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int NW = 4;           // warps per block
+constexpr int NT = NW * 32;
+constexpr int KG = 8;           // keys a warp loads per step
+constexpr int QMAX = 8;         // widest query window
+constexpr float NEG_INF = -1e30f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Lane `lane` owns elements lane*E .. lane*E + E - 1 of a D-wide row
+// (lanes past D / E own none when D < 32).
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+decode_kernel(const float* __restrict__ q, const T* __restrict__ kc,
+              const T* __restrict__ vc, const int* __restrict__ pos,
+              float* __restrict__ out, int H, int S, int Q, float scale) {
+  constexpr int E = D >= 32 ? D / 32 : 1;
+  __shared__ float sm_m[NW][QMAX];
+  __shared__ float sm_l[NW][QMAX];
+  __shared__ float sm_acc[NW][QMAX][D];
+
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int b = blockIdx.y;
+  const long long bh = (long long)b * H + blockIdx.x;
+  const int p0 = pos[b];
+  const int n_live = min(p0 + Q, S);
+  const T* kb = kc + bh * S * D;
+  const T* vb = vc + bh * S * D;
+
+  float qr[QMAX][E], m[QMAX], l[QMAX], acc[QMAX][E];
+#pragma unroll
+  for (int j = 0; j < QMAX; ++j) {
+    m[j] = NEG_INF;
+    l[j] = 0.f;
+#pragma unroll
+    for (int t = 0; t < E; ++t) {
+      const int e = lane * E + t;
+      qr[j][t] = (j < Q && e < D) ? q[(bh * Q + j) * D + e] : 0.f;
+      acc[j][t] = 0.f;
+    }
+  }
+
+  for (int g0 = w * KG; g0 < n_live; g0 += NW * KG) {
+    float kr[KG][E], vr[KG][E];
+#pragma unroll
+    for (int kk = 0; kk < KG; ++kk) {
+      const int key = g0 + kk;
+#pragma unroll
+      for (int t = 0; t < E; ++t) {
+        const int e = lane * E + t;
+        const bool in = key < n_live && e < D;
+        kr[kk][t] = in ? to_f32(kb[(long long)key * D + e]) : 0.f;
+        vr[kk][t] = in ? to_f32(vb[(long long)key * D + e]) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < QMAX; ++j) {
+      if (j >= Q) break;
+      float s[KG];
+      float mx = NEG_INF;
+#pragma unroll
+      for (int kk = 0; kk < KG; ++kk) {
+        float part = 0.f;
+#pragma unroll
+        for (int t = 0; t < E; ++t) part = fmaf(qr[j][t], kr[kk][t], part);
+        s[kk] = warp_sum(part) * scale;
+        const int key = g0 + kk;
+        if (key < n_live && key <= p0 + j) mx = fmaxf(mx, s[kk]);
+      }
+      const float m_new = fmaxf(m[j], mx);
+      const float alpha = expf(m[j] - m_new);
+      float rs = 0.f;
+      float pk[KG];
+#pragma unroll
+      for (int kk = 0; kk < KG; ++kk) {
+        const int key = g0 + kk;
+        // masked keys contribute exactly 0, whatever the running max is
+        pk[kk] = (key < n_live && key <= p0 + j) ? expf(s[kk] - m_new) : 0.f;
+        rs += pk[kk];
+      }
+      l[j] = l[j] * alpha + rs;
+      m[j] = m_new;
+#pragma unroll
+      for (int t = 0; t < E; ++t) {
+        float a = acc[j][t] * alpha;
+#pragma unroll
+        for (int kk = 0; kk < KG; ++kk) a = fmaf(pk[kk], vr[kk][t], a);
+        acc[j][t] = a;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < QMAX; ++j) {
+    if (j >= Q) break;
+    if (lane == 0) {
+      sm_m[w][j] = m[j];
+      sm_l[w][j] = l[j];
+    }
+#pragma unroll
+    for (int t = 0; t < E; ++t) {
+      const int e = lane * E + t;
+      if (e < D) sm_acc[w][j][e] = acc[j][t];
+    }
+  }
+  __syncthreads();
+
+  for (int idx = threadIdx.x; idx < Q * D; idx += NT) {
+    const int j = idx / D, e = idx % D;
+    float mt = NEG_INF;
+#pragma unroll
+    for (int ww = 0; ww < NW; ++ww) mt = fmaxf(mt, sm_m[ww][j]);
+    float lt = 0.f, at = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < NW; ++ww) {
+      const float f = expf(sm_m[ww][j] - mt);
+      lt += sm_l[ww][j] * f;
+      at += sm_acc[ww][j][e] * f;
+    }
+    out[(bh * Q + j) * D + e] = at / (lt == 0.f ? 1.f : lt);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const float* q, const void* k, const void* v,
+                   const int* pos, float* out, int B, int H, int S, int Q,
+                   float scale, cudaStream_t stream) {
+  dim3 grid(H, B);
+  decode_kernel<T, D><<<grid, NT, 0, stream>>>(
+      q, static_cast<const T*>(k), static_cast<const T*>(v), pos, out, H, S,
+      Q, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_d(const float* q, const void* k, const void* v,
+                       const int* pos, float* out, int B, int H, int S, int Q,
+                       int D, float scale, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch<T, 16>(q, k, v, pos, out, B, H, S, Q, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, pos, out, B, H, S, Q, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, pos, out, B, H, S, Q, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, pos, out, B, H, S, Q, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// q: [B, H, Q, D] f32; k, v: [B, H, S, D] bf16 (is_bf16 = 1) or f32; pos: [B]
+// int32; out: [B, H, Q, D] f32; all contiguous, 1 <= Q <= 8. Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int decode_attention(const void* q, const void* k, const void* v,
+                                const void* pos, void* out, int B, int H,
+                                int S, int Q, int D, int is_bf16, float scale,
+                                void* stream) {
+  if (Q < 1 || Q > QMAX) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* qf = static_cast<const float*>(q);
+  const int* p = static_cast<const int*>(pos);
+  float* o = static_cast<float*>(out);
+  if (is_bf16)
+    return (int)dispatch_d<__nv_bfloat16>(qf, k, v, p, o, B, H, S, Q, D, scale, s);
+  return (int)dispatch_d<float>(qf, k, v, p, o, B, H, S, Q, D, scale, s);
+}

@@ -1,0 +1,541 @@
+"""GPT serving path on one device — port of the single-chip inference half
+of paddle_tpu/models/gpt.py (dense FFN, dense KV cache, fp weights).
+
+Layouts are the reference's, so a weight conversion is only a dtype
+change: weights multiply as ``x @ W`` with ``W`` [D_in, D_out], block
+weights stack a leading layer dim [L, ...], caches are
+``[L, B, H, S, hd]`` and attention runs on ``[B, H, S, hd]``.
+
+Eager PyTorch replaces jit, donation and ``lax.scan``: layers run in a
+Python loop, and the KV cache is UPDATED IN PLACE (``cache[l][rows, :,
+positions] = ...``) where the reference rebuilt it with
+dynamic_update_slice under buffer donation — in place keeps one cache
+resident instead of a second [L, B, H, S, hd] copy per step.
+
+Attention goes through the two hand-written kernels: flash-attention
+forward for whole-prompt prefill, decode attention for every decode
+tick (``ops/kernels``). Suffix prefill keeps the reference's plain
+band-masked attention, which the reference also left to the compiler.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..ops.kernels.decode_attention import decode_attention
+from ..ops.kernels.flash_attention import flash_attention
+
+NEG_INF = -1e30
+_BLOCK_KEYS = ("ln1_g", "ln1_b", "w_qkv", "b_qkv", "w_o", "b_o", "ln2_g",
+               "ln2_b", "w_in", "b_in", "w_out", "b_out")
+
+
+@dataclasses.dataclass
+class GPTConfig:
+    """The dense model and its serving fields."""
+    vocab_size: int = 50304
+    hidden: int = 2048
+    n_layers: int = 24
+    n_heads: int = 16
+    max_seq: int = 2048
+    dtype: torch.dtype = torch.bfloat16
+    # storage dtype of the K/V cache (None = dtype); attention math is
+    # f32 whatever it is. The scaled-int8 cache is a later slice.
+    kv_cache_dtype: torch.dtype | None = None
+    # keys per block of the plain bounded decode attention; cache lengths
+    # round up to a multiple (pad_cache_len)
+    decode_block: int = 128
+    # > 0: chunked prefill attends in query chunks of this many tokens
+    prefill_chunk: int = 0
+
+    def __post_init__(self):
+        if self.hidden % self.n_heads:
+            raise ValueError(f"hidden {self.hidden} does not split over "
+                             f"{self.n_heads} heads")
+        if isinstance(self.kv_cache_dtype, str):
+            raise NotImplementedError(
+                f"kv_cache_dtype={self.kv_cache_dtype!r}: the scaled-int8 "
+                "KV cache belongs to the quantized-serving slice")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden // self.n_heads
+
+
+def gpt3_1p3b(**kw) -> GPTConfig:
+    """GPT-3 1.3B: 24 layers, d=2048, 16 heads, bf16."""
+    base = dict(vocab_size=50304, hidden=2048, n_layers=24, n_heads=16,
+                max_seq=2048)
+    base.update(kw)
+    return GPTConfig(**base)
+
+
+def gpt_tiny(**kw) -> GPTConfig:
+    base = dict(vocab_size=256, hidden=64, n_layers=4, n_heads=4,
+                max_seq=64, dtype=torch.float32)
+    base.update(kw)
+    return GPTConfig(**base)
+
+
+# ==========================================================================
+# Parameters
+# ==========================================================================
+def _shapes(cfg: GPTConfig) -> dict:
+    D, V, L = cfg.hidden, cfg.vocab_size, cfg.n_layers
+    return {"wte": (V, D), "wpe": (cfg.max_seq, D), "lnf_g": (D,),
+            "lnf_b": (D,),
+            "blocks": {"ln1_g": (L, D), "ln1_b": (L, D),
+                       "w_qkv": (L, D, 3 * D), "b_qkv": (L, 3 * D),
+                       "w_o": (L, D, D), "b_o": (L, D),
+                       "ln2_g": (L, D), "ln2_b": (L, D),
+                       "w_in": (L, D, 4 * D), "b_in": (L, 4 * D),
+                       "w_out": (L, 4 * D, D), "b_out": (L, D)}}
+
+
+def init_params(cfg: GPTConfig, seed: int = 0, device=None) -> dict:
+    """Random weights with the reference's initialisation (N(0, 0.02)
+    matrices, the residual projections scaled by 1/sqrt(2L), unit
+    LayerNorm gains, zero biases), drawn from a numpy Generator so the
+    same seed gives the same weights on every device. Matrices are drawn
+    one layer at a time, so host memory holds one layer's f32 draw."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    std = 0.02
+    L = cfg.n_layers
+
+    def normal(shape, div=1.0):
+        x = rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+        if div != 1.0:
+            x = x / np.float32(div)
+        return torch.from_numpy(x).to(device=dev, dtype=cfg.dtype)
+
+    shapes = _shapes(cfg)
+    blocks = {}
+    for name, shape in shapes["blocks"].items():
+        if name.startswith("ln") and name.endswith("_g"):
+            blocks[name] = torch.ones(shape, dtype=cfg.dtype, device=dev)
+        elif name.startswith(("b_", "ln")):
+            blocks[name] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+        else:
+            div = math.sqrt(2 * L) if name in ("w_o", "w_out") else 1.0
+            t = torch.empty(shape, dtype=cfg.dtype, device=dev)
+            for layer in range(L):
+                t[layer] = normal(shape[1:], div)
+            blocks[name] = t
+    return {"wte": normal(shapes["wte"]), "wpe": normal(shapes["wpe"]),
+            "blocks": blocks,
+            "lnf_g": torch.ones(shapes["lnf_g"], dtype=cfg.dtype, device=dev),
+            "lnf_b": torch.zeros(shapes["lnf_b"], dtype=cfg.dtype,
+                                 device=dev)}
+
+
+def _to_torch(a: np.ndarray, device) -> torch.Tensor:
+    a = np.array(a)   # a writable, contiguous copy torch may alias
+    if a.dtype.name == "bfloat16":
+        # torch.from_numpy has no bf16: carry the bits over as uint16
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree: dict, cfg: GPTConfig, device=None) -> dict:
+    """Carry a parameter tree of numpy arrays (e.g. the reference's
+    ``jax.device_get(init_params(...))``, bf16 included) over to torch
+    tensors in ``cfg.dtype`` on ``device``."""
+    dev = resolve_device(device)
+    shapes = _shapes(cfg)
+
+    def conv(a, shape, name):
+        t = _to_torch(a, dev).to(cfg.dtype)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"param {name}: shape {tuple(t.shape)}, "
+                             f"config wants {tuple(shape)}")
+        return t
+
+    out = {k: conv(tree[k], shapes[k], k)
+           for k in ("wte", "wpe", "lnf_g", "lnf_b")}
+    out["blocks"] = {k: conv(tree["blocks"][k], shapes["blocks"][k], k)
+                     for k in _BLOCK_KEYS}
+    return out
+
+
+def layer_params(params: dict) -> list[dict]:
+    """Per-layer views of the stacked block weights."""
+    blocks = params["blocks"]
+    n = blocks["w_qkv"].shape[0]
+    return [{k: blocks[k][i] for k in _BLOCK_KEYS} for i in range(n)]
+
+
+def check_params_device(params: dict, device: torch.device) -> None:
+    have = params["wte"].device
+    if have.type != device.type or (
+            device.index is not None and have.index != device.index):
+        raise ValueError(f"params live on {have}, the call runs on "
+                         f"{device}: move them with params_from_numpy or "
+                         "init_params(device=...)")
+
+
+# ==========================================================================
+# Serving forward pieces
+# ==========================================================================
+def _layer_norm(x, g, b, eps=1e-5):
+    """Statistics in f32, normalise, cast to x's dtype, THEN scale and
+    shift in that dtype (the reference's order)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * g + b
+
+
+def _take_wte(params, idx, cfg: GPTConfig):
+    return params["wte"][idx]
+
+
+def _ffn_serving(x, h, p, cfg: GPTConfig):
+    """The dense FFN tail: ``x + ffn(h) + b_out`` with tanh GELU."""
+    ff = h @ p["w_in"] + p["b_in"]
+    ff = F.gelu(ff, approximate="tanh")
+    return x + ff @ p["w_out"] + p["b_out"]
+
+
+def _lm_logits(x, params, cfg: GPTConfig):
+    """Tied vocab projection, [B, S, D] -> [B, S, V] f32 with operands in
+    the params' dtype and f32 accumulation. On the card a bf16 product
+    goes through ``torch.mm(..., out_dtype=torch.float32)`` (f32 output
+    straight from the f32 accumulator; a plain bf16 matmul would round
+    the logits to bf16); on the CPU the operands are upcast to f32,
+    which gives the same products (bf16 x bf16 is exact in f32)."""
+    wte = params["wte"]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.float32:
+        out = x2 @ wte.t()
+    elif x.device.type == "cuda":
+        out = torch.mm(x2, wte.t(), out_dtype=torch.float32)
+    else:
+        out = x2.float() @ wte.float().t()
+    return out.reshape(*x.shape[:-1], wte.shape[0])
+
+
+def _split_qkv(qkv, cfg: GPTConfig):
+    """[B, S, 3D] -> q, k, v [B, H, S, hd]; the columns are interleaved
+    (head, 3, head_dim) as in the reference's Megatron layout."""
+    B, S = qkv.shape[:2]
+    qkv = qkv.view(B, S, cfg.n_heads, 3, cfg.head_dim)
+    return tuple(qkv[:, :, :, i].transpose(1, 2) for i in range(3))
+
+
+def _kv_write(cache, new, pos):
+    """Write ``new`` [B, H, Q, hd] into ``cache`` [B, H, S, hd] in place,
+    row b at positions ``pos[b] .. pos[b] + Q - 1`` (a start past
+    ``S - Q`` clamps to it, as dynamic_update_slice does)."""
+    B, Q, S = new.shape[0], new.shape[2], cache.shape[2]
+    start = pos.clamp(0, S - Q)
+    cols = start[:, None] + torch.arange(Q, device=cache.device)[None, :]
+    rows = torch.arange(B, device=cache.device)[:, None]
+    # advanced indices on dims 0 and 2 put [B, Q] first: value [B, Q, H, hd]
+    cache[rows, :, cols] = new.permute(0, 2, 1, 3).to(cache.dtype)
+
+
+def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int | None = None,
+                  device=None):
+    """Zeroed K and V caches [L, B, H, S, hd] in cfg.kv_cache_dtype (cfg.dtype
+    when unset)."""
+    dev = resolve_device(device)
+    s = max_len or cfg.max_seq
+    shape = (cfg.n_layers, batch, cfg.n_heads, s, cfg.head_dim)
+    dt = cfg.kv_cache_dtype or cfg.dtype
+    return (torch.zeros(shape, dtype=dt, device=dev),
+            torch.zeros(shape, dtype=dt, device=dev))
+
+
+def _block_decode(x, p, cfg: GPTConfig, k_cache, v_cache, pos):
+    """One block on a window of new positions. x: [B, Q, D]; k/v_cache:
+    this layer's [B, H, S, hd] (written in place); pos: [B] position of
+    window row 0. Row j attends keys <= pos + j."""
+    h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
+    q, k_new, v_new = _split_qkv(h @ p["w_qkv"] + p["b_qkv"], cfg)
+    _kv_write(k_cache, k_new, pos)
+    _kv_write(v_cache, v_new, pos)
+    attn = decode_attention(q, k_cache, v_cache, pos,
+                            block=cfg.decode_block).to(x.dtype)
+    B, Q = x.shape[:2]
+    attn = attn.transpose(1, 2).reshape(B, Q, -1)
+    x = x + attn @ p["w_o"] + p["b_o"]
+    h = _layer_norm(x, p["ln2_g"], p["ln2_b"])
+    return _ffn_serving(x, h, p, cfg)
+
+
+def _positions(pos, batch: int, device) -> torch.Tensor:
+    pos = torch.as_tensor(pos, device=device).long()
+    return pos.expand(batch) if pos.dim() == 0 else pos
+
+
+def decode_one_token(params, cfg: GPTConfig, token, pos, k_cache, v_cache):
+    """token: [B] int; pos: int or [B] int positions. Writes this token's
+    K/V into the caches in place and returns (logits [B, V] f32,
+    k_cache, v_cache)."""
+    B = token.shape[0]
+    pos = _positions(pos, B, token.device)
+    emb = _take_wte(params, token[:, None], cfg) + params["wpe"][pos][:, None]
+    x = emb.to(cfg.dtype)
+    for i, lp in enumerate(layer_params(params)):
+        x = _block_decode(x, lp, cfg, k_cache[i], v_cache[i], pos)
+    x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
+    return _lm_logits(x, params, cfg)[:, 0], k_cache, v_cache
+
+
+def _attend_prefill(q, k, v, chunk: int):
+    """Causal attention over the whole prompt, q/k/v [B, H, P, hd]: one
+    flash call, or (chunk > 0) query chunks each attending its key
+    prefix [0, chunk_end) — the bottom-right causal alignment covers
+    Sq < Skv."""
+    P = q.shape[2]
+    if chunk <= 0 or chunk >= P:
+        return flash_attention(q, k, v, None, True)
+    outs = []
+    for c0 in range(0, P, chunk):
+        c1 = min(c0 + chunk, P)
+        outs.append(flash_attention(q[:, :, c0:c1].contiguous(),
+                                    k[:, :, :c1].contiguous(),
+                                    v[:, :, :c1].contiguous(), None, True))
+    return torch.cat(outs, dim=2)
+
+
+def _block_prefill(x, p, cfg: GPTConfig, k_cache, v_cache, chunk: int,
+                   rows):
+    """One block over the whole prompt. x: [n, P, D]; k/v_cache: this
+    layer's [B, H, S, hd]; rows: [n] cache rows the prompts own (their
+    positions [0, P) are written in place)."""
+    h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
+    q, k_new, v_new = _split_qkv(h @ p["w_qkv"] + p["b_qkv"], cfg)
+    P = x.shape[1]
+    k_cache[rows, :, :P] = k_new.to(k_cache.dtype)
+    v_cache[rows, :, :P] = v_new.to(v_cache.dtype)
+    # attend over the cache-rounded K/V, the values decode will re-read
+    k_att = k_new.to(k_cache.dtype).to(q.dtype).contiguous()
+    v_att = v_new.to(v_cache.dtype).to(q.dtype).contiguous()
+    attn = _attend_prefill(q.contiguous(), k_att, v_att, chunk).to(x.dtype)
+    attn = attn.transpose(1, 2).reshape(x.shape[0], P, -1)
+    x = x + attn @ p["w_o"] + p["b_o"]
+    h = _layer_norm(x, p["ln2_g"], p["ln2_b"])
+    return _ffn_serving(x, h, p, cfg)
+
+
+def prefill(params, cfg: GPTConfig, tokens, k_cache, v_cache, lengths=None,
+            mode: str = "full", rows=None):
+    """Single-pass batched prefill. tokens: [n, P] right-padded;
+    lengths: [n] true lengths (None = P); rows: [n] cache rows to write
+    (None = rows 0..n-1 of the caches). Positions past a row's length
+    hold garbage K/V, never read: decode starts at the row's length and
+    overwrites before reading. Returns (logits [n, V] f32 at each row's
+    last real position, k_cache, v_cache)."""
+    n, P = tokens.shape
+    dev = tokens.device
+    if P > k_cache.shape[3]:
+        raise ValueError(f"prompt width {P} exceeds the cache length "
+                         f"{k_cache.shape[3]}")
+    chunk = cfg.prefill_chunk if mode == "chunked" else 0
+    if mode == "chunked" and cfg.prefill_chunk <= 0:
+        raise ValueError(
+            "PADDLE_TPU_PREFILL_MODE=chunked needs cfg.prefill_chunk > 0 "
+            "(tokens per prefill chunk)")
+    rows = (torch.arange(n, device=dev) if rows is None
+            else torch.as_tensor(rows, device=dev).long())
+    x = (_take_wte(params, tokens, cfg) + params["wpe"][:P]).to(cfg.dtype)
+    for i, lp in enumerate(layer_params(params)):
+        x = _block_prefill(x, lp, cfg, k_cache[i], v_cache[i], chunk, rows)
+    x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
+    if lengths is None:
+        last = x[:, P - 1]
+    else:
+        idx = (torch.as_tensor(lengths, device=dev).long() - 1).clamp(0, P - 1)
+        last = x[torch.arange(n, device=dev), idx]
+    return _lm_logits(last[:, None], params, cfg)[:, 0], k_cache, v_cache
+
+
+def _block_prefill_suffix(x, p, cfg: GPTConfig, k_cache, v_cache, starts,
+                          shifts, rows):
+    """One block over a suffix chunk at per-row cache offsets. x: [n, C, D]
+    (row r's real tokens sit at window indices [shifts[r], C)); the
+    window [starts[r], starts[r] + C) of cache row rows[r] is written in
+    place, except indices below shifts[r], which keep the resident
+    prefix (a window slid left near the cache end must not clobber it).
+    Each query attends the WHOLE cache row under a band mask (key j
+    visible iff j <= its absolute position)."""
+    h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
+    q, k_new, v_new = _split_qkv(h @ p["w_qkv"] + p["b_qkv"], cfg)
+    C = x.shape[1]
+    ar = torch.arange(C, device=x.device)
+    cols = starts[:, None] + ar[None, :]                        # [n, C]
+    keep_new = (ar[None, :] >= shifts[:, None])[:, :, None, None]
+    r = rows[:, None]
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        cur = cache[r, :, cols]                                 # [n, C, H, hd]
+        cache[r, :, cols] = torch.where(
+            keep_new, new.permute(0, 2, 1, 3).to(cache.dtype), cur)
+    k_att = k_cache[rows].to(q.dtype)
+    v_att = v_cache[rows].to(q.dtype)
+    return _suffix_attend(x, p, cfg, q, k_att, v_att, starts, C)
+
+
+def _suffix_attend(x, p, cfg: GPTConfig, q, k_att, v_att, starts, C):
+    """Band-masked whole-row attention + FFN tail of the suffix prefill
+    (plain PyTorch, like the reference's einsum form)."""
+    n = x.shape[0]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    scores = torch.matmul(q.float(), k_att.float().transpose(-1, -2)) * scale
+    S = k_att.shape[2]
+    qpos = starts[:, None] + torch.arange(C, device=x.device)[None, :]
+    visible = torch.arange(S, device=x.device)[None, None, :] \
+        <= qpos[:, :, None]                                     # [n, C, S]
+    scores = torch.where(visible[:, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    attn = torch.matmul(probs, v_att).to(x.dtype)
+    attn = attn.transpose(1, 2).reshape(n, C, -1)
+    x = x + attn @ p["w_o"] + p["b_o"]
+    h = _layer_norm(x, p["ln2_g"], p["ln2_b"])
+    return _ffn_serving(x, h, p, cfg)
+
+
+def prefill_suffix(params, cfg: GPTConfig, tokens, k_cache, v_cache,
+                   offsets, lengths=None, rows=None):
+    """Suffix-only prefill: run the forward over a chunk of new prompt
+    tokens whose K/V prefix is already resident (chunked prefill, one
+    chunk per serving tick). tokens: [n, C] right-padded; offsets: [n]
+    absolute start positions; lengths: [n] true token counts (None = C);
+    rows: [n] cache rows (None = 0..n-1).
+
+    A chunk whose window [offset, offset + C) would run past the cache
+    slides left to start = S - C; its tokens roll right by shift =
+    offset - start inside the window and the write keeps the resident
+    K/V below shift, so the real tokens land at their absolute
+    positions. Returns (logits [n, V] f32 at each row's last real
+    position, k_cache, v_cache)."""
+    n, C = tokens.shape
+    dev = tokens.device
+    S = k_cache.shape[3]
+    if C > S:
+        raise ValueError(f"chunk width {C} exceeds the cache length {S}")
+    rows = (torch.arange(n, device=dev) if rows is None
+            else torch.as_tensor(rows, device=dev).long())
+    offsets = torch.as_tensor(offsets, device=dev).long()
+    starts = offsets.clamp(max=S - C)
+    shifts = offsets - starts
+    ar = torch.arange(C, device=dev)
+    # roll each row right by its shift (jnp.roll per row)
+    tokens = torch.gather(tokens, 1, (ar[None, :] - shifts[:, None]) % C)
+    pos_ids = (starts[:, None] + ar[None, :]).clamp(0, cfg.max_seq - 1)
+    x = (_take_wte(params, tokens, cfg) + params["wpe"][pos_ids]).to(cfg.dtype)
+    for i, lp in enumerate(layer_params(params)):
+        x = _block_prefill_suffix(x, lp, cfg, k_cache[i], v_cache[i], starts,
+                                  shifts, rows)
+    x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
+    lengths = (torch.full((n,), C, device=dev, dtype=torch.long)
+               if lengths is None
+               else torch.as_tensor(lengths, device=dev).long())
+    idx = (shifts + lengths - 1).clamp(0, C - 1)
+    last = x[torch.arange(n, device=dev), idx]
+    return _lm_logits(last[:, None], params, cfg)[:, 0], k_cache, v_cache
+
+
+def check_prefill_mode(mode: str) -> str:
+    """The prefill modes of this slice: 'full' (one batched forward) and
+    'chunked' (cfg.prefill_chunk-token attention tiles). The reference's
+    per-token 'scan' A/B mode is not ported."""
+    if mode not in ("full", "chunked"):
+        raise ValueError(
+            f"prefill mode {mode!r} unknown: expected 'full' (one batched "
+            "forward) or 'chunked' (cfg.prefill_chunk-token tiles)")
+    return mode
+
+
+def pad_cache_len(n: int, block: int) -> int:
+    """Round a cache length up to a decode_block multiple (lengths <=
+    block stay as they are)."""
+    if block <= 0 or n <= block or n % block == 0:
+        return n
+    return -(-n // block) * block
+
+
+def filtered_probs(logits, temperature, top_k=0, top_p=0.0):
+    """The post-filter next-token distribution, f32 over the full vocab:
+    temperature, then top-k, then top-p over the renormalised post-top-k
+    distribution; filtered entries are exactly 0. Rows with temperature
+    <= 0 get the one-hot of their argmax. ``temperature`` may be a
+    scalar or a per-row tensor."""
+    lg = logits.float()
+    t = torch.as_tensor(temperature, dtype=torch.float32,
+                        device=lg.device).expand(lg.shape[:-1])
+    greedy = t <= 0.0
+    lg = lg / torch.where(greedy, torch.ones_like(t), t)[..., None]
+    if top_k > 0 or top_p > 0.0:
+        desc = torch.sort(lg, dim=-1, descending=True).values
+        if top_k > 0:
+            kth = desc[..., top_k - 1:top_k]
+            lg = torch.where(lg < kth, torch.full_like(lg, NEG_INF), lg)
+        if top_p > 0.0:
+            desc_f = desc
+            if top_k > 0:
+                rank = torch.arange(desc.shape[-1], device=lg.device)
+                desc_f = torch.where(rank < top_k, desc,
+                                     torch.full_like(desc, -math.inf))
+            probs = torch.softmax(desc_f, dim=-1)
+            cum = torch.cumsum(probs, dim=-1)
+            keep = cum - probs < top_p          # mass BEFORE this token
+            cutoff = torch.where(keep, desc, torch.full_like(desc, math.inf)
+                                 ).amin(dim=-1, keepdim=True)
+            lg = torch.where(lg < cutoff, torch.full_like(lg, NEG_INF), lg)
+    probs = torch.softmax(lg, dim=-1)
+    onehot = F.one_hot(lg.argmax(-1), lg.shape[-1]).float()
+    return torch.where(greedy[..., None], onehot, probs)
+
+
+def sample_logits(logits, generator=None, temperature=0.0, top_k=0,
+                  top_p=0.0):
+    """Greedy argmax at temperature 0, else one draw per row from
+    :func:`filtered_probs` with ``generator`` (a torch.Generator on the
+    logits' device). torch's draws differ from jax.random's."""
+    if temperature == 0.0:
+        return logits.argmax(-1)
+    probs = filtered_probs(logits, temperature, top_k, top_p)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+@torch.no_grad()
+def generate(params, cfg: GPTConfig, prompt_tokens, max_new_tokens=32,
+             temperature=0.0, top_k=0, top_p=0.0, seed=0,
+             prefill_mode: str | None = None, device=None):
+    """Greedy / top-k / top-p generation with a KV cache. prompt_tokens:
+    [B, P] ints. Returns [B, P + max_new_tokens] int64 on ``device``.
+    The prompt prefills in one batched forward ("full", or "chunked"
+    attention tiles; PADDLE_TPU_PREFILL_MODE sets the default), then one
+    decode step per new token."""
+    dev = resolve_device(device)
+    check_params_device(params, dev)
+    mode = check_prefill_mode(
+        prefill_mode or os.environ.get("PADDLE_TPU_PREFILL_MODE", "full"))
+    prompt = torch.as_tensor(prompt_tokens).to(dev).long()
+    B, P = prompt.shape
+    if P + max_new_tokens > cfg.max_seq:
+        raise ValueError(
+            f"prompt ({P}) + max_new_tokens ({max_new_tokens}) exceeds "
+            f"max_seq ({cfg.max_seq}) — positions past max_seq have no "
+            f"positional embedding")
+    kc, vc = init_kv_cache(cfg, B, pad_cache_len(P + max_new_tokens,
+                                                 cfg.decode_block), dev)
+    logits, kc, vc = prefill(params, cfg, prompt, kc, vc, mode=mode)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    toks = []
+    for i in range(max_new_tokens):
+        tok = sample_logits(logits, gen, temperature, top_k, top_p)
+        toks.append(tok)
+        if i + 1 < max_new_tokens:   # the last token needs no forward
+            logits, kc, vc = decode_one_token(params, cfg, tok, P + i, kc, vc)
+    return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)

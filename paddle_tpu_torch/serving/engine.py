@@ -1,0 +1,348 @@
+"""Continuous-batching serving engine — the scheduler between user requests
+and a ``GenerationSession``. Port of the core of
+paddle_tpu/serving/engine.py:
+
+- a bounded request queue: lower ``priority`` first, earliest deadline
+  first within a lane, FIFO tiebreak; a full queue rejects loudly at
+  submit (:class:`QueueFull`), and a request whose deadline passes
+  while queued is dropped at the admission edge, before any prefill;
+- whole-prompt admission (``prefill_chunk=0``: the prompt prefills in
+  one finalizing chunk) or chunked prefill interleaved with decode
+  (``prefill_chunk>0``): each :meth:`poll` advances every partial prompt
+  by one chunk and decodes every live row (``session.fused_tick``), so a
+  long prompt never stalls the decode batch;
+- full-occupancy decode: every poll fills freed slots first.
+
+Prefix KV reuse, the resilience plane (load shedding, retries, the crash
+journal), tenant metering and tracing belong to later slices and raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import heapq
+import os
+import time
+
+from ..device import resolve_device
+from .request import Request, RequestState
+
+__all__ = ["ServingEngine", "QueueFull"]
+
+
+class QueueFull(RuntimeError):
+    """Bounded-queue backpressure: the submit was refused, nothing was
+    enqueued. The rejected request rides along for inspection."""
+
+    def __init__(self, request: Request, max_queue: int):
+        self.request = request
+        super().__init__(
+            f"serving queue full ({max_queue} requests) — request "
+            f"{request.request_id} rejected; retry later or raise "
+            "max_queue")
+
+
+class ServingEngine:
+    """Iteration-level request scheduler over a ``GenerationSession``.
+
+    >>> eng = ServingEngine(sess, max_queue=64, prefill_chunk=64)
+    >>> req = eng.submit(prompt_tokens, max_new_tokens=32)
+    >>> eng.run()                      # tick until drained
+    >>> req.output                     # generated token ids
+    """
+
+    # consecutive zero-progress polls before run() declares starvation
+    # (requests queued, every slot held by work this engine does not own)
+    STALL_LIMIT = 1000
+
+    def __init__(self, session, max_queue: int = 64,
+                 prefill_chunk: int = 0, clock=time.perf_counter,
+                 device=None, prefix_cache_blocks: int = 0,
+                 resilience=None, metering=None):
+        # the reference arms the crash journal through ``resilience`` and
+        # tracing / metering also through the environment
+        for what, armed, later in (
+                ("prefix_cache_blocks", prefix_cache_blocks, "prefix-cache"),
+                ("resilience (shedding, retries, journal)", resilience,
+                 "serving-resilience"),
+                ("metering", metering or os.environ.get(
+                    "PADDLE_TPU_TENANT_METERING", "0").lower()
+                 in ("1", "true", "on"), "tenant-metering"),
+                ("PADDLE_TPU_TRACING=1",
+                 os.environ.get("PADDLE_TPU_TRACING", "0") == "1",
+                 "telemetry")):
+            if armed:
+                raise NotImplementedError(
+                    f"ServingEngine: {what} belongs to the {later} slice of "
+                    "the port")
+        dev = resolve_device(device)
+        if dev.type != session.device.type:
+            raise ValueError(f"engine device {dev} differs from the "
+                             f"session's {session.device}")
+        if max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self.session = session
+        self.max_queue = int(max_queue)
+        self.clock = clock
+        self.chunked = prefill_chunk > 0
+        # the chunk width: the configured piece size, or the whole
+        # (admission-width) prompt in one finalizing chunk
+        self.width = int(prefill_chunk) if self.chunked \
+            else int(session.max_prompt_len)
+        if self.width < 1:
+            raise ValueError(f"prefill chunk width must be >= 1, got "
+                             f"{self.width}")
+        self._tm = session.telemetry
+        self._heap: list[tuple] = []    # (sched_key, Request)
+        self._queued = 0
+        self._partials: dict[int, list] = {}    # slot -> [req, next_off]
+        self._by_slot: dict[int, Request] = {}  # slot -> decoding req
+        self._requests: list[Request] = []
+        self._closed = False
+
+    # ------------------------------------------------------------ submit
+    def submit(self, tokens, max_new_tokens: int = 32, priority: int = 0,
+               deadline: float | None = None,
+               request_id: str | None = None) -> Request:
+        """Enqueue one request; raises :class:`QueueFull` when the bounded
+        queue is at capacity (a silent drop would read as an infinitely
+        slow request)."""
+        if self._closed:
+            raise RuntimeError("engine is closed")
+        req = Request(tokens=tokens, max_new_tokens=int(max_new_tokens),
+                      priority=int(priority), deadline=deadline,
+                      request_id=request_id)
+        req.arrival_ts = self.clock()
+        req.arrival_perf = time.perf_counter()
+        if req.prompt_len >= self.session.max_len:
+            raise ValueError(
+                f"prompt ({req.prompt_len} tokens) leaves no room to "
+                f"decode in the {self.session.max_len}-token cache")
+        if not self.chunked and req.prompt_len > self.width:
+            raise ValueError(
+                f"prompt ({req.prompt_len} tokens) exceeds the "
+                f"whole-prompt admission width ({self.width}) — "
+                "construct the engine with prefill_chunk > 0")
+        self._requests.append(req)   # rejected ones count too
+        if self._queued >= self.max_queue:
+            req.state = RequestState.REJECTED
+            req.finished_ts = req.arrival_ts
+            self._tm.rejected(1)
+            raise QueueFull(req, self.max_queue)
+        heapq.heappush(self._heap, (req.sched_key(), req))
+        self._queued += 1
+        self._tm.set_queue_depth(self._queued)
+        return req
+
+    def try_submit(self, tokens, **kw) -> Request | None:
+        """:meth:`submit` that returns None on a full queue (the
+        rejection still counts)."""
+        try:
+            return self.submit(tokens, **kw)
+        except QueueFull:
+            return None
+
+    # --------------------------------------------------------- scheduling
+    def _pop_best(self, now: float) -> Request | None:
+        """The best queued request; expired heads are dropped on the way,
+        before they touch a slot."""
+        while self._heap:
+            _, req = heapq.heappop(self._heap)
+            self._queued -= 1
+            if req.deadline is not None and now > req.deadline:
+                req.state = RequestState.EXPIRED
+                req.finished_ts = now
+                self._tm.expired(1)
+                continue
+            return req
+        return None
+
+    def _collect_chunks(self):
+        """This tick's chunk batch: every partial prompt advances one
+        chunk; last chunks finalize."""
+        chunks, arrivals, waits, fins = [], {}, {}, []
+        for slot, (req, off) in self._partials.items():
+            end = min(off + self.width, req.prompt_len)
+            fin = end == req.prompt_len
+            chunks.append((slot, req.tokens[off:end], off, fin))
+            if fin:
+                # TTFT runs in the perf_counter domain
+                arrivals[slot] = req.arrival_perf
+                waits[slot] = max(0.0, req.admitted_ts - req.arrival_ts)
+                fins.append((slot, req))
+            else:
+                self._partials[slot][1] = end
+        return chunks, arrivals, waits, fins
+
+    def _finish(self, req: Request, now: float,
+                state: RequestState = RequestState.DONE) -> None:
+        req.output = self.session.evict(req.slot)[:req.max_new_tokens]
+        del self._by_slot[req.slot]
+        req.slot = None
+        req.state = state
+        req.finished_ts = now
+
+    # --------------------------------------------------------------- tick
+    def poll(self) -> dict:
+        """ONE scheduler tick: admit into freed slots, advance every
+        partial prefill by one chunk, and decode one token across the
+        live batch. Returns {"admitted": [...], "finished": [...],
+        "emitted": n}."""
+        if self._closed:
+            raise RuntimeError("engine is closed")
+        now = self.clock()
+        admitted: list[Request] = []
+        finished: list[Request] = []
+        sess = self.session
+
+        # 1. fill freed slots with the best queued requests
+        while self._queued:
+            req = self._pop_best(now)
+            if req is None:
+                break
+            slot = sess.alloc_slot()
+            if slot is None:
+                # no capacity: back into the queue, same FIFO position
+                heapq.heappush(self._heap, (req.sched_key(), req))
+                self._queued += 1
+                break
+            req.state = RequestState.PREFILLING
+            req.slot = slot
+            req.admitted_ts = now
+            self._partials[slot] = [req, 0]
+            admitted.append(req)
+
+        # 2. one chunk for every partial prompt and one decode token for
+        # every live row; rows the chunk half finalizes emit their first
+        # token in the same tick. The engine only starts a decode tick
+        # when it owns decodable work (ticks are communal on the session)
+        own_active = any(sess.is_active(s) for s in self._by_slot)
+        chunks, arrivals, waits, fins = (
+            self._collect_chunks() if self._partials else ([], {}, {}, []))
+        if chunks and (fins or own_active):
+            emitted = sess.fused_tick(chunks, self.width, arrivals=arrivals,
+                                      queue_waits=waits)
+        elif chunks:
+            sess.prefill_chunks(chunks, self.width, arrivals=arrivals,
+                                queue_waits=waits)
+            emitted = {}
+        elif own_active:
+            emitted = sess.step()
+        else:
+            emitted = {}
+        for slot, req in fins:
+            del self._partials[slot]
+            req.state = RequestState.DECODING
+            self._by_slot[slot] = req
+
+        emitted_n = 0
+        if emitted:
+            now = self.clock()
+            eos = sess.eos_token_id
+            for slot, tok in emitted.items():
+                req = self._by_slot.get(slot)
+                if req is None:
+                    continue   # a direct session.admit() user's slot
+                req.output.append(int(tok))
+                emitted_n += 1
+                if req.first_token_ts is None:
+                    req.first_token_ts = now
+                if (eos is not None and tok == eos) \
+                        or len(req.output) >= req.max_new_tokens:
+                    self._finish(req, now)
+                    finished.append(req)
+        # rows the session froze itself (cache full) stop without an eos
+        for slot, req in list(self._by_slot.items()):
+            if req.state is RequestState.DECODING \
+                    and not sess.is_active(slot):
+                self._finish(req, now)
+                finished.append(req)
+        self._tm.set_queue_depth(self._queued)
+        return {"admitted": admitted, "finished": finished,
+                "emitted": emitted_n}
+
+    def run(self, max_ticks: int | None = None,
+            deadline: float | None = None) -> int:
+        """Tick until every submitted request is terminal (or
+        ``max_ticks``). Returns the tick count. ``deadline`` (seconds of
+        wall clock) bounds the drain with a TimeoutError naming the stuck
+        requests. Raises RuntimeError when starved: requests queued but
+        every slot held by work this engine does not own."""
+        n = stalls = 0
+        t_end = None if deadline is None else time.monotonic() + deadline
+        while self._queued or self._partials or self._by_slot:
+            if t_end is not None and time.monotonic() > t_end:
+                stuck = [f"{r.request_id}({r.state.value})"
+                         for r in self._requests if not r.finished()]
+                raise TimeoutError(
+                    f"engine drain exceeded its {deadline}s deadline after "
+                    f"{n} tick(s) with {len(stuck)} request(s) still live: "
+                    + ", ".join(stuck[:8]))
+            out = self.poll()
+            n += 1
+            if (out["admitted"] or out["finished"] or out["emitted"]
+                    or self._partials or self._by_slot):
+                stalls = 0
+            else:
+                stalls += 1
+                if stalls >= self.STALL_LIMIT:
+                    raise RuntimeError(
+                        f"engine starved: {self._queued} queued request(s) "
+                        "but no free slots and no engine-owned work for "
+                        f"{stalls} consecutive polls")
+            if max_ticks is not None and n >= max_ticks:
+                break
+        return n
+
+    def close(self, drain: bool = True, max_ticks: int = 1_000_000,
+              deadline: float | None = None) -> None:
+        """Shut the engine down: ``drain=True`` finishes every queued and
+        in-flight request first; ``drain=False`` cancels queued and
+        mid-prefill requests and evicts decoding ones with what they
+        produced. The session stays usable."""
+        if self._closed:
+            return
+        if drain:
+            ticks = self.run(max_ticks=max_ticks, deadline=deadline)
+            if self._queued or self._partials or self._by_slot:
+                raise RuntimeError(
+                    f"engine failed to drain within {ticks} ticks")
+        else:
+            now = self.clock()
+            while self._heap:
+                _, req = heapq.heappop(self._heap)
+                req.state = RequestState.CANCELLED
+                req.finished_ts = now
+            self._queued = 0
+            for slot, (req, _) in list(self._partials.items()):
+                self.session.release_slot(slot)
+                req.state = RequestState.CANCELLED
+                req.finished_ts = now
+                req.slot = None
+            self._partials.clear()
+            for req in list(self._by_slot.values()):
+                self._finish(req, now, state=RequestState.CANCELLED)
+        self._tm.set_queue_depth(0)
+        self._closed = True
+
+    # ------------------------------------------------------------ reading
+    @property
+    def pending(self) -> int:
+        """Requests not yet terminal (queued + prefilling + decoding)."""
+        return self._queued + len(self._partials) + len(self._by_slot)
+
+    @property
+    def requests(self) -> list[Request]:
+        """Every request ever submitted (terminal ones included)."""
+        return list(self._requests)
+
+    def metrics(self) -> dict:
+        """Session serving metrics + scheduler state."""
+        out = dict(self.session.metrics())
+        out["queue_depth"] = self._queued
+        out["requests_inflight"] = len(self._partials) + len(self._by_slot)
+        out["requests_submitted"] = len(self._requests)
+        by_state: dict[str, int] = {}
+        for r in self._requests:
+            by_state[r.state.value] = by_state.get(r.state.value, 0) + 1
+        out["requests_by_state"] = dict(sorted(by_state.items()))
+        return dict(sorted(out.items()))

@@ -1,0 +1,94 @@
+"""The port stands alone: no module under paddle_tpu_torch/ imports jax or
+paddle_tpu, the package imports and serves with both blocked, and every
+entry point defaults to the CUDA device and raises without one."""
+import ast
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "paddle_tpu_torch"
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
+    REPO / "chip_smoke.py"], ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_import(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "paddle_tpu"}
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_package_runs_with_jax_blocked():
+    script = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "paddle_tpu"):
+            sys.modules[name] = None      # any import of them now fails
+        import numpy as np, torch
+        torch.set_num_threads(1)
+        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.inference import GenerationSession
+        from paddle_tpu_torch.serving import ServingEngine
+        cfg = gpt.gpt_tiny(n_layers=2)
+        params = gpt.init_params(cfg, seed=0, device="cpu")
+        prompt = np.arange(10).reshape(2, 5) % cfg.vocab_size
+        out = gpt.generate(params, cfg, prompt, 4, device="cpu")
+        eng = ServingEngine(GenerationSession(params, cfg, max_slots=2,
+                                              max_prompt_len=8,
+                                              device="cpu"), device="cpu")
+        reqs = [eng.submit(p, max_new_tokens=4) for p in prompt]
+        eng.run()
+        assert [r.output for r in reqs] == out[:, 5:].tolist()
+        assert not any(m and m.startswith(("jax", "paddle_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("OK")
+        """)
+    res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from paddle_tpu_torch import resolve_device
+    from paddle_tpu_torch.inference import GenerationSession
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.serving import ServingEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = gpt.gpt_tiny(n_layers=1)
+    params = gpt.init_params(cfg, device="cpu")
+    sess = GenerationSession(params, cfg, max_slots=1, device="cpu")
+    tree = {k: (v.numpy() if torch.is_tensor(v)
+                else {n: t.numpy() for n, t in v.items()})
+            for k, v in params.items()}
+    calls = {
+        "resolve_device": lambda: resolve_device(),
+        "init_params": lambda: gpt.init_params(cfg),
+        "params_from_numpy": lambda: gpt.params_from_numpy(tree, cfg),
+        "init_kv_cache": lambda: gpt.init_kv_cache(cfg, 1),
+        "generate": lambda: gpt.generate(params, cfg, np.zeros((1, 2)), 1),
+        "GenerationSession": lambda: GenerationSession(params, cfg, 1),
+        "ServingEngine": lambda: ServingEngine(sess),
+        "explicit cuda": lambda: resolve_device("cuda"),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+    # CPU params handed to a CUDA call are refused, never moved silently
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="params live on cpu"):
+        gpt.generate(params, cfg, np.zeros((1, 2)), 1)
