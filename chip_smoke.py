@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py              # every phase, exits 0 only if all pass
-    python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,kernels,train,train_parity
 
 Phases, each fatal on failure:
 
@@ -18,7 +18,7 @@ Phases, each fatal on failure:
 3. generate — gpt3_1p3b at full width (24 layers, bf16, random weights from
               a seed): generate() on B=4 x P=256 (+32 tokens) and on
               B=2 x P=200. Launch counters are zeroed just before and read
-              just after; both kernels must have run.
+              just after; both serving kernels must have run.
 4. server   — GenerationSession(max_slots=8, max_prompt_len=384,
               max_len=512) behind a ServingEngine replays 12 seeded
               requests, whole-prompt and with prefill_chunk=128; every
@@ -27,6 +27,18 @@ Phases, each fatal on failure:
 5. parity   — gpt3_1p3b(n_layers=2) in f32: the CPU (plain versions) and
               the card (kernels) on the same numpy weights and prompt must
               agree on prefill and 4 decode steps' logits.
+6. train    — gpt3_1p3b(remat=True, fused_adamw=True, xent_chunks=4) at
+              full width trains on one seeded B=4 x S=2048 batch: a warm-up
+              step, then 5 timed steps with the launch counters zeroed just
+              before and read just after (flash forward, both backward
+              kernels and fused AdamW must have run); every loss finite and
+              the last below the first; one profiled step; then the eval
+              step and generate() on the trained params.
+7. train_parity — gpt3_1p3b(n_layers=2, f32, fused_adamw, remat,
+              xent_chunks=2), B=2 x S=256, 3 steps on the CPU (plain
+              versions) and on the card (kernels) from the same numpy
+              weights: losses within 1e-4, params within the AdamW
+              tolerance.
 
 The line before the last holds {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or run from a
@@ -43,7 +55,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "generate", "server", "parity")
+PHASES = ("build", "kernels", "generate", "server", "parity", "train",
+          "train_parity")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -55,10 +68,36 @@ PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 # f32 differs only by summation order (TF32 off)
 TOL = {"bf16": 3e-2, "f32": 2e-4}
 DECODE_TOL = {"bf16": 2e-4, "f32": 2e-4}   # decode math is f32 either way
+# flash backward against its plain version, relative to max|grad|: in bf16
+# the plain version rounds p to bf16 before p^T dO (the kernels keep p and
+# ds in f32) and both round dq, dk, dv to bf16; in f32 only the summation
+# order differs
+BWD_TOL = {"bf16": 2 ** -6, "f32": 1e-4}
+# fused AdamW against its plain version: f32 moments to a few f32 roundings
+# (the kernel may fuse multiply-adds) relative to max|m|, max|v|; a bf16 p
+# elementwise to one bf16 rounding of the f32 result, relative to |p| plus
+# a floor of 1e-5 of the leaf's largest |p|: where p and lr * update nearly
+# cancel, the two f32 results differ by an f32 rounding of p, which is
+# large against the tiny difference itself
+ADAMW_MOMENT_TOL = 1e-5
+ADAMW_BF16_REL = 2 ** -7
+ADAMW_CANCEL_FLOOR = 1e-5
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _kernel_label(line: str) -> str:
+    """``kernel<dtype, D>`` from ptxas' "Compiling entry function '<mangled
+    name>'" line (enough to tell the template instances apart)."""
+    import re
+    mangled = line.split("'")[1] if "'" in line else line
+    name = re.search(r"\d+([a-z_]+_kernel)I", mangled)
+    dim = re.search(r"Li(\d+)E", mangled)
+    dtype = "bf16" if "bfloat16" in mangled else "f32"
+    return (f"{name.group(1) if name else mangled[:40]}<{dtype}"
+            + (f", {dim.group(1)}>" if dim else ">"))
 
 
 class Smoke:
@@ -90,8 +129,16 @@ class Smoke:
             f"{time.perf_counter() - t0:.2f} s wall "
             + json.dumps({k: round(v, 2) for k, v in secs.items()}))
         for name in _build.sources():
+            kernel, spill = "?", ""
             for line in _build.build_log(name).splitlines():
-                if "registers" in line or "spill" in line or "error" in line:
+                if "Compiling entry function" in line:
+                    kernel = _kernel_label(line)
+                elif "spill" in line:
+                    spill = line.strip()
+                elif "registers" in line:
+                    used = line.split(":", 1)[-1].strip()
+                    log(f"[build] {name}: {kernel}: {used}; {spill}")
+                elif "error" in line:
                     log(f"[build] {name}: {line.strip()}")
 
     # ---------------------------------------------------------- kernels
@@ -220,6 +267,237 @@ class Smoke:
             self.rows["decode_attention"] = case
         return case
 
+    @staticmethod
+    def _causal_pairs(Sq, Skv, causal):
+        """(query, key) pairs the mask leaves live."""
+        if not causal:
+            return Sq * Skv
+        off = Skv - Sq
+        return sum(min(Skv, i + off + 1) for i in range(Sq))
+
+    def _bound(self, ops, nbytes, tname):
+        t_ops = ops / PEAK_OPS[tname] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+    def _flash_bwd_case(self, B, H, Sq, Skv, d, dtype, causal, time_it,
+                        main=False):
+        """Both backward kernels against their plain versions (error
+        relative to max|grad|), and with time_it their times: each kernel
+        alone, the whole backward (di + both kernels) against its 10*d
+        bound, the plain versions and SDPA's backward."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from paddle_tpu_torch.ops.kernels import flash_attention as fa
+        g = torch.Generator(device=self.dev).manual_seed(B * 77 + Sq + Skv)
+        mk = lambda s: torch.randn((B, H, s, d), generator=g,
+                                   device=self.dev).to(dtype)
+        q, k, v, do = mk(Sq), mk(Skv), mk(Skv), mk(Sq)
+        scale = 1.0 / d ** 0.5
+        tname = "bf16" if dtype == torch.bfloat16 else "f32"
+        with torch.no_grad():
+            out, lse = fa.flash_attention(q, k, v, scale, causal, True)
+        di = fa.softmax_grad_rowsum(out, do)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, di, scale, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, scale,
+                                            causal)
+        torch.cuda.synchronize()
+        rq = fa.bwd_dq_ref(q, k, v, do, lse, di, scale, causal)
+        rk, rv = fa.bwd_dkv_ref(q, k, v, do, lse, di, scale, causal)
+        errs, rel = {}, {}
+        for name, a, r in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+            if not bool(torch.isfinite(a.float()).all()):
+                raise AssertionError(f"flash backward {name} not finite")
+            errs[name] = (a.float() - r.float()).abs().max().item()
+            rel[name] = errs[name] / max(r.float().abs().max().item(), 1e-30)
+        base = dict(shape=[B, H, Sq, Skv, d], dtype=tname, causal=causal,
+                    tol_rel_to_max_grad=BWD_TOL[tname])
+        cases = {
+            "flash_attention_bwd_dq": dict(
+                base, kernel="flash_attention_bwd_dq",
+                max_abs_err=errs["dq"], rel_err=rel["dq"]),
+            "flash_attention_bwd_dkv": dict(
+                base, kernel="flash_attention_bwd_dkv",
+                max_abs_err=max(errs["dk"], errs["dv"]),
+                rel_err=max(rel["dk"], rel["dv"]))}
+        for case in cases.values():
+            log(f"[kernels] {json.dumps(case)}")
+        if max(rel.values()) > BWD_TOL[tname]:
+            raise AssertionError(f"flash backward disagrees with its plain "
+                                 f"version: {rel} > {BWD_TOL[tname]}")
+        if not time_it:
+            return cases
+        pairs = self._causal_pairs(Sq, Skv, causal)
+        elem = q.element_size()
+        row = B * H * Sq * 4                        # one f32 per query row
+        qo, kv = q.numel() * elem, k.numel() * elem
+        # SDPA's backward computes dq, dk and dv together: the yardstick of
+        # both kernels (its forward is outside the timed region)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        if causal and Sq == Skv:
+            lout = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                                  scale=scale)
+        else:
+            rows = torch.arange(Sq, device=self.dev)[:, None] + (Skv - Sq)
+            mask = (rows >= torch.arange(Skv, device=self.dev)[None, :]) \
+                if causal else None
+            lout = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                                  scale=scale)
+        library_ms = self.time_ms(
+            lambda: torch.autograd.grad(lout, (ql, kl, vl), do,
+                                        retain_graph=True), iters=10)
+        timed = (
+            ("flash_attention_bwd_dq", 6,
+             3 * qo + 2 * kv + 2 * row,             # q, dO, dq, k, v, lse, di
+             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, di, scale,
+                                               causal),
+             lambda: fa.bwd_dq_ref(q, k, v, do, lse, di, scale, causal)),
+            ("flash_attention_bwd_dkv", 8,
+             2 * qo + 4 * kv + 2 * row,     # q, dO, k, v, dk, dv, lse, di
+             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, scale,
+                                                causal),
+             lambda: fa.bwd_dkv_ref(q, k, v, do, lse, di, scale, causal)))
+        for name, ops_per_d, nbytes, kern, plain in timed:
+            case = cases[name]
+            case["ms"] = self.time_ms(kern, iters=10, warmup=2)
+            case["plain_ms"] = self.time_ms(plain, iters=3, warmup=1)
+            case["library_ms"] = library_ms
+            case["library"] = "sdpa backward (dq, dk, dv together)"
+            case.update(self._bound(ops_per_d * d * B * H * pairs, nbytes,
+                                    tname))
+            case["ops_per_pair"] = f"{ops_per_d}*d"
+            log(f"[kernels] {json.dumps(case)}")
+            if main:
+                self.rows[name] = case
+        # the whole backward against the least work any backward needs:
+        # s, dp, dq, dk, dv once each (10*d per pair) and each tensor moved
+        # once; the two-kernel design recomputes s and dp (14*d)
+        whole = dict(base, kernel="flash_attention_bwd (di + dq + dk/dv)",
+                     ops_per_pair_bound="10*d", ops_per_pair_kernels="14*d")
+        whole["ms"] = self.time_ms(
+            lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, scale,
+                                           causal), iters=10, warmup=2)
+        whole["plain_ms"] = self.time_ms(
+            lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, do, scale,
+                                               causal), iters=3, warmup=1)
+        whole["library_ms"] = library_ms
+        whole.update(self._bound(10 * d * B * H * pairs,
+                                 4 * qo + 4 * kv + row, tname))
+        whole["bound_ms_kernels_ops"] = \
+            14 * d * B * H * pairs / PEAK_OPS[tname] * 1e3
+        log(f"[kernels] {json.dumps(whole)}")
+        return cases
+
+    def _adamw_check(self, params, grads, m, v, step, lr, wd, label,
+                     grad_scale=None):
+        """One fused update on the card against the plain version on the
+        same leaves (taken first: the kernel updates in place). Returns
+        the case dict with the largest absolute error."""
+        torch = self.torch
+        from paddle_tpu_torch.ops.kernels import fused_adamw as fw
+        sc = fw.adamw_scalars(step, lr, 0.9, 0.999, 1e-8, grad_scale,
+                              self.dev)
+        leaves = [fw.tree_flatten(t) for t in (params, grads, m, v)]
+        want = [fw.reference_update(p.reshape(-1), g_.reshape(-1),
+                                    mm.reshape(-1), vv.reshape(-1), sc, wd)
+                for p, g_, mm, vv in zip(*leaves)]
+        got = fw.fused_adamw_update(params, grads, m, v, step, lr, wd=wd,
+                                    grad_scale=grad_scale, device=self.dev)
+        torch.cuda.synchronize()
+        err, worst_p, worst_mv = 0.0, 0.0, 0.0
+        for (p, mm, vv), (p2, m2, v2) in zip(
+                zip(*(fw.tree_flatten(t) for t in got)), want):
+            dp = (p.reshape(-1).float() - p2.float()).abs()
+            err = max(err, dp.max().item())
+            if p.dtype == torch.bfloat16:
+                ref = p2.float().abs()
+                floor = ADAMW_CANCEL_FLOOR * ref.max().clamp_min(1e-30)
+                worst_p = max(worst_p, (dp / (ref + floor)).max().item())
+            for a, b in ((mm, m2), (vv, v2)):
+                d_ = (a.reshape(-1) - b).abs().max().item()
+                err = max(err, d_)
+                worst_mv = max(worst_mv, d_ / max(b.abs().max().item(),
+                                                  1e-30))
+            if not bool(torch.isfinite(p).all()):
+                raise AssertionError("fused_adamw produced non-finite params")
+        case = dict(kernel="fused_adamw", case=label,
+                    elements=sum(p.numel() for p in leaves[0]),
+                    leaves=len(leaves[0]), max_abs_err=err,
+                    p_bf16_rel_err=worst_p, moment_rel_err=worst_mv,
+                    tol=dict(p_bf16_rel=ADAMW_BF16_REL,
+                             p_floor_of_max=ADAMW_CANCEL_FLOOR,
+                             moment_rel=ADAMW_MOMENT_TOL))
+        log(f"[kernels] {json.dumps(case)}")
+        if worst_p > ADAMW_BF16_REL or worst_mv > ADAMW_MOMENT_TOL:
+            raise AssertionError(f"fused_adamw disagrees with its plain "
+                                 f"version: {case}")
+        return case
+
+    def _adamw_cases(self):
+        torch = self.torch
+        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.ops.kernels import fused_adamw as fw
+        g = torch.Generator(device=self.dev).manual_seed(7)
+        rnd = lambda shape, s, dt: (torch.randn(shape, generator=g,
+                                                device=self.dev) * s).to(dt)
+        step = torch.tensor(3, dtype=torch.int32, device=self.dev)
+        # a ragged f32 leaf (tail past the last 8-element vector), and a bf16
+        # leaf at an odd element offset (no 16-byte alignment: scalar loop)
+        n = 2 ** 24 + 3
+        self._adamw_check({"w": rnd((n,), 1.0, torch.float32)},
+                          {"w": rnd((n,), 1.0, torch.float32)},
+                          {"w": rnd((n,), 0.1, torch.float32)},
+                          {"w": rnd((n,), 0.1, torch.float32).abs()}, step,
+                          1e-3, 0.1, "f32 leaf of 2^24+3", grad_scale=0.5)
+        odd = [rnd((4097,), s, dt)[1:] for s, dt in (
+            (1.0, torch.bfloat16), (1.0, torch.bfloat16),
+            (0.1, torch.float32), (0.1, torch.float32))]
+        odd[3] = odd[3].abs()
+        self._adamw_check(*({"w": t} for t in odd), step, 1e-3, 0.1,
+                          "bf16 leaf at an odd offset")
+        # every leaf of gpt3_1p3b, bf16 params and grads, f32 moments
+        cfg = gpt.gpt3_1p3b()
+        shapes = fw.tree_flatten(gpt._shapes(cfg))
+        like = gpt._shapes(cfg)
+        mk = lambda s, dt: fw.tree_unflatten(
+            like, [rnd(shape, s, dt) for shape in shapes])
+        params, grads = mk(0.02, torch.bfloat16), mk(1e-3, torch.bfloat16)
+        m = mk(1e-4, torch.float32)
+        v = fw.tree_unflatten(like, [rnd(shape, 1e-4, torch.float32) ** 2
+                                     for shape in shapes])
+        case = self._adamw_check(params, grads, m, v, step, 3e-4, 0.1,
+                                 "gpt3_1p3b tree, bf16 p, f32 m/v")
+        n_el = case["elements"]
+        case["ms"] = self.time_ms(
+            lambda: fw.fused_adamw_update(params, grads, m, v, step, 3e-4,
+                                          wd=0.1, device=self.dev),
+            iters=10, warmup=2)
+        sc = fw.adamw_scalars(step, 3e-4, 0.9, 0.999, 1e-8, None, self.dev)
+        flat = [fw.tree_flatten(t) for t in (params, grads, m, v)]
+        case["plain_ms"] = self.time_ms(
+            lambda: [fw.reference_update(*leaf, sc, 0.1)
+                     for leaf in zip(*flat)], iters=3, warmup=1)
+        # 2 + 2 + 4 + 4 bytes read and 2 + 4 + 4 written per element
+        case.update(self._bound(12 * n_el, 22 * n_el, "f32"))
+        del params, grads, m, v, flat
+        torch.cuda.empty_cache()
+        # torch's fused AdamW computes the same function only with f32
+        # params (bf16 params would get bf16 moments): an f32 tree of the
+        # same element count, 16 + 12 bytes an element
+        lib_p = [torch.zeros(sh, device=self.dev).requires_grad_()
+                 for sh in shapes]
+        for t in lib_p:
+            t.grad = torch.full_like(t, 1e-3)
+        opt = torch.optim.AdamW(lib_p, lr=3e-4, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=0.1, fused=True)
+        case["library_ms"] = self.time_ms(opt.step, iters=10, warmup=2)
+        case["library"] = "torch.optim.AdamW(fused=True), f32 params"
+        del opt, lib_p
+        torch.cuda.empty_cache()
+        log(f"[kernels] {json.dumps(case)}")
+        self.rows["fused_adamw"] = case
+
     def phase_kernels(self):
         torch = self.torch
         bf16, f32 = torch.bfloat16, torch.float32
@@ -239,15 +517,28 @@ class Smoke:
         # the server phase's decode shape: 8 slots, 512-position cache
         self._decode_case(8, 16, 512, 128, 1, bf16, True, main=True)
         self._decode_case(3, 4, 64, 16, 3, f32, False)
+        # the train phase's attention shape, forward and backward
+        self._flash_case(4, 16, 2048, 2048, 128, bf16, True, True, True)
+        self._flash_bwd_case(4, 16, 2048, 2048, 128, bf16, True, True,
+                             main=True)
+        self._flash_bwd_case(2, 16, 200, 200, 128, bf16, True, False)
+        self._flash_bwd_case(2, 4, 256, 256, 64, f32, True, False)
+        self._flash_bwd_case(1, 2, 70, 70, 16, f32, False, False)
+        self._flash_bwd_case(1, 2, 33, 97, 32, bf16, True, False)
+        self._adamw_cases()
 
     # ------------------------------------------------------ main path
     def _counters(self):
+        from paddle_tpu_torch.ops.kernels import flash_attention as fa
         from paddle_tpu_torch.ops.kernels.decode_attention import (
             decode_attention)
-        from paddle_tpu_torch.ops.kernels.flash_attention import (
-            flash_attention)
-        return {"flash_attention_fwd": flash_attention,
-                "decode_attention": decode_attention}
+        from paddle_tpu_torch.ops.kernels.fused_adamw import (
+            fused_adamw_update)
+        return {"flash_attention_fwd": fa.flash_attention,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                "decode_attention": decode_attention,
+                "fused_adamw": fused_adamw_update}
 
     def _zero_counts(self):
         for fn in self._counters().values():
@@ -468,6 +759,161 @@ class Smoke:
             raise AssertionError(f"CPU and card disagree: {errs}, {agree}")
 
 
+    # ------------------------------------------------------------ train
+    @staticmethod
+    def _model_flops(cfg, tokens: int, seq: int) -> float:
+        """Model FLOPs of one train step (no recompute counted): 6 per
+        token per weight that multiplies activations (every block matrix
+        and the tied lm-head; embeddings and LayerNorms are not products)
+        plus causal attention, 6 * L * S * D per token (QK^T and PV, half
+        the pairs, forward and twice that backward)."""
+        D, L, V = cfg.hidden, cfg.n_layers, cfg.vocab_size
+        n_mat = L * 12 * D * D + V * D
+        return 6.0 * n_mat * tokens + 6.0 * L * seq * D * tokens
+
+    def _step_profile(self, step, params, opt, tokens, labels):
+        """One train step under torch.profiler: the device's busy share
+        against the unprofiled step time and the kernels that take the most
+        device time. Returns the updated (params, opt)."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _ = step(params, opt, tokens, labels)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, _ = step(params, opt, tokens, labels)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev_us = lambda e: getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0))
+        cuda = torch.autograd.DeviceType.CUDA
+        rows = [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) == cuda and dev_us(e) > 0]
+        busy_ms = sum(dev_us(e) for e in rows) / 1e3
+        top = sorted(rows, key=dev_us, reverse=True)[:10]
+        log("[profile] " + json.dumps(dict(
+            region="train_step", wall_ms_unprofiled=round(plain_ms, 3),
+            wall_ms_profiled=round(wall_ms, 3),
+            device_busy_ms=round(busy_ms, 3),
+            device_busy_share=round(busy_ms / plain_ms, 4) if busy_ms
+            else None,
+            top=[dict(name=e.key[:70], ms=round(dev_us(e) / 1e3, 3),
+                      calls=e.count, share=round(dev_us(e) / 1e3 / busy_ms,
+                                                 4))
+                 for e in top])))
+        return params, opt
+
+    def phase_train(self):
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.models import gpt
+        _, params = self._model()
+        cfg = gpt.gpt3_1p3b(remat=True, fused_adamw=True, xent_chunks=4)
+        B, S, n_timed = 4, 2048, 5
+        tok = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                                (B, S + 1))
+        tokens = torch.as_tensor(tok[:, :-1], device=self.dev)
+        labels = torch.as_tensor(tok[:, 1:], device=self.dev)
+        opt = gpt.adamw_init(params, dtype=cfg.opt_dtype, device=self.dev)
+        step = gpt.build_train_step(cfg, device=self.dev)
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens, labels)   # warm-up
+        losses.append(float(loss))
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        self._zero_counts()
+        times = []
+        for _ in range(n_timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, tokens, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated()
+        counts = self._read_counts("train", (
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv", "fused_adamw"))
+        # remat runs each block's forward twice (forward, recompute)
+        per_step = {"flash_attention_fwd": 2 * cfg.n_layers,
+                    "flash_attention_bwd_dq": cfg.n_layers,
+                    "flash_attention_bwd_dkv": cfg.n_layers,
+                    "fused_adamw": 16, "decode_attention": 0}
+        want = {n: c * n_timed for n, c in per_step.items()}
+        if counts != want:
+            raise AssertionError(f"train launches {counts}, expected {want}")
+        step_s = sum(times) / len(times)
+        flops = self._model_flops(cfg, B * S, S)
+        log("[train] " + json.dumps(dict(
+            config="gpt3_1p3b(remat=True, fused_adamw=True, xent_chunks=4)",
+            batch=B, seq=S, warmup_step_s=round(warm_s, 3),
+            step_ms=[round(t * 1e3, 3) for t in times],
+            step_ms_mean=round(step_s * 1e3, 3),
+            tokens_per_s=round(B * S / step_s, 1),
+            losses=losses, max_memory_allocated_gib=round(peak / 2 ** 30, 3),
+            model_flops_per_step=flops,
+            mfu_bf16_peak=round(flops / step_s / PEAK_OPS["bf16"], 4),
+            mfu_formula="(6*(L*12*D^2 + V*D) + 6*L*S*D) * tokens / step_s "
+                        "/ 989e12")))
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train losses bad: {losses}")
+        params, opt = self._step_profile(step, params, opt, tokens, labels)
+        eval_loss = float(gpt.build_eval_step(cfg, device=self.dev)(
+            params, tokens, labels))
+        out = gpt.generate(params, cfg, tok[:2, :64], 8, device=self.dev)
+        ok_out = out.shape == (2, 72) and bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all())
+        log("[train] " + json.dumps(dict(eval_loss=eval_loss,
+                                         generate_shape=list(out.shape))))
+        if not np.isfinite(eval_loss) or not ok_out:
+            raise AssertionError(f"eval {eval_loss} / generate {out.shape} "
+                                 "after training failed")
+        del opt
+        self.torch.cuda.empty_cache()
+
+    def phase_train_parity(self):
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.ops.kernels.fused_adamw import tree_flatten
+        cfg = gpt.gpt3_1p3b(n_layers=2, dtype=torch.float32, fused_adamw=True,
+                            remat=True, xent_chunks=2)
+        lr, steps = 3e-4, 3
+        tok = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 257))
+        sides = {}
+        for dev in ("cpu", self.dev):
+            params = gpt.init_params(cfg, seed=0, device=dev)
+            opt = gpt.adamw_init(params, device=dev)
+            step = gpt.build_train_step(cfg, lr=lr, device=dev)
+            losses = []
+            for _ in range(steps):
+                params, opt, loss = step(params, opt, tok[:, :-1],
+                                         tok[:, 1:])
+                losses.append(float(loss))
+            sides[str(dev)] = (losses, [t.cpu() for t in
+                                        tree_flatten(params)])
+        (lc, pc), (lg, pg) = sides["cpu"], sides[str(self.dev)]
+        loss_err = max(abs(a - b) for a, b in zip(lc, lg))
+        param_err = max((a - b).abs().max().item() for a, b in zip(pc, pg))
+        # AdamW steps every element by about lr whatever its gradient, so
+        # an element whose gradient is summation noise may step the other
+        # way on the other device: 2 * lr per step
+        param_tol = 2 * lr * steps
+        log("[train_parity] " + json.dumps(dict(
+            config="gpt3_1p3b(n_layers=2, f32, fused_adamw, remat, "
+                   "xent_chunks=2)", batch=[2, 256], steps=steps,
+            losses_cpu=lc, losses_card=lg, max_loss_err=loss_err,
+            loss_tol=1e-4, max_param_err=param_err, param_tol=param_tol)))
+        if loss_err > 1e-4 or param_err > param_tol:
+            raise AssertionError("CPU and card training disagree")
+
+
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -514,13 +960,20 @@ def main(argv=None) -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
+    csrc, pallas = "paddle_tpu_torch/csrc/", "paddle_tpu/ops/pallas/"
     for name, src, rep in (
-            ("flash_attention_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-             "paddle_tpu/ops/pallas/flash_attention.py:55"),
-            ("decode_attention", "paddle_tpu_torch/csrc/decode_attention.cu",
-             "paddle_tpu/ops/pallas/decode_attention.py:217")):
+            ("flash_attention_fwd", "flash_attention_fwd.cu",
+             "flash_attention.py:55"),
+            ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
+             "flash_attention.py:158"),
+            ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+             "flash_attention.py:196"),
+            ("decode_attention", "decode_attention.cu",
+             "decode_attention.py:217"),
+            ("fused_adamw", "fused_adamw.cu", "fused_adamw.py:34")):
         row = dict(smoke.rows.get(name, {}))
-        row.update(name=name, route="cuda", source=src, replaces=rep)
+        row.update(name=name, route="cuda", source=csrc + src,
+                   replaces=pallas + rep)
         row.setdefault("launches", 0)
         kernels.append({k: row.get(k) for k in keys})
     log(f"[total] {time.perf_counter() - t_all:.1f} s")

@@ -1,9 +1,10 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu.
 
-This slice serves the flagship GPT on one NVIDIA H100: ``generate()``,
-``GenerationSession`` and ``ServingEngine`` over the dense KV cache, with
-hand-written CUDA kernels for flash-attention forward and decode
-attention (``paddle_tpu_torch/csrc``). Every entry point runs on the card
+It serves the flagship GPT on one NVIDIA H100 (``generate()``,
+``GenerationSession`` and ``ServingEngine`` over the dense KV cache) and
+trains it there (``models.gpt.build_train_step``), with hand-written CUDA
+kernels for flash attention forward and backward, decode attention and
+fused AdamW (``paddle_tpu_torch/csrc``). Every entry point runs on the card
 unless the caller passes ``device="cpu"``; on the CPU each kernel wrapper
 runs its plain PyTorch version. The package imports torch and numpy,
 never jax or paddle_tpu.

@@ -1,35 +1,46 @@
-"""GPT serving path on one device — port of the single-chip inference half
-of paddle_tpu/models/gpt.py (dense FFN, dense KV cache, fp weights).
+"""GPT on one device — port of the single-chip halves of
+paddle_tpu/models/gpt.py: the serving path (dense FFN, dense KV cache, fp
+weights) and the dense train step (``build_spmd_train_step`` on a
+one-device mesh).
 
 Layouts are the reference's, so a weight conversion is only a dtype
 change: weights multiply as ``x @ W`` with ``W`` [D_in, D_out], block
 weights stack a leading layer dim [L, ...], caches are
-``[L, B, H, S, hd]`` and attention runs on ``[B, H, S, hd]``.
+``[L, B, H, S, hd]`` and attention runs on ``[B, H, S, hd]``. The same
+parameter tree trains and serves.
 
 Eager PyTorch replaces jit, donation and ``lax.scan``: layers run in a
 Python loop, and the KV cache is UPDATED IN PLACE (``cache[l][rows, :,
 positions] = ...``) where the reference rebuilt it with
 dynamic_update_slice under buffer donation — in place keeps one cache
-resident instead of a second [L, B, H, S, hd] copy per step.
+resident instead of a second [L, B, H, S, hd] copy per step. Training
+maps ``jax.checkpoint`` to ``torch.utils.checkpoint`` and
+``value_and_grad`` to ``torch.autograd.grad``.
 
-Attention goes through the two hand-written kernels: flash-attention
-forward for whole-prompt prefill, decode attention for every decode
-tick (``ops/kernels``). Suffix prefill keeps the reference's plain
-band-masked attention, which the reference also left to the compiler.
+Attention goes through the hand-written kernels: flash-attention forward
+for whole-prompt prefill and training (its backward kernels under
+autograd), decode attention for every decode tick (``ops/kernels``);
+fused AdamW updates the parameters when ``cfg.fused_adamw`` is set.
+Suffix prefill keeps the reference's plain band-masked attention, which
+the reference also left to the compiler.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import os
+import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.flash_attention import flash_attention
+from ..ops.kernels.fused_adamw import (fused_adamw_update, tree_flatten,
+                                       tree_unflatten)
 
 NEG_INF = -1e30
 _BLOCK_KEYS = ("ln1_g", "ln1_b", "w_qkv", "b_qkv", "w_o", "b_o", "ln2_g",
@@ -38,13 +49,39 @@ _BLOCK_KEYS = ("ln1_g", "ln1_b", "w_qkv", "b_qkv", "w_o", "b_o", "ln2_g",
 
 @dataclasses.dataclass
 class GPTConfig:
-    """The dense model and its serving fields."""
+    """The dense model, its training schedule and its serving fields."""
     vocab_size: int = 50304
     hidden: int = 2048
     n_layers: int = 24
     n_heads: int = 16
     max_seq: int = 2048
+    # kept for the reference's field set: its functional train step, like
+    # this one, applies no dropout
+    dropout: float = 0.0
     dtype: torch.dtype = torch.bfloat16
+    # mesh degrees and MoE: this slice is the dense single-device model
+    dp: int = 1
+    pp: int = 1
+    mp: int = 1
+    sp: int = 1
+    sharding: int = 1
+    ep: int = 1
+    moe_experts: int = 0
+    # schedule
+    micro_batches: int = 1
+    # recompute each block on the backward pass (torch.utils.checkpoint)
+    remat: bool = True
+    # "full" recomputes the whole block; the reference's "dots" policy
+    # (save matmul outputs) is not ported yet
+    remat_policy: str = "full"
+    # > 1 splits the lm-head cross entropy into this many sequence chunks,
+    # each recomputed on the backward pass, so the [B, S, V] f32 logits
+    # never exist at once
+    xent_chunks: int = 1
+    # one fused AdamW kernel per leaf (f32 moments only)
+    fused_adamw: bool = False
+    # AdamW moment dtype; the math runs in f32 either way
+    opt_dtype: torch.dtype = torch.float32
     # storage dtype of the K/V cache (None = dtype); attention math is
     # f32 whatever it is. The scaled-int8 cache is a later slice.
     kv_cache_dtype: torch.dtype | None = None
@@ -62,6 +99,18 @@ class GPTConfig:
             raise NotImplementedError(
                 f"kv_cache_dtype={self.kv_cache_dtype!r}: the scaled-int8 "
                 "KV cache belongs to the quantized-serving slice")
+        degrees = {n: getattr(self, n) for n in
+                   ("dp", "pp", "mp", "sp", "sharding", "ep")}
+        if any(d != 1 for d in degrees.values()) or self.moe_experts:
+            raise NotImplementedError(
+                f"mesh degrees {degrees}, moe_experts={self.moe_experts}: "
+                "the port runs the dense model on one device; MoE is "
+                "ROADMAP queue 1 item 11 and multi-device parallelism "
+                "item 13")
+        if self.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={self.remat_policy!r}: only 'full' is ported; "
+                "the 'dots' policy (save matmul outputs) is a later slice")
 
     @property
     def head_dim(self) -> int:
@@ -166,10 +215,12 @@ def params_from_numpy(tree: dict, cfg: GPTConfig, device=None) -> dict:
 
 
 def layer_params(params: dict) -> list[dict]:
-    """Per-layer views of the stacked block weights."""
+    """Per-layer views of the stacked block weights. ``unbind`` gives all
+    layers at once, so under autograd each stacked leaf gets one gradient
+    (a stack of the layers'), not one full-size zero-padded add per layer."""
     blocks = params["blocks"]
-    n = blocks["w_qkv"].shape[0]
-    return [{k: blocks[k][i] for k in _BLOCK_KEYS} for i in range(n)]
+    per_key = [blocks[k].unbind(0) for k in _BLOCK_KEYS]
+    return [dict(zip(_BLOCK_KEYS, views)) for views in zip(*per_key)]
 
 
 def check_params_device(params: dict, device: torch.device) -> None:
@@ -204,21 +255,50 @@ def _ffn_serving(x, h, p, cfg: GPTConfig):
     return x + ff @ p["w_out"] + p["b_out"]
 
 
+def _lm_product(x2, wte):
+    """[N, D] x [V, D]^T -> [N, V] f32 with operands in the params' dtype
+    and f32 accumulation. On the card a bf16 product goes through
+    ``torch.mm(..., out_dtype=torch.float32)`` (f32 output straight from
+    the f32 accumulator; a plain bf16 matmul would round the logits to
+    bf16); on the CPU the operands are upcast to f32, which gives the same
+    products (bf16 x bf16 is exact in f32)."""
+    if x2.dtype == torch.float32:
+        return x2 @ wte.t()
+    if x2.device.type == "cuda":
+        return torch.mm(x2, wte.t(), out_dtype=torch.float32)
+    return x2.float() @ wte.float().t()
+
+
+class _LMHead(torch.autograd.Function):
+    """The f32-output lm-head with a backward of plain matmuls (the f32
+    output form of ``torch.mm`` need not have one). The reference's
+    transpose multiplies the f32 logit gradient by the bf16 weights in
+    f32; on the card a bf16 model rounds that gradient to bf16 first, so
+    both products run on the bf16 tensor cores with f32 accumulation
+    instead of as f32 CUDA-core GEMMs. f32 models and the CPU keep f32."""
+
+    @staticmethod
+    def forward(ctx, x2, wte):
+        ctx.save_for_backward(x2, wte)
+        return _lm_product(x2, wte)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, wte = ctx.saved_tensors
+        if x2.dtype == torch.float32 or x2.device.type != "cuda":
+            gx = (g @ wte.float()).to(x2.dtype)
+            gw = (g.t() @ x2.float()).to(wte.dtype)
+        else:
+            g16 = g.to(x2.dtype)
+            gx, gw = g16 @ wte, g16.t() @ x2
+        return gx, gw
+
+
 def _lm_logits(x, params, cfg: GPTConfig):
-    """Tied vocab projection, [B, S, D] -> [B, S, V] f32 with operands in
-    the params' dtype and f32 accumulation. On the card a bf16 product
-    goes through ``torch.mm(..., out_dtype=torch.float32)`` (f32 output
-    straight from the f32 accumulator; a plain bf16 matmul would round
-    the logits to bf16); on the CPU the operands are upcast to f32,
-    which gives the same products (bf16 x bf16 is exact in f32)."""
+    """Tied vocab projection, [B, S, D] -> [B, S, V] f32 (see
+    :func:`_lm_product`), differentiable through :class:`_LMHead`."""
     wte = params["wte"]
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.dtype == torch.float32:
-        out = x2 @ wte.t()
-    elif x.device.type == "cuda":
-        out = torch.mm(x2, wte.t(), out_dtype=torch.float32)
-    else:
-        out = x2.float() @ wte.float().t()
+    out = _LMHead.apply(x.reshape(-1, x.shape[-1]), wte)
     return out.reshape(*x.shape[:-1], wte.shape[0])
 
 
@@ -539,3 +619,196 @@ def generate(params, cfg: GPTConfig, prompt_tokens, max_new_tokens=32,
         if i + 1 < max_new_tokens:   # the last token needs no forward
             logits, kc, vc = decode_one_token(params, cfg, tok, P + i, kc, vc)
     return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+
+
+# ==========================================================================
+# Training: the dense single-device branch of build_spmd_train_step
+# ==========================================================================
+def _block(x, p, cfg: GPTConfig):
+    """One transformer block over the whole sequence, x: [B, S, D]; p: one
+    layer's weights. Attention is the causal flash kernel (its backward
+    kernels under autograd on the card)."""
+    h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
+    q, k, v = _split_qkv(h @ p["w_qkv"] + p["b_qkv"], cfg)
+    attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           None, True)
+    B, S = x.shape[:2]
+    attn = attn.transpose(1, 2).reshape(B, S, -1)
+    x = x + attn @ p["w_o"] + p["b_o"]
+    h = _layer_norm(x, p["ln2_g"], p["ln2_b"])
+    return _ffn_serving(x, h, p, cfg)
+
+
+def _remat(fn, *args):
+    """``jax.checkpoint``: keep only the inputs, recompute the rest on the
+    backward pass. Without grad there is nothing to save and it is a call.
+    Nothing inside draws random numbers, so no RNG state is stashed."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _stage_fn(params, x, cfg: GPTConfig):
+    """The layer stack (the reference's ``lax.scan`` over stacked blocks),
+    each block recomputed on the backward pass when ``cfg.remat``."""
+    for lp in layer_params(params):
+        x = _remat(_block, x, lp, cfg) if cfg.remat else _block(x, lp, cfg)
+    return x
+
+
+def _embed(params, tokens):
+    """``wte[tokens] + wpe[arange(S)]`` in the params' dtype."""
+    return params["wte"][tokens] + params["wpe"][:tokens.shape[1]]
+
+
+def forward(params, cfg: GPTConfig, tokens):
+    """tokens [B, S] -> f32 logits [B, S, V]: embedding, the layer stack,
+    final LayerNorm and the tied lm-head (``__graft_entry__.entry()``'s
+    forward)."""
+    tokens = torch.as_tensor(tokens, device=params["wte"].device).long()
+    x = _stage_fn(params, _embed(params, tokens), cfg)
+    x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
+    return _lm_logits(x, params, cfg)
+
+
+def _xent(x, wte, labels):
+    """Per-token cross entropy, x: [B, S, D], labels [B, S]: f32 logits from
+    operands in the params' dtype, ``log sum exp(l - m) + m - l[label]``
+    with the max m detached (it only keeps exp in range)."""
+    logits = _LMHead.apply(x.reshape(-1, x.shape[-1]), wte).reshape(
+        *x.shape[:-1], wte.shape[0])
+    m = logits.detach().amax(-1)
+    z = torch.exp(logits - m[..., None]).sum(-1)
+    tgt = logits.gather(-1, labels[..., None])[..., 0]
+    return torch.log(z) + m - tgt
+
+
+def _xent_chunked(x, wte, labels, cfg: GPTConfig):
+    """:func:`_xent` over ``cfg.xent_chunks`` sequence chunks, each
+    recomputed on the backward pass, so one chunk's logits exist at a
+    time. A chunk count that does not divide S falls back to one chunk."""
+    C = cfg.xent_chunks
+    S = x.shape[1]
+    if C <= 1 or S % C:
+        if C > 1:
+            warnings.warn(
+                f"xent_chunks={C} does not divide the sequence length {S}; "
+                "falling back to unchunked cross entropy (full [B,S,V] "
+                "logits buffer)")
+        return _xent(x, wte, labels)
+    Sc = S // C
+    return torch.cat([_remat(_xent, x[:, i * Sc:(i + 1) * Sc], wte,
+                             labels[:, i * Sc:(i + 1) * Sc])
+                      for i in range(C)], dim=1)
+
+
+def local_loss(params, cfg: GPTConfig, tokens, labels):
+    """Mean next-token loss of a batch, tokens/labels [B, S] int.
+
+    At pp=1 the reference splits the batch into ``cfg.micro_batches`` only
+    to vmap one forward over them, and takes the mean over every token; the
+    whole batch in one forward computes the same loss, so the port runs it
+    at once (accumulating bf16 gradients micro-batch by micro-batch would
+    round differently from the reference)."""
+    B = tokens.shape[0]
+    if B % cfg.micro_batches:
+        raise ValueError(f"batch {B} does not split into "
+                         f"{cfg.micro_batches} micro-batches")
+    x = _stage_fn(params, _embed(params, tokens), cfg)
+    x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
+    return _xent_chunked(x, params["wte"], labels, cfg).mean()
+
+
+def adamw_init(params, dtype=torch.float32, device=None) -> dict:
+    """Zero AdamW state ``{"m", "v", "step"}`` for a parameter tree, the
+    moments in ``dtype`` and the int32 step counter, on ``device``."""
+    dev = resolve_device(device)
+    zeros = lambda t: torch.zeros(t.shape, dtype=dtype, device=dev)
+    leaves = tree_flatten(params)
+    return {"m": tree_unflatten(params, map(zeros, leaves)),
+            "v": tree_unflatten(params, map(zeros, leaves)),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _adamw_update(params, grads, opt, lr, wd=0.1, b1=0.9, b2=0.95, eps=1e-8,
+                  fused=False):
+    """One AdamW step, decoupled decay ``p - lr (upd + wd p)``, math in f32
+    with the moments stored in their own dtype. ``fused`` takes the
+    one-kernel-per-leaf path when every moment is f32 (on the card it
+    updates params and moments in place)."""
+    step = opt["step"] + 1
+    if fused and all(t.dtype == torch.float32
+                     for t in tree_flatten(opt["m"])):
+        new_p, new_m, new_v = fused_adamw_update(
+            params, grads, opt["m"], opt["v"], opt["step"], lr, wd=wd, b1=b1,
+            b2=b2, eps=eps, device=opt["step"].device)
+        return new_p, {"m": new_m, "v": new_v, "step": step}
+    c1 = 1 - b1 ** step.to(torch.float32)
+    c2 = 1 - b2 ** step.to(torch.float32)
+
+    def upd(p, g, m, v):
+        gf = g.float()
+        m2 = b1 * m.float() + (1 - b1) * gf
+        v2 = b2 * v.float() + (1 - b2) * gf.square()
+        upd_ = (m2 / c1) / (torch.sqrt(v2 / c2) + eps)
+        pf = p.float()
+        p2 = pf - lr * (upd_ + wd * pf)
+        return p2.to(p.dtype), m2.to(m.dtype), v2.to(v.dtype)
+
+    out = [upd(*leaf) for leaf in zip(*(tree_flatten(t) for t in (
+        params, grads, opt["m"], opt["v"])))]
+    return (tree_unflatten(params, (o[0] for o in out)),
+            {"m": tree_unflatten(params, (o[1] for o in out)),
+             "v": tree_unflatten(params, (o[2] for o in out)),
+             "step": step})
+
+
+def _batch(tokens, dev):
+    return torch.as_tensor(tokens, device=dev).long()
+
+
+def build_train_step(cfg: GPTConfig, lr=3e-4, wd=0.1, device=None,
+                     sentinel=False):
+    """Returns ``step(params, opt, tokens, labels) -> (params, opt, loss)``,
+    the single-device counterpart of ``build_spmd_train_step``: loss and
+    gradients by autograd, then ``_adamw_update(..., fused=
+    cfg.fused_adamw)``. ``opt`` comes from :func:`adamw_init` with
+    ``cfg.opt_dtype``. Gradients are taken with respect to detached copies
+    of the leaves, so the params stay plain tensors that ``generate()``
+    takes as they are. With ``cfg.fused_adamw`` on the card the returned
+    params and moments are the given tensors, updated in place."""
+    if sentinel:
+        raise NotImplementedError(
+            "sentinel=True: the in-program anomaly sentinel is ROADMAP "
+            "queue 1 item 12 (training guards), not ported yet")
+    dev = resolve_device(device)
+
+    def step(params, opt, tokens, labels):
+        check_params_device(params, dev)
+        tokens, labels = _batch(tokens, dev), _batch(labels, dev)
+        leaves = [t.detach().requires_grad_() for t in tree_flatten(params)]
+        with torch.enable_grad():
+            loss = local_loss(tree_unflatten(params, leaves), cfg, tokens,
+                              labels)
+            grads = torch.autograd.grad(loss, leaves)
+        new_params, new_opt = _adamw_update(
+            params, tree_unflatten(params, grads), opt, lr, wd,
+            fused=cfg.fused_adamw)
+        return new_params, new_opt, loss.detach()
+
+    return step
+
+
+def build_eval_step(cfg: GPTConfig, device=None):
+    """Returns ``eval_step(params, tokens, labels) -> loss``, the forward
+    of the train step without gradients (``build_spmd_eval_step``)."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def eval_step(params, tokens, labels):
+        check_params_device(params, dev)
+        return local_loss(params, cfg, _batch(tokens, dev),
+                          _batch(labels, dev))
+
+    return eval_step

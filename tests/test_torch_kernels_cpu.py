@@ -229,6 +229,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["decode_attention"])
-    assert _build.sources() == ["decode_attention", "flash_attention_fwd"]
+    assert _build.sources() == ["decode_attention", "flash_attention_bwd",
+                                "flash_attention_fwd", "fused_adamw"]
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         _build.check(1, "decode_attention")

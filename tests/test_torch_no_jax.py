@@ -1,6 +1,6 @@
 """The port stands alone: no module under paddle_tpu_torch/ imports jax or
-paddle_tpu, the package imports and serves with both blocked, and every
-entry point defaults to the CUDA device and raises without one."""
+paddle_tpu, the package imports, serves and trains with both blocked, and
+every entry point defaults to the CUDA device and raises without one."""
 import ast
 import subprocess
 import sys
@@ -52,6 +52,12 @@ def test_package_runs_with_jax_blocked():
         reqs = [eng.submit(p, max_new_tokens=4) for p in prompt]
         eng.run()
         assert [r.output for r in reqs] == out[:, 5:].tolist()
+        cfg_t = gpt.gpt_tiny(n_layers=2, fused_adamw=True, xent_chunks=2)
+        step = gpt.build_train_step(cfg_t, device="cpu")
+        opt = gpt.adamw_init(params, device="cpu")
+        tok = np.arange(34).reshape(2, 17) % cfg.vocab_size
+        params, opt, loss = step(params, opt, tok[:, :-1], tok[:, 1:])
+        assert np.isfinite(float(loss))
         assert not any(m and m.startswith(("jax", "paddle_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("OK")
@@ -66,6 +72,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from paddle_tpu_torch import resolve_device
     from paddle_tpu_torch.inference import GenerationSession
     from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.kernels.fused_adamw import fused_adamw_update
     from paddle_tpu_torch.serving import ServingEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = gpt.gpt_tiny(n_layers=1)
@@ -82,6 +89,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         "generate": lambda: gpt.generate(params, cfg, np.zeros((1, 2)), 1),
         "GenerationSession": lambda: GenerationSession(params, cfg, 1),
         "ServingEngine": lambda: ServingEngine(sess),
+        "build_train_step": lambda: gpt.build_train_step(cfg),
+        "build_eval_step": lambda: gpt.build_eval_step(cfg),
+        "adamw_init": lambda: gpt.adamw_init(params),
+        "fused_adamw_update": lambda: fused_adamw_update(
+            params, params, params, params, 0, 1e-3),
         "explicit cuda": lambda: resolve_device("cuda"),
     }
     for name, call in calls.items():
@@ -92,3 +104,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="params live on cpu"):
         gpt.generate(params, cfg, np.zeros((1, 2)), 1)
+    tokens = np.zeros((1, 4), np.int64)
+    with pytest.raises(ValueError, match="params live on cpu"):
+        gpt.build_train_step(cfg)(params, None, tokens, tokens)
+    with pytest.raises(ValueError, match="params live on cpu"):
+        gpt.build_eval_step(cfg)(params, tokens, tokens)
