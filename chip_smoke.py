@@ -27,14 +27,31 @@ Phases, each fatal on failure:
 5. parity   — gpt3_1p3b(n_layers=2) in f32: the CPU (plain versions) and
               the card (kernels) on the same numpy weights and prompt must
               agree on prefill and 4 decode steps' logits.
-6. train    — gpt3_1p3b(remat=True, fused_adamw=True, xent_chunks=4) at
+6. quant    — quantized serving at full gpt3_1p3b width: the seed-0 bf16
+              tree quantized on the card by quantize_gpt_params, w8kv8
+              then w4kv8 (int8/int4 FFN and lm-head weights, scaled-int8
+              KV cache): generate() on B=4 x P=256 (+32 tokens) and the
+              server's 12-request replay (w8kv8 whole-prompt and
+              prefill_chunk=128, w4kv8 whole-prompt). Launch counts are
+              checked exactly: 48 quant_matmul a forward (prefill, suffix
+              chunk or decode tick), 24 flash forwards a whole-prompt
+              prefill, 24 decode_attention_q8 a decode tick, no fp decode
+              attention. Prints the quant byte accounting, a w8kv8 profile
+              of a prefill and 16 decode ticks and, as information, the top-1
+              agreement and largest logit difference against the bf16
+              model on one prefill.
+7. quant_parity — gpt3_1p3b(n_layers=2, f32) in w8kv8 and w4kv8: the CPU
+              and the card quantize the same numpy weights to equal codes
+              and agree on prefill and 4 decode steps' logits (1e-3) with
+              identical greedy tokens.
+8. train    — gpt3_1p3b(remat=True, fused_adamw=True, xent_chunks=4) at
               full width trains on one seeded B=4 x S=2048 batch: a warm-up
               step, then 5 timed steps with the launch counters zeroed just
               before and read just after (flash forward, both backward
               kernels and fused AdamW must have run); every loss finite and
               the last below the first; one profiled step; then the eval
               step and generate() on the trained params.
-7. train_parity — gpt3_1p3b(n_layers=2, f32, fused_adamw, remat,
+9. train_parity — gpt3_1p3b(n_layers=2, f32, fused_adamw, remat,
               xent_chunks=2), B=2 x S=256, 3 steps on the CPU (plain
               versions) and on the card (kernels) from the same numpy
               weights: losses within 1e-4, params within the AdamW
@@ -55,8 +72,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "generate", "server", "parity", "train",
-          "train_parity")
+PHASES = ("build", "kernels", "generate", "server", "parity", "quant",
+          "quant_parity", "train", "train_parity")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -82,6 +99,14 @@ BWD_TOL = {"bf16": 2 ** -6, "f32": 1e-4}
 ADAMW_MOMENT_TOL = 1e-5
 ADAMW_BF16_REL = 2 ** -7
 ADAMW_CANCEL_FLOOR = 1e-5
+# quant_matmul against its plain version, relative to max|out|: the
+# products are exact in f32 (integer codes times bf16 or f32 x), so only
+# the summation order differs
+QMM_TOL = 1e-4
+# quantized logits, CPU against the card: K/V codes come from activations
+# that differ by summation-order ulps, which can move a code across a
+# rounding tie by one step
+QUANT_PARITY_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -89,15 +114,27 @@ def log(msg: str) -> None:
 
 
 def _kernel_label(line: str) -> str:
-    """``kernel<dtype, D>`` from ptxas' "Compiling entry function '<mangled
-    name>'" line (enough to tell the template instances apart)."""
+    """``kernel<dtype, ints...>`` from ptxas' "Compiling entry function
+    '<mangled name>'" line (enough to tell the template instances
+    apart)."""
     import re
     mangled = line.split("'")[1] if "'" in line else line
     name = re.search(r"\d+([a-z_]+_kernel)I", mangled)
-    dim = re.search(r"Li(\d+)E", mangled)
-    dtype = "bf16" if "bfloat16" in mangled else "f32"
-    return (f"{name.group(1) if name else mangled[:40]}<{dtype}"
-            + (f", {dim.group(1)}>" if dim else ">"))
+    args = re.findall(r"L([ib])(\d+)E", mangled)
+    dtype = ("bf16" if "bfloat16" in mangled
+             else "int8" if re.search(r"_kernelIa", mangled) else "f32")
+    extra = "".join(f", {v}" if k == "i" else (", scaled" if v == "1" else "")
+                    for k, v in args)
+    return f"{name.group(1) if name else mangled[:40]}<{dtype}{extra}>"
+
+
+def _named_leaves(tree, prefix=""):
+    """(path, tensor) of every leaf of a nested dict, in sorted-key order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _named_leaves(tree[k], prefix + k + "/")
+        else:
+            yield prefix + k, tree[k]
 
 
 class Smoke:
@@ -498,6 +535,129 @@ class Smoke:
         log(f"[kernels] {json.dumps(case)}")
         self.rows["fused_adamw"] = case
 
+    def _qmm_case(self, M, K, N, bits, dtype, time_it, main=False):
+        """quant_matmul against its plain version (error relative to
+        max|out|), and with time_it its time beside the bound, the plain
+        version and torch.mm on the pre-dequantized weight."""
+        torch = self.torch
+        from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+        from paddle_tpu_torch.quantization import gpt_quant as gq
+        g = torch.Generator(device=self.dev).manual_seed(M * 31 + K + N + bits)
+        x = torch.randn((M, K), generator=g, device=self.dev).to(dtype)
+        w = torch.randn((K, N), generator=g, device=self.dev) * 0.02
+        codes, step = gq.quantize_weight(w, bits, axis=-1)
+        wq = gq.pack_int4(codes, axis=0) if bits == 4 else codes
+        del w
+        tname = "bf16" if dtype == torch.bfloat16 else "f32"
+        out = qm.quant_matmul(x, wq, step, bits)
+        torch.cuda.synchronize()
+        ref = qm.quant_matmul_ref(x, wq, step, bits)
+        err = (out - ref).abs().max().item()
+        rel = err / max(ref.abs().max().item(), 1e-30)
+        path = ("skinny" if dtype == torch.float32 or M <= 8 else "wmma")
+        case = dict(kernel="quant_matmul", M=M, K=K, N=N, bits=bits,
+                    x_dtype=tname, path=path, max_abs_err=err, rel_err=rel,
+                    tol_rel_to_max_out=QMM_TOL)
+        log(f"[kernels] {json.dumps(case)}")
+        if not bool(torch.isfinite(out).all()) or rel > QMM_TOL:
+            raise AssertionError(f"quant_matmul disagrees with its plain "
+                                 f"version: {case}")
+        if not time_it:
+            return case
+        code_bytes = wq.numel()
+        nbytes = x.numel() * x.element_size() + code_bytes + 4 * N \
+            + 4 * M * N
+        case.update(self._bound(2 * M * K * N, nbytes, tname))
+        case["ms"] = self.time_ms(lambda: qm.quant_matmul(x, wq, step, bits),
+                                  iters=50)
+        case["plain_ms"] = self.time_ms(
+            lambda: qm.quant_matmul_ref(x, wq, step, bits), iters=10)
+        w_deq = ((gq.unpack_int4(wq, axis=0) if bits == 4 else wq).float()
+                 * step).to(dtype)
+        lib = ((lambda: torch.mm(x, w_deq, out_dtype=torch.float32))
+               if dtype == torch.bfloat16 else (lambda: x @ w_deq))
+        case["library_ms"] = self.time_ms(lib, iters=50)
+        case["library"] = ("torch.mm(x, pre-dequantized W, out_dtype=f32) — "
+                           "the same product from a full-width weight; no "
+                           "PyTorch call multiplies the int8 codes")
+        case["codes_GB_per_s"] = code_bytes / case["ms"] / 1e6
+        case["TFLOP_per_s"] = 2 * M * K * N / case["ms"] / 1e9
+        log(f"[kernels] {json.dumps(case)}")
+        if main:
+            self.rows["quant_matmul"] = case
+        return case
+
+    def _decode_q8_case(self, B, H, S, d, Q, time_it, main=False):
+        """decode_attention_q8 against its plain bounded version on a
+        (codes, steps) cache, garbage past each row's live length, and
+        with time_it its times (SDPA over the pre-dequantized bf16 cache
+        as the library yardstick)."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from paddle_tpu_torch.ops.kernels import decode_attention as da
+        from paddle_tpu_torch.quantization.gpt_quant import quantize_rows
+        g = torch.Generator(device=self.dev).manual_seed(B * 101 + S + Q)
+        q = torch.randn((B, H, Q, d), generator=g, device=self.dev).to(
+            torch.bfloat16)
+        kc = quantize_rows(torch.randn((B, H, S, d), generator=g,
+                                       device=self.dev))
+        vc = quantize_rows(torch.randn((B, H, S, d), generator=g,
+                                       device=self.dev))
+        pos = torch.linspace(0, S - Q, B, device=self.dev).round().to(
+            torch.int32)
+        scale = 1.0 / d ** 0.5
+        out = da.decode_attention_q8(q, kc, vc, pos, scale)
+        torch.cuda.synchronize()
+        ref = da.bounded_decode_attention(q, kc, vc, pos.long(), scale,
+                                          min(128, S))
+        err = (out - ref).abs().max().item()
+        idx = torch.arange(S, device=self.dev)
+        dead = idx[None, :] > (pos[:, None] + Q - 1)       # [B, S]
+        kg = tuple(t.clone() for t in kc)
+        vg = tuple(t.clone() for t in vc)
+        for (codes, steps), fill in ((kg, 127), (vg, -127)):
+            codes[dead[:, None, :, None].expand_as(codes)] = fill
+            steps[dead[:, None, :].expand_as(steps)] = 1e4
+        out_g = da.decode_attention_q8(q, kg, vg, pos, scale)
+        torch.cuda.synchronize()
+        err_g = (out_g - out).abs().max().item()
+        del kg, vg
+        case = dict(kernel="decode_attention_q8", shape=[B, H, S, d], Q=Q,
+                    cache="int8 codes + f32 steps",
+                    pos=[int(p) for p in pos], max_abs_err=err,
+                    garbage_delta=err_g, tol=DECODE_TOL["f32"])
+        log(f"[kernels] {json.dumps(case)}")
+        if not bool(torch.isfinite(out).all()) or err > DECODE_TOL["f32"] \
+                or err_g != 0.0:
+            raise AssertionError(f"decode_attention_q8 disagrees with its "
+                                 f"plain version: {case}")
+        if not time_it:
+            return case
+        live = sum(min(int(p) + Q, S) for p in pos)
+        # codes 1 byte an element, one f32 step per position and head
+        nbytes = 2 * H * live * (d + 4) + q.numel() * q.element_size() \
+            + out.numel() * 4 + B * 4
+        ops = sum(4 * H * d * (int(p) + j + 1) for p in pos for j in range(Q))
+        case.update(self._bound(ops, nbytes, "f32"))
+        case["ms"] = self.time_ms(
+            lambda: da.decode_attention_q8(q, kc, vc, pos, scale), iters=200)
+        posl = pos.long()
+        case["plain_ms"] = self.time_ms(
+            lambda: da.bounded_decode_attention(q, kc, vc, posl, scale,
+                                               min(128, S)), iters=20)
+        kf = (kc[0].float() * kc[1][..., None]).to(torch.bfloat16)
+        vf = (vc[0].float() * vc[1][..., None]).to(torch.bfloat16)
+        qpos = posl[:, None] + torch.arange(Q, device=self.dev)[None]
+        mask = (idx[None, None, :] <= qpos[:, :, None])[:, None]  # B,1,Q,S
+        case["library_ms"] = self.time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, kf, vf, attn_mask=mask, scale=scale), iters=200)
+        case["library"] = "sdpa, explicit mask, pre-dequantized bf16 cache"
+        log(f"[kernels] {json.dumps(case)}")
+        if main:
+            self.rows["decode_attention_q8"] = case
+        return case
+
     def phase_kernels(self):
         torch = self.torch
         bf16, f32 = torch.bfloat16, torch.float32
@@ -526,19 +686,42 @@ class Smoke:
         self._flash_bwd_case(1, 2, 70, 70, 16, f32, False, False)
         self._flash_bwd_case(1, 2, 33, 97, 32, bf16, True, False)
         self._adamw_cases()
+        # quant_matmul at the quant phase's FFN shapes: decode (M = 4, 8)
+        # and a B=4 x P=256 prefill (M = 1024), w_in and w_out
+        for bits in (8, 4):
+            for K, N in ((2048, 8192), (8192, 2048)):
+                for M in (4, 8, 1024):
+                    self._qmm_case(M, K, N, bits, bf16, True,
+                                   main=(bits, K, M) == (8, 2048, 8))
+            # ragged edges: the skinny kernel over several row blocks, the
+            # wmma tile's masks, f32 and bf16 x
+            for M, dt in ((3, f32), (20, f32), (37, bf16), (3, bf16)):
+                self._qmm_case(M, 48, 200, bits, dt, False)
+        # decode_attention_q8: the server's decode shape (main), generate's,
+        # a long cache, and an edge case
+        self._decode_q8_case(8, 16, 512, 128, 1, True, main=True)
+        self._decode_q8_case(4, 16, 384, 128, 1, True)
+        for Q in (1, 4):
+            self._decode_q8_case(8, 16, 2048, 128, Q, True)
+        self._decode_q8_case(3, 4, 64, 16, 3, False)
 
     # ------------------------------------------------------ main path
     def _counters(self):
         from paddle_tpu_torch.ops.kernels import flash_attention as fa
         from paddle_tpu_torch.ops.kernels.decode_attention import (
             decode_attention)
+        from paddle_tpu_torch.ops.kernels.decode_attention import (
+            decode_attention_q8)
         from paddle_tpu_torch.ops.kernels.fused_adamw import (
             fused_adamw_update)
+        from paddle_tpu_torch.ops.kernels.quant_matmul import quant_matmul
         return {"flash_attention_fwd": fa.flash_attention,
                 "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
                 "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
                 "decode_attention": decode_attention,
-                "fused_adamw": fused_adamw_update}
+                "fused_adamw": fused_adamw_update,
+                "quant_matmul": quant_matmul,
+                "decode_attention_q8": decode_attention_q8}
 
     def _zero_counts(self):
         for fn in self._counters().values():
@@ -758,6 +941,210 @@ class Smoke:
         if max(errs) > tol or agree < 1.0:
             raise AssertionError(f"CPU and card disagree: {errs}, {agree}")
 
+    # ------------------------------------------------------------ quant
+    def _expect_counts(self, path, counts, want):
+        """Exact launch counts of a counted window; kernels not named in
+        ``want`` must not have run."""
+        full = {n: want.get(n, 0) for n in counts}
+        if counts != full:
+            raise AssertionError(f"{path} launches {counts}, expected {full}")
+
+    def _server_trace(self, cfg):
+        import numpy as np
+        rng = np.random.default_rng(1)
+        return [(rng.integers(0, cfg.vocab_size, (int(n),)), int(m))
+                for n, m in zip(rng.integers(64, 385, 12),
+                                rng.integers(16, 65, 12))]
+
+    def _quant_generate(self, tag, qcfg, qp, prompt, N=32):
+        """generate() on the quantized model, counted exactly: one explicit
+        prefill, generate(n=1) (a prefill) and generate(N) (a prefill and
+        N - 1 decode ticks)."""
+        torch = self.torch
+        from paddle_tpu_torch.models import gpt
+        B, P = prompt.shape
+        gpt.generate(qp, qcfg, prompt[:2, :16], 2, device=self.dev)  # warm
+        torch.cuda.synchronize()
+        self._zero_counts()
+        kc, vc = gpt.init_kv_cache(qcfg, B, gpt.pad_cache_len(
+            P + N, qcfg.decode_block), device=self.dev)
+        logits, _, _ = gpt.prefill(qp, qcfg, torch.as_tensor(
+            prompt, device=self.dev), kc, vc)
+        if not bool(torch.isfinite(logits).all()) \
+                or logits.shape != (B, qcfg.vocab_size):
+            raise AssertionError(f"{tag} prefill logits bad")
+        t = []
+        for n in (1, N):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = gpt.generate(qp, qcfg, prompt, n, device=self.dev)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+        if out.shape != (B, P + N) or not bool(
+                ((out >= 0) & (out < qcfg.vocab_size)).all()):
+            raise AssertionError(f"{tag} generate output bad: {out.shape}")
+        L = qcfg.n_layers
+        prefills, ticks = 3, N - 1
+        counts = self._read_counts(f"quant {tag} generate", (
+            "quant_matmul", "flash_attention_fwd", "decode_attention_q8"))
+        self._expect_counts(f"quant {tag} generate", counts, {
+            "quant_matmul": 2 * L * (prefills + ticks),
+            "flash_attention_fwd": L * prefills,
+            "decode_attention_q8": L * ticks})
+        ms_tok = (t[1] - t[0]) / (N - 1) * 1e3
+        log("[quant] " + json.dumps(dict(
+            mode=tag, path="generate", batch=B, prompt=P, new_tokens=N,
+            prefill_ms=round(t[0] * 1e3, 3),
+            decode_ms_per_token=round(ms_tok, 3),
+            decode_tokens_per_s=round(B / ms_tok * 1e3, 1),
+            total_s=round(t[1], 3))))
+
+    def _quant_server(self, tag, qcfg, qp, chunks):
+        """The server phase's 12-request replay on the quantized model;
+        each replay counted exactly from the session's own tick counters
+        (the engine admits through suffix prefill chunks)."""
+        torch = self.torch
+        from paddle_tpu_torch.inference import GenerationSession
+        from paddle_tpu_torch.serving import RequestState, ServingEngine
+        sess = GenerationSession(qp, qcfg, max_slots=8, max_prompt_len=384,
+                                 max_len=512, device=self.dev)
+        log("[quant] " + json.dumps(dict(mode=tag,
+                                         quant_stats=sess.quant_stats)))
+        trace = self._server_trace(qcfg)
+        L = qcfg.n_layers
+        for chunk in chunks:
+            eng = ServingEngine(sess, max_queue=64, prefill_chunk=chunk,
+                                device=self.dev)
+            warm = eng.submit(trace[0][0][:64], max_new_tokens=2)
+            eng.run()
+            if warm.state is not RequestState.DONE:
+                raise AssertionError("warm-up request did not finish")
+            sess.reset_metrics()
+            self._zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reqs = [eng.submit(p, max_new_tokens=m) for p, m in trace]
+            ticks = eng.run(deadline=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for r, (_, m) in zip(reqs, trace):
+                if r.state is not RequestState.DONE or len(r.output) != m:
+                    raise AssertionError(
+                        f"{tag} {r.request_id}: {r.state} with "
+                        f"{len(r.output)} of {m} tokens")
+            met = eng.metrics()
+            path = f"quant {tag} server(prefill_chunk={chunk})"
+            counts = self._read_counts(path, ("quant_matmul",
+                                              "decode_attention_q8"))
+            self._expect_counts(path, counts, {
+                "quant_matmul": 2 * L * (met["prefill_chunks"]
+                                         + met["decode_ticks"]),
+                "decode_attention_q8": L * met["decode_ticks"]})
+            toks = sum(len(r.output) for r in reqs)
+            log("[quant] " + json.dumps(dict(
+                mode=tag, path="server", prefill_chunk=chunk,
+                requests=len(reqs), ticks=ticks,
+                suffix_prefills=met["prefill_chunks"],
+                decode_ticks=met["decode_ticks"], new_tokens=toks,
+                wall_s=round(wall, 3), tokens_per_s=round(toks / wall, 1),
+                ttft_ms_p50=met["ttft_ms_p50"], ttft_ms_p99=met["ttft_ms_p99"],
+                decode_ms_per_token_p50=met["decode_ms_per_token_p50"])))
+            eng.close()
+
+    def phase_quant(self):
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.quantization import quantize_gpt_params
+        cfg, params = self._model()
+        prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                   (4, 256))
+        tokens = torch.as_tensor(prompt, device=self.dev)
+        kc, vc = gpt.init_kv_cache(cfg, 4, 256, device=self.dev)
+        fp_logits = gpt.prefill(params, cfg, tokens, kc, vc)[0]
+        del kc, vc
+        for mode, bits, chunks in (("int8", 8, (0, 128)),
+                                   ("int4", 4, (0,))):
+            tag = f"w{bits}kv8"
+            qcfg = gpt.gpt3_1p3b(weight_quant=mode, kv_cache_dtype="int8")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            qp = quantize_gpt_params(params, qcfg, bits)
+            torch.cuda.synchronize()
+            log("[quant] " + json.dumps(dict(
+                mode=tag, quantize_s=round(time.perf_counter() - t0, 3),
+                w_in=list(qp["blocks"]["w_in"].shape),
+                wte=list(qp["wte"].shape))))
+            self._quant_generate(tag, qcfg, qp, prompt)
+            self._quant_server(tag, qcfg, qp, chunks)
+            # information, not a limit: the quantized model against bf16
+            kc, vc = gpt.init_kv_cache(qcfg, 4, 256, device=self.dev)
+            q_logits = gpt.prefill(qp, qcfg, tokens, kc, vc)[0]
+            del kc, vc
+            log("[quant] " + json.dumps(dict(
+                mode=tag, against="bf16 model, one B=4 x P=256 prefill",
+                top1_agreement=float((q_logits.argmax(-1)
+                                      == fp_logits.argmax(-1)).float()
+                                     .mean()),
+                max_abs_logit_diff=(q_logits - fp_logits).abs().max().item(),
+                max_abs_logit=fp_logits.abs().max().item())))
+            if bits == 8:
+                self._profile(qcfg, qp, prompt)
+            del qp
+            torch.cuda.empty_cache()
+
+    def phase_quant_parity(self):
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.quantization import quantize_gpt_params
+        fp_cfg = gpt.gpt3_1p3b(n_layers=2, dtype=torch.float32)
+        weights = {str(dev): gpt.init_params(fp_cfg, seed=0, device=dev)
+                   for dev in ("cpu", self.dev)}
+        prompt = np.random.default_rng(5).integers(0, fp_cfg.vocab_size,
+                                                   (2, 100))
+        for mode, bits in (("int8", 8), ("int4", 4)):
+            cfg = gpt.gpt3_1p3b(n_layers=2, dtype=torch.float32,
+                                weight_quant=mode, kv_cache_dtype="int8")
+            sides = {}
+            for dev in ("cpu", self.dev):
+                qp = quantize_gpt_params(weights[str(dev)], cfg, bits)
+                kc, vc = gpt.init_kv_cache(cfg, 2, 128, device=dev)
+                logits, _, _ = gpt.prefill(qp, cfg, torch.as_tensor(
+                    prompt, device=dev), kc, vc)
+                sides[str(dev)] = dict(qp=qp, kc=kc, vc=vc,
+                                       logits=[logits.cpu()])
+            cpu, card = sides["cpu"], sides[str(self.dev)]
+            differ = [n for (n, a), (_, b) in zip(_named_leaves(cpu["qp"]),
+                                                  _named_leaves(card["qp"]))
+                      if not torch.equal(a, b.cpu())]
+            codes_equal = not differ
+            toks = cpu["logits"][0].argmax(-1)
+            for step in range(4):
+                for side, dev in ((cpu, "cpu"), (card, self.dev)):
+                    logits, _, _ = gpt.decode_one_token(
+                        side["qp"], cfg, toks.to(dev), 100 + step,
+                        side["kc"], side["vc"])
+                    side["logits"].append(logits.cpu())
+                toks = cpu["logits"][-1].argmax(-1)
+            errs = [(c - g).abs().max().item()
+                    for c, g in zip(cpu["logits"], card["logits"])]
+            same_tokens = all(torch.equal(c.argmax(-1), g.argmax(-1))
+                              for c, g in zip(cpu["logits"], card["logits"]))
+            log("[quant_parity] " + json.dumps(dict(
+                config=f"gpt3_1p3b(n_layers=2, f32, w{bits}kv8)",
+                prompt=[2, 100], weight_codes_and_steps_equal=codes_equal,
+                leaves_that_differ=differ,
+                max_abs_err_prefill=errs[0],
+                max_abs_err_decode=max(errs[1:]), tol=QUANT_PARITY_TOL,
+                greedy_tokens_identical=same_tokens)))
+            if not codes_equal or max(errs) > QUANT_PARITY_TOL \
+                    or not same_tokens:
+                raise AssertionError(f"w{bits}kv8: CPU and card disagree")
+            del sides, cpu, card
+        del weights
+        torch.cuda.empty_cache()
+
 
     # ------------------------------------------------------------ train
     @staticmethod
@@ -844,7 +1231,8 @@ class Smoke:
         per_step = {"flash_attention_fwd": 2 * cfg.n_layers,
                     "flash_attention_bwd_dq": cfg.n_layers,
                     "flash_attention_bwd_dkv": cfg.n_layers,
-                    "fused_adamw": 16, "decode_attention": 0}
+                    "fused_adamw": 16, "decode_attention": 0,
+                    "quant_matmul": 0, "decode_attention_q8": 0}
         want = {n: c * n_timed for n, c in per_step.items()}
         if counts != want:
             raise AssertionError(f"train launches {counts}, expected {want}")
@@ -970,7 +1358,10 @@ def main(argv=None) -> int:
              "flash_attention.py:196"),
             ("decode_attention", "decode_attention.cu",
              "decode_attention.py:217"),
-            ("fused_adamw", "fused_adamw.cu", "fused_adamw.py:34")):
+            ("fused_adamw", "fused_adamw.cu", "fused_adamw.py:34"),
+            ("quant_matmul", "quant_matmul.cu", "quant_matmul.py:65"),
+            ("decode_attention_q8", "decode_attention.cu",
+             "decode_attention.py:266")):
         row = dict(smoke.rows.get(name, {}))
         row.update(name=name, route="cuda", source=csrc + src,
                    replaces=pallas + rep)

@@ -1,10 +1,12 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu.
 
 It serves the flagship GPT on one NVIDIA H100 (``generate()``,
-``GenerationSession`` and ``ServingEngine`` over the dense KV cache) and
+``GenerationSession`` and ``ServingEngine`` over the dense KV cache, with
+fp or weight-only int8/int4 weights and an fp or scaled-int8 cache) and
 trains it there (``models.gpt.build_train_step``), with hand-written CUDA
-kernels for flash attention forward and backward, decode attention and
-fused AdamW (``paddle_tpu_torch/csrc``). Every entry point runs on the card
+kernels for flash attention forward and backward, decode attention (fp
+and scaled-int8 caches), the weight-only dequant-matmul and fused AdamW
+(``paddle_tpu_torch/csrc``). Every entry point runs on the card
 unless the caller passes ``device="cpu"``; on the CPU each kernel wrapper
 runs its plain PyTorch version. The package imports torch and numpy,
 never jax or paddle_tpu.

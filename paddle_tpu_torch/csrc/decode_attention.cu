@@ -1,17 +1,26 @@
 // Length-bounded decode attention for Hopper (sm_90a), plain C interface.
 //
-// Replaces the TPU kernel paddle_tpu/ops/pallas/decode_attention.py:
-// _decode_kernel (launched by _pallas_decode_attention), the dense-cache
-// form: a window of Q query rows q [B, H, Q, D] (Q = 1 is a decode tick,
-// Q > 1 a speculative verify window) against a K/V cache [B, H, S, D] in
-// bf16 or f32, with per-row positions pos [B] int32. Query row j of batch
-// row b attends keys 0 .. pos[b] + j. Scores, softmax and accumulation run
-// in f32 and the output [B, H, Q, D] is f32.
+// Replaces two TPU kernels of paddle_tpu/ops/pallas/decode_attention.py
+// (both launched by _pallas_decode_attention):
+//   - _decode_kernel, the dense-cache form (C entry decode_attention): a
+//     window of Q query rows q [B, H, Q, D] (Q = 1 is a decode tick, Q > 1
+//     a speculative verify window) against a K/V cache [B, H, S, D] in bf16
+//     or f32;
+//   - _decode_kernel_q8, the scaled-int8 form (C entry decode_attention_q8):
+//     the same over int8 codes [B, H, S, D] and one f32 step per position
+//     and head [B, H, S]; each key's and value's codes are multiplied by
+//     their position's step in registers as they are loaded, so the cache
+//     streams from device memory at one byte an element plus 4 bytes of
+//     step per position.
+// Per-row positions pos [B] int32: query row j of batch row b attends keys
+// 0 .. pos[b] + j. Scores, softmax and accumulation run in f32 and the
+// output [B, H, Q, D] is f32.
 //
 // What bounds it on the H100: memory. A decode tick does 2*D multiply-adds
 // per key per query row and reads 2*D cache elements per key, far below
 // the card's ~295 operations per byte, so the least time is the live K and
-// V bytes, 2*B*H*(pos+Q)*D*elem, over 3.35 TB/s. What the design does:
+// V bytes, 2*B*H*(pos+Q)*D*elem (plus 8 step bytes per position in the
+// int8 form), over 3.35 TB/s. What the design does:
 //   - one block per (head, batch row) walks only that row's live keys,
 //     [0, min(pos + Q, S)): the work and the bytes follow each row's own
 //     length, and the cache tail past it is never read (the TPU kernel
@@ -19,11 +28,14 @@
 //   - the four warps split the keys in interleaved groups of 8; within a
 //     warp each lane holds D/32 consecutive elements of a key row, so a
 //     warp reads whole rows with neighbouring lanes on neighbouring
-//     addresses, and 8 rows are in flight per warp before any arithmetic;
+//     addresses (a 128-byte line per int8 row at D = 128), and 8 rows are
+//     in flight per warp before any arithmetic. The int8 form keeps that
+//     layout rather than 16 codes a lane: 16 elements a lane would need 16
+//     accumulators per query row, 256 registers at Q = 8;
 //   - each warp keeps its own online-softmax state (m, l, acc) in
 //     registers; the four states merge once through shared memory at the
-//     end, so nothing but q, the live cache and the output touches device
-//     memory.
+//     end, so nothing but q, the live cache (and its steps) and the output
+//     touches device memory.
 // One block per (b, h) leaves the card under-filled when B*H is small and
 // the cache is long; splitting the keys across blocks (flash-decoding) is
 // the next design.
@@ -40,6 +52,7 @@ constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(signed char x) { return (float)x; }
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -48,11 +61,13 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Lane `lane` owns elements lane*E .. lane*E + E - 1 of a D-wide row
-// (lanes past D / E own none when D < 32).
-template <typename T, int D>
+// (lanes past D / E own none when D < 32). SCALED: T is int8 and ks / vs
+// hold the per-position steps [B, H, S].
+template <typename T, int D, bool SCALED>
 __global__ void __launch_bounds__(NT)
 decode_kernel(const float* __restrict__ q, const T* __restrict__ kc,
-              const T* __restrict__ vc, const int* __restrict__ pos,
+              const T* __restrict__ vc, const float* __restrict__ ks,
+              const float* __restrict__ vs, const int* __restrict__ pos,
               float* __restrict__ out, int H, int S, int Q, float scale) {
   constexpr int E = D >= 32 ? D / 32 : 1;
   __shared__ float sm_m[NW][QMAX];
@@ -86,12 +101,23 @@ decode_kernel(const float* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
     for (int kk = 0; kk < KG; ++kk) {
       const int key = g0 + kk;
+      float k_step = 1.f, v_step = 1.f;
+      if constexpr (SCALED) {
+        if (key < n_live) {
+          k_step = ks[bh * S + key];
+          v_step = vs[bh * S + key];
+        }
+      }
 #pragma unroll
       for (int t = 0; t < E; ++t) {
         const int e = lane * E + t;
         const bool in = key < n_live && e < D;
         kr[kk][t] = in ? to_f32(kb[(long long)key * D + e]) : 0.f;
         vr[kk][t] = in ? to_f32(vb[(long long)key * D + e]) : 0.f;
+        if constexpr (SCALED) {   // dequantize in registers
+          kr[kk][t] *= k_step;
+          vr[kk][t] *= v_step;
+        }
       }
     }
 #pragma unroll
@@ -162,26 +188,28 @@ decode_kernel(const float* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SCALED>
 cudaError_t launch(const float* q, const void* k, const void* v,
-                   const int* pos, float* out, int B, int H, int S, int Q,
-                   float scale, cudaStream_t stream) {
+                   const float* ks, const float* vs, const int* pos,
+                   float* out, int B, int H, int S, int Q, float scale,
+                   cudaStream_t stream) {
   dim3 grid(H, B);
-  decode_kernel<T, D><<<grid, NT, 0, stream>>>(
-      q, static_cast<const T*>(k), static_cast<const T*>(v), pos, out, H, S,
-      Q, scale);
+  decode_kernel<T, D, SCALED><<<grid, NT, 0, stream>>>(
+      q, static_cast<const T*>(k), static_cast<const T*>(v), ks, vs, pos,
+      out, H, S, Q, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool SCALED>
 cudaError_t dispatch_d(const float* q, const void* k, const void* v,
-                       const int* pos, float* out, int B, int H, int S, int Q,
-                       int D, float scale, cudaStream_t stream) {
+                       const float* ks, const float* vs, const int* pos,
+                       float* out, int B, int H, int S, int Q, int D,
+                       float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, pos, out, B, H, S, Q, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, pos, out, B, H, S, Q, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, pos, out, B, H, S, Q, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, pos, out, B, H, S, Q, scale, stream);
+    case 16: return launch<T, 16, SCALED>(q, k, v, ks, vs, pos, out, B, H, S, Q, scale, stream);
+    case 32: return launch<T, 32, SCALED>(q, k, v, ks, vs, pos, out, B, H, S, Q, scale, stream);
+    case 64: return launch<T, 64, SCALED>(q, k, v, ks, vs, pos, out, B, H, S, Q, scale, stream);
+    case 128: return launch<T, 128, SCALED>(q, k, v, ks, vs, pos, out, B, H, S, Q, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -201,6 +229,23 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   const int* p = static_cast<const int*>(pos);
   float* o = static_cast<float*>(out);
   if (is_bf16)
-    return (int)dispatch_d<__nv_bfloat16>(qf, k, v, p, o, B, H, S, Q, D, scale, s);
-  return (int)dispatch_d<float>(qf, k, v, p, o, B, H, S, Q, D, scale, s);
+    return (int)dispatch_d<__nv_bfloat16, false>(qf, k, v, nullptr, nullptr,
+                                                 p, o, B, H, S, Q, D, scale, s);
+  return (int)dispatch_d<float, false>(qf, k, v, nullptr, nullptr, p, o, B,
+                                       H, S, Q, D, scale, s);
+}
+
+// The scaled-int8 cache: k, v int8 codes [B, H, S, D]; ks, vs f32 steps
+// [B, H, S]; the rest as decode_attention.
+extern "C" int decode_attention_q8(const void* q, const void* k,
+                                   const void* v, const void* ks,
+                                   const void* vs, const void* pos, void* out,
+                                   int B, int H, int S, int Q, int D,
+                                   float scale, void* stream) {
+  if (Q < 1 || Q > QMAX) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_d<signed char, true>(
+      static_cast<const float*>(q), k, v, static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(pos),
+      static_cast<float*>(out), B, H, S, Q, D, scale,
+      static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,314 @@
+// Weight-only dequant-matmul for Hopper (sm_90a), plain C interface.
+//
+// Replaces the TPU kernel paddle_tpu/ops/pallas/quant_matmul.py:_qmm_kernel
+// (launched by _pallas_quant_matmul): out[M, N] = (x[M, K] @ codes) * step,
+// where codes are int8 [K, N] (bits 8) or int4 packed two per byte along K
+// [K/2, N] (bits 4; packed row r holds row 2r in its low nibble and row
+// 2r+1 in its high nibble, each sign-extended), step is the f32 [N]
+// per-column step and the output is f32. The integer codes are exact in
+// bf16 and f32, so each product equals the reference's `w.astype(x.dtype)`
+// product; the sum is f32 and the step multiplies it once, after the sum.
+// x is bf16 or f32, [M, K] contiguous. Any M, K and N: ragged edges are
+// masked in the kernels (the TPU path needed every dimension to tile
+// evenly and bm >= 8, so a small decode batch never took its kernel).
+//
+// What bounds it on the H100:
+//   - decode (M = 4..8): bytes. 2*M*K*N operations against K*N code bytes
+//     is at most 16 operations a byte, far below the ~295 the tensor cores
+//     need, so the least time is the codes over 3.35 TB/s (w_in of
+//     gpt3_1p3b: 16.8 MB int8, 8.4 MB int4).
+//   - prefill (M = B*P, hundreds to thousands): operations, 2*M*K*N at
+//     989 TFLOP/s bf16.
+// What the design does:
+//   - qmm_skinny_kernel (M up to 8 per block, any x dtype): CUDA-core FMAs,
+//     no tensor cores (a 16-row MMA tile would be half empty or worse). A
+//     block owns 16 output columns, so even N = 2048 gives 128 blocks to
+//     stream the codes; its 256 threads split K (rows t, t + 256, ...),
+//     each thread loads 16 codes of a row with one 16-byte load (16 int4
+//     pairs for bits 4), U rows at a time before any arithmetic, and keeps
+//     an f32 accumulator per (row of x, column). The partial sums meet
+//     once at the end (warp shuffles, then shared memory) and the step
+//     multiplies the total. f32 x (parity runs) takes this kernel at any
+//     M, 8 rows of x per block row.
+//   - qmm_wmma_kernel (bf16 x, M > 8): a 64 x 64 output tile per block of
+//     four warps, each warp a 32 x 32 quarter of 2 x 2 bf16 16x16x16
+//     nvcuda::wmma fragments with f32 accumulators. Per 32-deep K step the
+//     block stages the x tile and the code tile converted to bf16 (int4
+//     unpacked by the two shifts) in shared memory. The epilogue goes
+//     through shared memory, multiplies by step[n] and writes the f32
+//     tile with masks.
+// Deliberately simple: no cp.async or TMA pipelining, no wgmma, no split-K
+// across blocks. Those are the next designs (the decode kernel is below
+// the HBM rate while each block's loads are not overlapped with its math).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// int4: low nibble of a packed byte sign-extended, and the high nibble
+// (b may be the raw byte 0..255 or its signed value; both give the same)
+__device__ __forceinline__ int lo4(int b) { return ((b & 0xf) ^ 8) - 8; }
+__device__ __forceinline__ int hi4(int b) { return (int)(signed char)b >> 4; }
+
+constexpr int SK_THREADS = 256;
+constexpr int SK_BN = 16;   // output columns a skinny block owns
+
+// Loads the 16 codes (bytes) of packed row r at columns n0 .. n0 + 15 into
+// c[0..15]; columns past N read as 0. `vec`: one aligned 16-byte load.
+__device__ __forceinline__ void load_row16(const int8_t* __restrict__ w,
+                                           long long r, int n0, int N,
+                                           bool vec, int c[16]) {
+  const int8_t* p = w + r * (long long)N + n0;
+  if (vec) {
+    const int4 raw = *reinterpret_cast<const int4*>(p);
+    const int words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[i * 4 + j] = (words[i] >> (8 * j)) & 0xff;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) c[j] = (n0 + j < N) ? (int)(uint8_t)p[j] : 0;
+  }
+}
+
+// BITS 8: c holds raw bytes; the signed code is (signed char)c.
+template <typename XT, int BITS, int MT>
+__global__ void __launch_bounds__(SK_THREADS)
+qmm_skinny_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
+                  const float* __restrict__ step, float* __restrict__ out,
+                  int M, int K, int N, int vec) {
+  constexpr int U = MT >= 8 ? 2 : 4;          // packed rows in flight
+  constexpr int R_PER = BITS == 4 ? 2 : 1;    // K rows per packed row
+  const int n0 = blockIdx.x * SK_BN;
+  const int m0 = blockIdx.y * MT;
+  const int mt = min(MT, M - m0);
+  const int R = K / R_PER;                    // packed rows
+  const int tid = threadIdx.x;
+
+  float acc[MT][SK_BN];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < SK_BN; ++j) acc[m][j] = 0.f;
+
+  for (int r0 = tid; r0 < R; r0 += SK_THREADS * U) {
+    int c[U][16];
+    float xv[U][R_PER][MT];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * SK_THREADS;
+      if (r < R) {
+        load_row16(w, r, n0, N, vec != 0, c[u]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) c[u][j] = 0;
+      }
+#pragma unroll
+      for (int h = 0; h < R_PER; ++h)
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          xv[u][h][m] = (r < R && m < mt)
+              ? to_f32(x[(long long)(m0 + m) * K + r * R_PER + h]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int j = 0; j < SK_BN; ++j) {
+        float code[R_PER];
+        if constexpr (BITS == 4) {
+          code[0] = (float)lo4(c[u][j]);
+          code[1] = (float)hi4(c[u][j]);
+        } else {
+          code[0] = (float)(signed char)c[u][j];
+        }
+#pragma unroll
+        for (int h = 0; h < R_PER; ++h)
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+            acc[m][j] = fmaf(xv[u][h][m], code[h], acc[m][j]);
+      }
+    }
+  }
+
+  // the block's 256 partial sums of each (row, column) meet once
+  __shared__ float red[SK_THREADS / 32][MT * SK_BN];
+  const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < SK_BN; ++j) {
+      float v = acc[m][j];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane == 0) red[warp][m * SK_BN + j] = v;
+    }
+  __syncthreads();
+  if (tid < MT * SK_BN) {
+    const int m = tid / SK_BN, j = tid % SK_BN, n = n0 + j;
+    if (m < mt && n < N) {
+      float s = 0.f;
+#pragma unroll
+      for (int ww = 0; ww < SK_THREADS / 32; ++ww) s += red[ww][tid];
+      out[(long long)(m0 + m) * N + n] = s * step[n];
+    }
+  }
+}
+
+// ---------------------------------------------------------------- wmma path
+constexpr int WM_BM = 64, WM_BN = 64, WM_BK = 32, WM_THREADS = 128;
+constexpr int A_LD = WM_BK + 8;    // bf16 elements; rows stay 16-byte aligned
+constexpr int B_LD = WM_BN + 8;
+constexpr int C_LD = WM_BN + 4;    // f32
+
+template <int BITS>
+__global__ void __launch_bounds__(WM_THREADS)
+qmm_wmma_kernel(const __nv_bfloat16* __restrict__ x,
+                const int8_t* __restrict__ w, const float* __restrict__ step,
+                float* __restrict__ out, int M, int K, int N) {
+  using namespace nvcuda;
+  // the x and code tiles during the K loop; the f32 output tile (Cs)
+  // reuses the same bytes after it. Offsets stay 32-byte aligned, as
+  // wmma loads and stores need.
+  constexpr int AB_BYTES = (WM_BM * A_LD + WM_BK * B_LD) * 2;
+  constexpr int C_BYTES = WM_BM * C_LD * 4;
+  __shared__ __align__(128) unsigned char smem[AB_BYTES > C_BYTES ? AB_BYTES
+                                                                   : C_BYTES];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Bs = As + WM_BM * A_LD;
+  float* Cs = reinterpret_cast<float*>(smem);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int m0 = blockIdx.y * WM_BM, n0 = blockIdx.x * WM_BN;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int k0 = 0; k0 < K; k0 += WM_BK) {
+    // x tile [64, 32]: neighbouring threads on neighbouring k
+    for (int idx = tid; idx < WM_BM * WM_BK; idx += WM_THREADS) {
+      const int r = idx / WM_BK, kk = idx % WM_BK;
+      const int m = m0 + r, k = k0 + kk;
+      As[r * A_LD + kk] = (m < M && k < K) ? x[(long long)m * K + k] : zero;
+    }
+    // code tile [32, 64] as bf16: neighbouring threads on neighbouring n
+    if constexpr (BITS == 8) {
+      for (int idx = tid; idx < WM_BK * WM_BN; idx += WM_THREADS) {
+        const int kk = idx / WM_BN, nn = idx % WM_BN;
+        const int k = k0 + kk, n = n0 + nn;
+        const float v = (k < K && n < N)
+            ? (float)w[(long long)k * N + n] : 0.f;
+        Bs[kk * B_LD + nn] = __float2bfloat16(v);
+      }
+    } else {
+      // k0 is even (WM_BK is), so packed row (k0 + kk) / 2 splits cleanly
+      for (int idx = tid; idx < (WM_BK / 2) * WM_BN; idx += WM_THREADS) {
+        const int pr = idx / WM_BN, nn = idx % WM_BN;
+        const int k = k0 + 2 * pr, n = n0 + nn;
+        const int b = (k < K && n < N)
+            ? (int)w[(long long)(k / 2) * N + n] : 0;
+        Bs[(2 * pr) * B_LD + nn] = __float2bfloat16((float)lo4(b));
+        Bs[(2 * pr + 1) * B_LD + nn] = __float2bfloat16((float)hi4(b));
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < WM_BK; ks += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], As + (wm + 16 * i) * A_LD + ks, A_LD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], Bs + ks * B_LD + wn + 16 * j, B_LD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm + 16 * i) * C_LD + wn + 16 * j,
+                              acc[i][j], C_LD, wmma::mem_row_major);
+  __syncthreads();
+  for (int idx = tid; idx < WM_BM * WM_BN; idx += WM_THREADS) {
+    const int r = idx / WM_BN, c = idx % WM_BN;
+    const int m = m0 + r, n = n0 + c;
+    if (m < M && n < N) out[(long long)m * N + n] = Cs[r * C_LD + c] * step[n];
+  }
+}
+
+template <typename XT, int BITS, int MT>
+cudaError_t launch_skinny(const void* x, const int8_t* w, const float* step,
+                          float* out, int M, int K, int N, int vec,
+                          cudaStream_t s) {
+  dim3 grid((N + SK_BN - 1) / SK_BN, (M + MT - 1) / MT);
+  qmm_skinny_kernel<XT, BITS, MT><<<grid, SK_THREADS, 0, s>>>(
+      static_cast<const XT*>(x), w, step, out, M, K, N, vec);
+  return cudaGetLastError();
+}
+
+template <typename XT, int BITS>
+cudaError_t dispatch_skinny(const void* x, const int8_t* w, const float* step,
+                            float* out, int M, int K, int N, int vec,
+                            cudaStream_t s) {
+  if (M <= 1) return launch_skinny<XT, BITS, 1>(x, w, step, out, M, K, N, vec, s);
+  if (M <= 2) return launch_skinny<XT, BITS, 2>(x, w, step, out, M, K, N, vec, s);
+  if (M <= 4) return launch_skinny<XT, BITS, 4>(x, w, step, out, M, K, N, vec, s);
+  return launch_skinny<XT, BITS, 8>(x, w, step, out, M, K, N, vec, s);
+}
+
+template <int BITS>
+cudaError_t dispatch(const void* x, const int8_t* w, const float* step,
+                     float* out, int M, int K, int N, int is_bf16, int vec,
+                     cudaStream_t s) {
+  if (!is_bf16)
+    return dispatch_skinny<float, BITS>(x, w, step, out, M, K, N, vec, s);
+  if (M <= 8)
+    return dispatch_skinny<__nv_bfloat16, BITS>(x, w, step, out, M, K, N, vec, s);
+  dim3 grid((N + WM_BN - 1) / WM_BN, (M + WM_BM - 1) / WM_BM);
+  qmm_wmma_kernel<BITS><<<grid, WM_THREADS, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), w, step, out, M, K, N);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x: [M, K] bf16 (is_bf16 = 1) or f32; w: int8 codes [K, N] (bits 8) or
+// packed int4 [K/2, N] (bits 4, K even); step: [N] f32; out: [M, N] f32;
+// all contiguous. vec = 1 when N % 16 == 0 and w is 16-byte aligned.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int quant_matmul(const void* x, const void* w, const void* step,
+                            void* out, int M, int K, int N, int bits,
+                            int is_bf16, int vec, void* stream) {
+  if (M < 1 || K < 1 || N < 1 || (bits == 4 && K % 2))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* wc = static_cast<const int8_t*>(w);
+  const float* st = static_cast<const float*>(step);
+  float* o = static_cast<float*>(out);
+  if (bits == 8) return (int)dispatch<8>(x, wc, st, o, M, K, N, is_bf16, vec, s);
+  if (bits == 4) return (int)dispatch<4>(x, wc, st, o, M, K, N, is_bf16, vec, s);
+  return (int)cudaErrorInvalidValue;
+}

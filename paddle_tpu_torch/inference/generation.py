@@ -15,9 +15,14 @@ attention masks per row, so a row's tokens equal what a solo
 Where the reference ran one compiled program per tick, the port runs
 eager PyTorch: a decode tick is one ``decode_one_token`` over every slot
 (dead rows write at their dump position, never read), and ``fused_tick``
-is the chunk-prefill half followed by the decode half. Paged KV,
-speculative decoding, meshes, prefix span copies and quantization belong
-to later slices and raise ``NotImplementedError``.
+is the chunk-prefill half followed by the decode half.
+
+Quantized serving (``cfg.weight_quant="int8"/"int4"`` with params from
+``quantization.quantize_gpt_params``, and/or ``cfg.kv_cache_dtype="int8"``
+for the scaled-int8 cache) runs through the same calls: the session then
+holds ``(codes, steps)`` cache pairs and keeps its byte accounting in
+``quant_stats``. Paged KV, speculative decoding, meshes and prefix span
+copies belong to later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,10 +34,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.gpt import (GPTConfig, check_params_device, check_prefill_mode,
-                          decode_one_token, init_kv_cache, pad_cache_len,
-                          prefill, prefill_suffix, sample_logits)
+from ..models.gpt import (GPTConfig, _wq_bits, check_params_device,
+                          check_prefill_mode, decode_one_token, init_kv_cache,
+                          pad_cache_len, prefill, prefill_suffix,
+                          sample_logits)
 from ..observability import ServingMetrics
+from ..observability.quant import record_session_quant
+from ..quantization.gpt_quant import kv_cache_quantized
 
 _SESSION_SEQ = itertools.count()
 
@@ -126,6 +134,13 @@ class GenerationSession:
                                          self.max_slots)
         self._admit_t = [0.0] * self.max_slots
         self._await_first = [False] * self.max_slots
+        # quant byte accounting: weight bytes saved, KV bytes per row
+        self._quant_stats = None
+        if cfg.weight_quant or kv_cache_quantized(cfg):
+            if cfg.weight_quant:
+                _wq_bits(cfg)    # an unknown mode fails here, explained
+            self._quant_stats = record_session_quant(
+                cfg, self._params, (self._kc, self._vc), self.max_slots)
 
     # ------------------------------------------------------------- admission
     def free_slots(self) -> list[int]:
@@ -194,6 +209,13 @@ class GenerationSession:
         return self.admit(prompts, lengths, arrival_ts)
 
     # ------------------------------------------------ scheduler primitives
+    @property
+    def quant_stats(self) -> dict | None:
+        """The quantized session's byte accounting
+        (``observability.quant.record_session_quant``); None when neither
+        the weights nor the cache are quantized."""
+        return self._quant_stats
+
     @property
     def telemetry(self) -> ServingMetrics:
         """The session's ServingMetrics, shared with the serving engine."""

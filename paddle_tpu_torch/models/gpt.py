@@ -1,7 +1,8 @@
 """GPT on one device — port of the single-chip halves of
-paddle_tpu/models/gpt.py: the serving path (dense FFN, dense KV cache, fp
-weights) and the dense train step (``build_spmd_train_step`` on a
-one-device mesh).
+paddle_tpu/models/gpt.py: the serving path (dense FFN; fp or weight-only
+int8/int4 weights, ``cfg.weight_quant``; dense fp or scaled-int8 KV
+cache, ``cfg.kv_cache_dtype``) and the dense train step
+(``build_spmd_train_step`` on a one-device mesh).
 
 Layouts are the reference's, so a weight conversion is only a dtype
 change: weights multiply as ``x @ W`` with ``W`` [D_in, D_out], block
@@ -19,10 +20,19 @@ maps ``jax.checkpoint`` to ``torch.utils.checkpoint`` and
 
 Attention goes through the hand-written kernels: flash-attention forward
 for whole-prompt prefill and training (its backward kernels under
-autograd), decode attention for every decode tick (``ops/kernels``);
-fused AdamW updates the parameters when ``cfg.fused_adamw`` is set.
+autograd), decode attention for every decode tick (its int8 form over a
+scaled-int8 cache) (``ops/kernels``); fused AdamW updates the parameters
+when ``cfg.fused_adamw`` is set; with ``cfg.weight_quant`` the two FFN
+products of every serving block go through the quant_matmul kernel.
 Suffix prefill keeps the reference's plain band-masked attention, which
 the reference also left to the compiler.
+
+Quantized serving (params from ``quantization.quantize_gpt_params``):
+the FFN ``w_in``/``w_out`` and ``wte`` are integer codes with ``*_s`` f32
+steps, and ``kv_cache_dtype="int8"`` makes each cache the pair ``(codes
+int8 [L, B, H, S, hd], steps f32 [L, B, H, S])``, one absmax step per
+written position and head. Training ignores ``weight_quant``, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -41,6 +51,10 @@ from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.fused_adamw import (fused_adamw_update, tree_flatten,
                                        tree_unflatten)
+from ..ops.kernels.primitives import f32_mm
+from ..quantization.gpt_quant import (W_BITS, dequant_rows,
+                                      kv_cache_quantized, quantize_rows,
+                                      wq_einsum)
 
 NEG_INF = -1e30
 _BLOCK_KEYS = ("ln1_g", "ln1_b", "w_qkv", "b_qkv", "w_o", "b_o", "ln2_g",
@@ -82,9 +96,15 @@ class GPTConfig:
     fused_adamw: bool = False
     # AdamW moment dtype; the math runs in f32 either way
     opt_dtype: torch.dtype = torch.float32
-    # storage dtype of the K/V cache (None = dtype); attention math is
-    # f32 whatever it is. The scaled-int8 cache is a later slice.
-    kv_cache_dtype: torch.dtype | None = None
+    # storage dtype of the K/V cache (None = dtype); the string "int8"
+    # selects the scaled-int8 cache (int8 codes + one f32 absmax step per
+    # written position per head). Attention math is f32 whatever it is.
+    kv_cache_dtype: torch.dtype | str | None = None
+    # weight-only quantization of the serving matmul weights (None off;
+    # "int8"/"int4": FFN w_in/w_out and wte as integer codes with
+    # per-output-channel f32 steps; params from quantize_gpt_params with
+    # the matching width). Training ignores it.
+    weight_quant: str | None = None
     # keys per block of the plain bounded decode attention; cache lengths
     # round up to a multiple (pad_cache_len)
     decode_block: int = 128
@@ -95,10 +115,12 @@ class GPTConfig:
         if self.hidden % self.n_heads:
             raise ValueError(f"hidden {self.hidden} does not split over "
                              f"{self.n_heads} heads")
-        if isinstance(self.kv_cache_dtype, str):
-            raise NotImplementedError(
-                f"kv_cache_dtype={self.kv_cache_dtype!r}: the scaled-int8 "
-                "KV cache belongs to the quantized-serving slice")
+        if isinstance(self.kv_cache_dtype, str) \
+                and self.kv_cache_dtype != "int8":
+            raise ValueError(
+                f"kv_cache_dtype={self.kv_cache_dtype!r}: the only string "
+                "form is 'int8' (the scaled-int8 cache); pass a torch dtype "
+                "for a plain narrow cache")
         degrees = {n: getattr(self, n) for n in
                    ("dp", "pp", "mp", "sp", "sharding", "ep")}
         if any(d != 1 for d in degrees.values()) or self.moe_experts:
@@ -135,16 +157,30 @@ def gpt_tiny(**kw) -> GPTConfig:
 # ==========================================================================
 # Parameters
 # ==========================================================================
-def _shapes(cfg: GPTConfig) -> dict:
+def _shapes(cfg: GPTConfig, quantized: bool = False) -> dict:
+    """Leaf shapes of the parameter tree; ``quantized``: the tree of
+    ``quantize_gpt_params`` at ``cfg.weight_quant`` (int4 codes packed
+    along the contraction axis, plus the ``*_s`` steps)."""
     D, V, L = cfg.hidden, cfg.vocab_size, cfg.n_layers
-    return {"wte": (V, D), "wpe": (cfg.max_seq, D), "lnf_g": (D,),
-            "lnf_b": (D,),
-            "blocks": {"ln1_g": (L, D), "ln1_b": (L, D),
-                       "w_qkv": (L, D, 3 * D), "b_qkv": (L, 3 * D),
-                       "w_o": (L, D, D), "b_o": (L, D),
-                       "ln2_g": (L, D), "ln2_b": (L, D),
-                       "w_in": (L, D, 4 * D), "b_in": (L, 4 * D),
-                       "w_out": (L, 4 * D, D), "b_out": (L, D)}}
+    shapes = {"wte": (V, D), "wpe": (cfg.max_seq, D), "lnf_g": (D,),
+              "lnf_b": (D,),
+              "blocks": {"ln1_g": (L, D), "ln1_b": (L, D),
+                         "w_qkv": (L, D, 3 * D), "b_qkv": (L, 3 * D),
+                         "w_o": (L, D, D), "b_o": (L, D),
+                         "ln2_g": (L, D), "ln2_b": (L, D),
+                         "w_in": (L, D, 4 * D), "b_in": (L, 4 * D),
+                         "w_out": (L, 4 * D, D), "b_out": (L, D)}}
+    if quantized:
+        pack = 2 if _wq_bits(cfg) == 4 else 1
+        blocks = shapes["blocks"]
+        blocks.update({"w_in": (L, D // pack, 4 * D), "w_in_s": (L, 4 * D),
+                       "w_out": (L, 4 * D // pack, D), "w_out_s": (L, D)})
+        shapes.update({"wte": (V, D // pack), "wte_s": (V,)})
+    return shapes
+
+
+# leaves of a quantized tree that keep their own dtype: int8 codes, f32 steps
+_QUANT_LEAVES = ("w_in", "w_out", "wte", "w_in_s", "w_out_s", "wte_s")
 
 
 def init_params(cfg: GPTConfig, seed: int = 0, device=None) -> dict:
@@ -196,21 +232,33 @@ def _to_torch(a: np.ndarray, device) -> torch.Tensor:
 def params_from_numpy(tree: dict, cfg: GPTConfig, device=None) -> dict:
     """Carry a parameter tree of numpy arrays (e.g. the reference's
     ``jax.device_get(init_params(...))``, bf16 included) over to torch
-    tensors in ``cfg.dtype`` on ``device``."""
+    tensors in ``cfg.dtype`` on ``device``. A weight-only quantized tree
+    (the reference's ``quantize_gpt_params`` output: it has ``wte_s``)
+    keeps its int8 codes as int8 and its ``*_s`` steps as f32, at the
+    shapes of ``cfg.weight_quant``."""
     dev = resolve_device(device)
-    shapes = _shapes(cfg)
+    quantized = "wte_s" in tree
+    if quantized and not cfg.weight_quant:
+        raise ValueError("a quantized parameter tree (it has wte_s) needs "
+                         "cfg.weight_quant set to its width")
+    shapes = _shapes(cfg, quantized)
 
     def conv(a, shape, name):
-        t = _to_torch(a, dev).to(cfg.dtype)
+        t = _to_torch(a, dev)
+        want = ((torch.float32 if name.endswith("_s") else torch.int8)
+                if quantized and name in _QUANT_LEAVES else cfg.dtype)
+        if quantized and want == torch.int8 and t.dtype != torch.int8:
+            raise ValueError(f"param {name}: quantized codes must be int8, "
+                             f"got {t.dtype}")
+        t = t.to(want)
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"param {name}: shape {tuple(t.shape)}, "
                              f"config wants {tuple(shape)}")
         return t
 
-    out = {k: conv(tree[k], shapes[k], k)
-           for k in ("wte", "wpe", "lnf_g", "lnf_b")}
-    out["blocks"] = {k: conv(tree["blocks"][k], shapes["blocks"][k], k)
-                     for k in _BLOCK_KEYS}
+    out = {k: conv(tree[k], shapes[k], k) for k in shapes if k != "blocks"}
+    out["blocks"] = {k: conv(tree["blocks"][k], shape, k)
+                     for k, shape in shapes["blocks"].items()}
     return out
 
 
@@ -219,8 +267,10 @@ def layer_params(params: dict) -> list[dict]:
     layers at once, so under autograd each stacked leaf gets one gradient
     (a stack of the layers'), not one full-size zero-padded add per layer."""
     blocks = params["blocks"]
-    per_key = [blocks[k].unbind(0) for k in _BLOCK_KEYS]
-    return [dict(zip(_BLOCK_KEYS, views)) for views in zip(*per_key)]
+    keys = _BLOCK_KEYS + tuple(k for k in ("w_in_s", "w_out_s")
+                               if k in blocks)
+    per_key = [blocks[k].unbind(0) for k in keys]
+    return [dict(zip(keys, views)) for views in zip(*per_key)]
 
 
 def check_params_device(params: dict, device: torch.device) -> None:
@@ -244,34 +294,48 @@ def _layer_norm(x, g, b, eps=1e-5):
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * g + b
 
 
+def _wq_bits(cfg: GPTConfig) -> int:
+    if cfg.weight_quant not in W_BITS:
+        raise ValueError(
+            f"cfg.weight_quant={cfg.weight_quant!r} unknown: expected "
+            "None, 'int8' or 'int4'")
+    return W_BITS[cfg.weight_quant]
+
+
 def _take_wte(params, idx, cfg: GPTConfig):
-    return params["wte"][idx]
+    """Embedding rows for the serving paths. A quantized wte gathers only
+    the codes and multiplies by the per-row steps after (f32 rows)."""
+    if not cfg.weight_quant:
+        return params["wte"][idx]
+    return dequant_rows(params["wte"][idx], params["wte_s"][idx],
+                        _wq_bits(cfg), pack_axis=-1)
 
 
-def _ffn_serving(x, h, p, cfg: GPTConfig):
-    """The dense FFN tail: ``x + ffn(h) + b_out`` with tanh GELU."""
+def _ffn_dense(x, h, p):
+    """The fp FFN tail: ``x + ffn(h) + b_out`` with tanh GELU."""
     ff = h @ p["w_in"] + p["b_in"]
     ff = F.gelu(ff, approximate="tanh")
     return x + ff @ p["w_out"] + p["b_out"]
 
 
-def _lm_product(x2, wte):
-    """[N, D] x [V, D]^T -> [N, V] f32 with operands in the params' dtype
-    and f32 accumulation. On the card a bf16 product goes through
-    ``torch.mm(..., out_dtype=torch.float32)`` (f32 output straight from
-    the f32 accumulator; a plain bf16 matmul would round the logits to
-    bf16); on the CPU the operands are upcast to f32, which gives the same
-    products (bf16 x bf16 is exact in f32)."""
-    if x2.dtype == torch.float32:
-        return x2 @ wte.t()
-    if x2.device.type == "cuda":
-        return torch.mm(x2, wte.t(), out_dtype=torch.float32)
-    return x2.float() @ wte.float().t()
+def _ffn_serving(x, h, p, cfg: GPTConfig):
+    """The FFN tail of the serving blocks. Quantized: both products run on
+    the integer codes through ``wq_einsum`` (the quant_matmul kernel),
+    f32 out, cast back to h's dtype before the bias."""
+    if not cfg.weight_quant:
+        return _ffn_dense(x, h, p)
+    bits = _wq_bits(cfg)
+    ff = wq_einsum("bsd,de->bse", h, p["w_in"], p["w_in_s"],
+                   bits).to(h.dtype) + p["b_in"]
+    ff = F.gelu(ff, approximate="tanh")
+    return x + wq_einsum("bse,ed->bsd", ff, p["w_out"], p["w_out_s"],
+                         bits).to(h.dtype) + p["b_out"]
 
 
 class _LMHead(torch.autograd.Function):
-    """The f32-output lm-head with a backward of plain matmuls (the f32
-    output form of ``torch.mm`` need not have one). The reference's
+    """The f32-output lm-head (:func:`f32_mm`: [N, D] x [V, D]^T -> [N, V]
+    f32, operands in the params' dtype) with a backward of plain matmuls
+    (the f32 output form of ``torch.mm`` need not have one). The reference's
     transpose multiplies the f32 logit gradient by the bf16 weights in
     f32; on the card a bf16 model rounds that gradient to bf16 first, so
     both products run on the bf16 tensor cores with f32 accumulation
@@ -280,7 +344,7 @@ class _LMHead(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, wte):
         ctx.save_for_backward(x2, wte)
-        return _lm_product(x2, wte)
+        return f32_mm(x2, wte.t())
 
     @staticmethod
     def backward(ctx, g):
@@ -294,12 +358,20 @@ class _LMHead(torch.autograd.Function):
         return gx, gw
 
 
-def _lm_logits(x, params, cfg: GPTConfig):
-    """Tied vocab projection, [B, S, D] -> [B, S, V] f32 (see
-    :func:`_lm_product`), differentiable through :class:`_LMHead`."""
-    wte = params["wte"]
+def _lm_head(x, wte):
+    """Tied vocab projection, [B, S, D] -> [B, S, V] f32, differentiable
+    through :class:`_LMHead`."""
     out = _LMHead.apply(x.reshape(-1, x.shape[-1]), wte)
     return out.reshape(*x.shape[:-1], wte.shape[0])
+
+
+def _lm_logits(x, params, cfg: GPTConfig):
+    """The serving lm-head: :func:`_lm_head`, or with ``cfg.weight_quant``
+    the plain product on the wte codes scaled by the per-row steps."""
+    if cfg.weight_quant:
+        return wq_einsum("bsd,vd->bsv", x, params["wte"], params["wte_s"],
+                         _wq_bits(cfg), pack_axis=-1)
+    return _lm_head(x, params["wte"])
 
 
 def _split_qkv(qkv, cfg: GPTConfig):
@@ -310,25 +382,66 @@ def _split_qkv(qkv, cfg: GPTConfig):
     return tuple(qkv[:, :, :, i].transpose(1, 2) for i in range(3))
 
 
+# --------------------------------------------------------------------------
+# Scaled-int8 KV cache: a quantized cache is the PAIR (codes int8 [..., S,
+# hd], steps f32 [..., S]); the helpers below are the only code that looks
+# inside.
+# --------------------------------------------------------------------------
+def kv_data(cache):
+    """The storage tensor of a (possibly quantized) cache, for shapes."""
+    return cache[0] if isinstance(cache, tuple) else cache
+
+
+def kv_dequant(cache, dtype=torch.float32):
+    """Whole-buffer dequantization (the suffix prefill's band attention;
+    decode dequantizes inside decode_attention instead)."""
+    if isinstance(cache, tuple):
+        q, s = cache
+        return (q.float() * s[..., None]).to(dtype)
+    return cache.to(dtype)
+
+
+def _kv_index(cache, idx):
+    """``cache[idx]`` of a cache or of a scaled-int8 pair (codes and steps
+    together): a layer's view of the stacked cache, or a layer's rows."""
+    if isinstance(cache, tuple):
+        return tuple(c[idx] for c in cache)
+    return cache[idx]
+
+
 def _kv_write(cache, new, pos):
-    """Write ``new`` [B, H, Q, hd] into ``cache`` [B, H, S, hd] in place,
-    row b at positions ``pos[b] .. pos[b] + Q - 1`` (a start past
-    ``S - Q`` clamps to it, as dynamic_update_slice does)."""
-    B, Q, S = new.shape[0], new.shape[2], cache.shape[2]
+    """Write ``new`` [B, H, Q, hd] into ``cache`` [B, H, S, hd] (or the
+    scaled-int8 pair: codes and per-position steps) in place, row b at
+    positions ``pos[b] .. pos[b] + Q - 1`` (a start past ``S - Q`` clamps
+    to it, as dynamic_update_slice does)."""
+    data = kv_data(cache)
+    B, Q, S = new.shape[0], new.shape[2], data.shape[2]
     start = pos.clamp(0, S - Q)
-    cols = start[:, None] + torch.arange(Q, device=cache.device)[None, :]
-    rows = torch.arange(B, device=cache.device)[:, None]
+    cols = start[:, None] + torch.arange(Q, device=data.device)[None, :]
+    rows = torch.arange(B, device=data.device)[:, None]
     # advanced indices on dims 0 and 2 put [B, Q] first: value [B, Q, H, hd]
-    cache[rows, :, cols] = new.permute(0, 2, 1, 3).to(cache.dtype)
+    if isinstance(cache, tuple):
+        q, s = quantize_rows(new)
+        data[rows, :, cols] = q.permute(0, 2, 1, 3)
+        cache[1][rows, :, cols] = s.permute(0, 2, 1)
+        return
+    data[rows, :, cols] = new.permute(0, 2, 1, 3).to(data.dtype)
 
 
 def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int | None = None,
                   device=None):
     """Zeroed K and V caches [L, B, H, S, hd] in cfg.kv_cache_dtype (cfg.dtype
-    when unset)."""
+    when unset). ``kv_cache_dtype="int8"`` gives each as the pair ``(codes
+    int8 [L, B, H, S, hd], steps f32 [L, B, H, S])``; zero steps
+    dequantize to the zeros of a fresh fp cache."""
     dev = resolve_device(device)
     s = max_len or cfg.max_seq
     shape = (cfg.n_layers, batch, cfg.n_heads, s, cfg.head_dim)
+    if kv_cache_quantized(cfg):
+        mk = lambda: (torch.zeros(shape, dtype=torch.int8, device=dev),
+                      torch.zeros(shape[:-1], dtype=torch.float32,
+                                  device=dev))
+        return mk(), mk()
     dt = cfg.kv_cache_dtype or cfg.dtype
     return (torch.zeros(shape, dtype=dt, device=dev),
             torch.zeros(shape, dtype=dt, device=dev))
@@ -336,8 +449,8 @@ def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int | None = None,
 
 def _block_decode(x, p, cfg: GPTConfig, k_cache, v_cache, pos):
     """One block on a window of new positions. x: [B, Q, D]; k/v_cache:
-    this layer's [B, H, S, hd] (written in place); pos: [B] position of
-    window row 0. Row j attends keys <= pos + j."""
+    this layer's [B, H, S, hd] or scaled-int8 pair (written in place);
+    pos: [B] position of window row 0. Row j attends keys <= pos + j."""
     h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
     q, k_new, v_new = _split_qkv(h @ p["w_qkv"] + p["b_qkv"], cfg)
     _kv_write(k_cache, k_new, pos)
@@ -365,7 +478,8 @@ def decode_one_token(params, cfg: GPTConfig, token, pos, k_cache, v_cache):
     emb = _take_wte(params, token[:, None], cfg) + params["wpe"][pos][:, None]
     x = emb.to(cfg.dtype)
     for i, lp in enumerate(layer_params(params)):
-        x = _block_decode(x, lp, cfg, k_cache[i], v_cache[i], pos)
+        x = _block_decode(x, lp, cfg, _kv_index(k_cache, i),
+                          _kv_index(v_cache, i), pos)
     x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
     return _lm_logits(x, params, cfg)[:, 0], k_cache, v_cache
 
@@ -390,16 +504,28 @@ def _attend_prefill(q, k, v, chunk: int):
 def _block_prefill(x, p, cfg: GPTConfig, k_cache, v_cache, chunk: int,
                    rows):
     """One block over the whole prompt. x: [n, P, D]; k/v_cache: this
-    layer's [B, H, S, hd]; rows: [n] cache rows the prompts own (their
-    positions [0, P) are written in place)."""
+    layer's [B, H, S, hd] or scaled-int8 pair; rows: [n] cache rows the
+    prompts own (their positions [0, P) are written in place)."""
     h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
     q, k_new, v_new = _split_qkv(h @ p["w_qkv"] + p["b_qkv"], cfg)
     P = x.shape[1]
-    k_cache[rows, :, :P] = k_new.to(k_cache.dtype)
-    v_cache[rows, :, :P] = v_new.to(v_cache.dtype)
-    # attend over the cache-rounded K/V, the values decode will re-read
-    k_att = k_new.to(k_cache.dtype).to(q.dtype).contiguous()
-    v_att = v_new.to(v_cache.dtype).to(q.dtype).contiguous()
+    if isinstance(k_cache, tuple):
+        # quantize the prompt K/V once, write codes and steps, and attend
+        # over the ROUND-TRIPPED values, exactly what decode will re-read
+        atts = []
+        for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+            codes, steps = quantize_rows(new)
+            cache[0][rows, :, :P] = codes
+            cache[1][rows, :, :P] = steps
+            atts.append((codes.float() * steps[..., None]).to(
+                q.dtype).contiguous())
+        k_att, v_att = atts
+    else:
+        k_cache[rows, :, :P] = k_new.to(k_cache.dtype)
+        v_cache[rows, :, :P] = v_new.to(v_cache.dtype)
+        # attend over the cache-rounded K/V, the values decode will re-read
+        k_att = k_new.to(k_cache.dtype).to(q.dtype).contiguous()
+        v_att = v_new.to(v_cache.dtype).to(q.dtype).contiguous()
     attn = _attend_prefill(q.contiguous(), k_att, v_att, chunk).to(x.dtype)
     attn = attn.transpose(1, 2).reshape(x.shape[0], P, -1)
     x = x + attn @ p["w_o"] + p["b_o"]
@@ -417,9 +543,9 @@ def prefill(params, cfg: GPTConfig, tokens, k_cache, v_cache, lengths=None,
     last real position, k_cache, v_cache)."""
     n, P = tokens.shape
     dev = tokens.device
-    if P > k_cache.shape[3]:
+    if P > kv_data(k_cache).shape[3]:
         raise ValueError(f"prompt width {P} exceeds the cache length "
-                         f"{k_cache.shape[3]}")
+                         f"{kv_data(k_cache).shape[3]}")
     chunk = cfg.prefill_chunk if mode == "chunked" else 0
     if mode == "chunked" and cfg.prefill_chunk <= 0:
         raise ValueError(
@@ -429,7 +555,8 @@ def prefill(params, cfg: GPTConfig, tokens, k_cache, v_cache, lengths=None,
             else torch.as_tensor(rows, device=dev).long())
     x = (_take_wte(params, tokens, cfg) + params["wpe"][:P]).to(cfg.dtype)
     for i, lp in enumerate(layer_params(params)):
-        x = _block_prefill(x, lp, cfg, k_cache[i], v_cache[i], chunk, rows)
+        x = _block_prefill(x, lp, cfg, _kv_index(k_cache, i),
+                           _kv_index(v_cache, i), chunk, rows)
     x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
     if lengths is None:
         last = x[:, P - 1]
@@ -446,7 +573,9 @@ def _block_prefill_suffix(x, p, cfg: GPTConfig, k_cache, v_cache, starts,
     window [starts[r], starts[r] + C) of cache row rows[r] is written in
     place, except indices below shifts[r], which keep the resident
     prefix (a window slid left near the cache end must not clobber it).
-    Each query attends the WHOLE cache row under a band mask (key j
+    A scaled-int8 cache merges its codes AND its per-position steps the
+    same way: a resident position keeps the step its codes were written
+    with. Each query attends the WHOLE cache row under a band mask (key j
     visible iff j <= its absolute position)."""
     h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
     q, k_new, v_new = _split_qkv(h @ p["w_qkv"] + p["b_qkv"], cfg)
@@ -456,11 +585,20 @@ def _block_prefill_suffix(x, p, cfg: GPTConfig, k_cache, v_cache, starts,
     keep_new = (ar[None, :] >= shifts[:, None])[:, :, None, None]
     r = rows[:, None]
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        if isinstance(cache, tuple):
+            codes, steps = quantize_rows(new)
+            data, st = cache
+            data[r, :, cols] = torch.where(
+                keep_new, codes.permute(0, 2, 1, 3), data[r, :, cols])
+            st[r, :, cols] = torch.where(
+                keep_new[..., 0], steps.permute(0, 2, 1), st[r, :, cols])
+            continue
         cur = cache[r, :, cols]                                 # [n, C, H, hd]
         cache[r, :, cols] = torch.where(
             keep_new, new.permute(0, 2, 1, 3).to(cache.dtype), cur)
-    k_att = k_cache[rows].to(q.dtype)
-    v_att = v_cache[rows].to(q.dtype)
+    # one round trip through the cache storage, as in _block_prefill
+    k_att = kv_dequant(_kv_index(k_cache, rows), q.dtype)
+    v_att = kv_dequant(_kv_index(v_cache, rows), q.dtype)
     return _suffix_attend(x, p, cfg, q, k_att, v_att, starts, C)
 
 
@@ -500,7 +638,7 @@ def prefill_suffix(params, cfg: GPTConfig, tokens, k_cache, v_cache,
     position, k_cache, v_cache)."""
     n, C = tokens.shape
     dev = tokens.device
-    S = k_cache.shape[3]
+    S = kv_data(k_cache).shape[3]
     if C > S:
         raise ValueError(f"chunk width {C} exceeds the cache length {S}")
     rows = (torch.arange(n, device=dev) if rows is None
@@ -514,8 +652,9 @@ def prefill_suffix(params, cfg: GPTConfig, tokens, k_cache, v_cache,
     pos_ids = (starts[:, None] + ar[None, :]).clamp(0, cfg.max_seq - 1)
     x = (_take_wte(params, tokens, cfg) + params["wpe"][pos_ids]).to(cfg.dtype)
     for i, lp in enumerate(layer_params(params)):
-        x = _block_prefill_suffix(x, lp, cfg, k_cache[i], v_cache[i], starts,
-                                  shifts, rows)
+        x = _block_prefill_suffix(x, lp, cfg, _kv_index(k_cache, i),
+                                  _kv_index(v_cache, i), starts, shifts,
+                                  rows)
     x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
     lengths = (torch.full((n,), C, device=dev, dtype=torch.long)
                if lengths is None
@@ -636,7 +775,7 @@ def _block(x, p, cfg: GPTConfig):
     attn = attn.transpose(1, 2).reshape(B, S, -1)
     x = x + attn @ p["w_o"] + p["b_o"]
     h = _layer_norm(x, p["ln2_g"], p["ln2_b"])
-    return _ffn_serving(x, h, p, cfg)
+    return _ffn_dense(x, h, p)
 
 
 def _remat(fn, *args):
@@ -669,7 +808,7 @@ def forward(params, cfg: GPTConfig, tokens):
     tokens = torch.as_tensor(tokens, device=params["wte"].device).long()
     x = _stage_fn(params, _embed(params, tokens), cfg)
     x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
-    return _lm_logits(x, params, cfg)
+    return _lm_head(x, params["wte"])
 
 
 def _xent(x, wte, labels):

@@ -19,6 +19,20 @@ def causal_mask(scores, q_start: int, k_start: int, offset: int = 0):
     return torch.where(keep, scores, torch.full_like(scores, NEG_INF))
 
 
+def f32_mm(a, b):
+    """``a @ b`` [M, K] x [K, N] -> [M, N] f32 with the operands in a's
+    dtype and f32 accumulation: ``torch.mm(..., out_dtype=float32)`` for a
+    bf16 product on the card (f32 straight from the accumulator; a plain
+    bf16 matmul would round the result to bf16), the operands upcast to f32
+    on the CPU (bf16 x bf16 is exact in f32, so the products are the
+    same)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def online_softmax_update(m_prev, l_prev, acc_prev, scores, values):
     """One block step of the streaming softmax, all f32: returns
     ``(m_new, l_new, acc_new)`` from the running max ``m`` [..., q, 1],

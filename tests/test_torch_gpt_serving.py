@@ -211,8 +211,12 @@ def test_mode_and_budget_checks(models):
     with pytest.raises(ValueError, match="prefill_chunk"):
         tg.generate(tp, tcfg, _prompt(8, (1, 6)), 2, prefill_mode="chunked",
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        tg.gpt_tiny(kv_cache_dtype="int8")
+    # the scaled-int8 cache: (codes, steps) pairs
+    kc, vc = tg.init_kv_cache(tg.gpt_tiny(kv_cache_dtype="int8"), 2, 16,
+                              device="cpu")
+    for codes, steps in (kc, vc):
+        assert codes.dtype == torch.int8 and codes.shape == (4, 2, 4, 16, 16)
+        assert steps.dtype == torch.float32 and steps.shape == (4, 2, 4, 16)
     for n, block in ((100, 128), (129, 128), (256, 128), (70, 8)):
         assert tg.pad_cache_len(n, block) == jg.pad_cache_len(n, block)
 

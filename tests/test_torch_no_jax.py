@@ -1,6 +1,7 @@
 """The port stands alone: no module under paddle_tpu_torch/ imports jax or
-paddle_tpu, the package imports, serves and trains with both blocked, and
-every entry point defaults to the CUDA device and raises without one."""
+paddle_tpu, the package imports, serves (fp and quantized) and trains with
+both blocked, and every entry point defaults to the CUDA device and raises
+without one."""
 import ast
 import subprocess
 import sys
@@ -58,6 +59,18 @@ def test_package_runs_with_jax_blocked():
         tok = np.arange(34).reshape(2, 17) % cfg.vocab_size
         params, opt, loss = step(params, opt, tok[:, :-1], tok[:, 1:])
         assert np.isfinite(float(loss))
+        from paddle_tpu_torch.quantization import quantize_gpt_params
+        qcfg = gpt.gpt_tiny(n_layers=2, weight_quant="int4",
+                            kv_cache_dtype="int8")
+        qp = quantize_gpt_params(params, qcfg, bits=4)
+        qout = gpt.generate(qp, qcfg, prompt, 4, device="cpu")
+        sess = GenerationSession(qp, qcfg, max_slots=2, max_prompt_len=8,
+                                 device="cpu")
+        assert sess.quant_stats["weight_bits"] == 4
+        eng = ServingEngine(sess, prefill_chunk=2, device="cpu")
+        reqs = [eng.submit(p, max_new_tokens=4) for p in prompt]
+        eng.run()
+        assert [r.output for r in reqs] == qout[:, 5:].tolist()
         assert not any(m and m.startswith(("jax", "paddle_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("OK")
@@ -75,12 +88,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from paddle_tpu_torch.ops.kernels.fused_adamw import fused_adamw_update
     from paddle_tpu_torch.serving import ServingEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from paddle_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_q8)
+    from paddle_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+    from paddle_tpu_torch.quantization import quantize_gpt_params
     cfg = gpt.gpt_tiny(n_layers=1)
     params = gpt.init_params(cfg, device="cpu")
     sess = GenerationSession(params, cfg, max_slots=1, device="cpu")
-    tree = {k: (v.numpy() if torch.is_tensor(v)
-                else {n: t.numpy() for n, t in v.items()})
-            for k, v in params.items()}
+    as_numpy = lambda p: {k: (v.numpy() if torch.is_tensor(v)
+                              else {n: t.numpy() for n, t in v.items()})
+                          for k, v in p.items()}
+    tree = as_numpy(params)
+    qcfg = gpt.gpt_tiny(n_layers=1, weight_quant="int8",
+                        kv_cache_dtype="int8")
+    qparams = quantize_gpt_params(params, qcfg, bits=8)
+    qtree = as_numpy(qparams)
     calls = {
         "resolve_device": lambda: resolve_device(),
         "init_params": lambda: gpt.init_params(cfg),
@@ -95,11 +117,29 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         "fused_adamw_update": lambda: fused_adamw_update(
             params, params, params, params, 0, 1e-3),
         "explicit cuda": lambda: resolve_device("cuda"),
+        "params_from_numpy(quantized)": lambda: gpt.params_from_numpy(
+            qtree, qcfg),
+        "init_kv_cache(int8)": lambda: gpt.init_kv_cache(qcfg, 1),
+        "generate(w8kv8)": lambda: gpt.generate(qparams, qcfg,
+                                                np.zeros((1, 2)), 1),
+        "GenerationSession(w8kv8)": lambda: GenerationSession(qparams, qcfg,
+                                                              1),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+    # the quantized kernels' wrappers: a tensor on no kernel's device raises
+    meta = lambda t: t.to("meta")
+    x = torch.zeros((2, 4), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        quant_matmul(x, torch.zeros((4, 3), dtype=torch.int8, device="meta"),
+                     torch.zeros(3, device="meta"), 8)
+    kc = tuple(map(meta, gpt.init_kv_cache(qcfg, 1, device="cpu")[0]))
+    with pytest.raises(ValueError, match="no kernel"):
+        decode_attention_q8(torch.zeros((1, 4, 1, 16), device="meta"),
+                            tuple(c[0] for c in kc), tuple(c[0] for c in kc),
+                            torch.zeros(1, device="meta"))
     # CPU params handed to a CUDA call are refused, never moved silently
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="params live on cpu"):
