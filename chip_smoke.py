@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # every phase, exits 0 only if all pass
     python3 chip_smoke.py --phases build,kernels,train,train_parity
+    python3 chip_smoke.py --phases build,kernels,paged,paged_parity
 
 Phases, each fatal on failure:
 
@@ -11,7 +12,9 @@ Phases, each fatal on failure:
               and the ptxas register / spill report.
 2. kernels  — call each kernel wrapper on the card at the main path's
               shapes and at edge shapes, hold it against its plain PyTorch
-              version on the same inputs (stated tolerance), and time the
+              version on the same inputs (stated tolerance; the paged
+              decode kernels also bitwise against the dense ones over the
+              gathered view), and time the
               kernel, the plain version and one PyTorch library call that
               computes the same function, beside the least time the card
               could take (bound_ms).
@@ -44,14 +47,33 @@ Phases, each fatal on failure:
               and the card quantize the same numpy weights to equal codes
               and agree on prefill and 4 decode steps' logits (1e-3) with
               identical greedy tokens.
-8. train    — gpt3_1p3b(remat=True, fused_adamw=True, xent_chunks=4) at
+8. paged    — paged KV serving at full gpt3_1p3b width (bf16, page size =
+              decode_block = 128, 8 slots x 512 positions): the server's
+              12-request replay on a paged session (33 pages) and on a dense
+              one, whole-prompt and prefill_chunk=128, with equal streams;
+              the replay on half the dense pool's bytes (kv_pages=17), every
+              request DONE, with the peak of admitted rows and the page
+              backpressure; a 12-request shared-prefix trace (256-token
+              prefix) paged and dense, with prefix_cache_blocks=16 and
+              without (paged and dense streams equal with reuse); the replay
+              in w8kv8 on a paged session. Launch counts checked exactly
+              against the session's tick and chunk counters: 24 paged
+              decode attention (fp or int8) a tick, 48 quant_matmul a w8kv8
+              forward, no dense decode attention in a paged run. A profile
+              of 16 paged decode ticks beside 16 dense ones.
+9. paged_parity — gpt3_1p3b(n_layers=2, f32): a paged session's prefill
+              and 4 decode steps on the CPU (plain versions) and on the card
+              (kernels) from the same weights, within 1e-4 (w8kv8: 1e-3)
+              with identical greedy tokens; on the card, a shared-prefix
+              replay gives the same greedy streams with reuse on and off.
+10. train   — gpt3_1p3b(remat=True, fused_adamw=True, xent_chunks=4) at
               full width trains on one seeded B=4 x S=2048 batch: a warm-up
               step, then 5 timed steps with the launch counters zeroed just
               before and read just after (flash forward, both backward
               kernels and fused AdamW must have run); every loss finite and
               the last below the first; one profiled step; then the eval
               step and generate() on the trained params.
-9. train_parity — gpt3_1p3b(n_layers=2, f32, fused_adamw, remat,
+11. train_parity — gpt3_1p3b(n_layers=2, f32, fused_adamw, remat,
               xent_chunks=2), B=2 x S=256, 3 steps on the CPU (plain
               versions) and on the card (kernels) from the same numpy
               weights: losses within 1e-4, params within the AdamW
@@ -73,7 +95,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "generate", "server", "parity", "quant",
-          "quant_parity", "train", "train_parity")
+          "quant_parity", "paged", "paged_parity", "train", "train_parity")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -123,8 +145,10 @@ def _kernel_label(line: str) -> str:
     args = re.findall(r"L([ib])(\d+)E", mangled)
     dtype = ("bf16" if "bfloat16" in mangled
              else "int8" if re.search(r"_kernelIa", mangled) else "f32")
-    extra = "".join(f", {v}" if k == "i" else (", scaled" if v == "1" else "")
-                    for k, v in args)
+    ints = [v for k, v in args if k == "i"]
+    flags = [v == "1" for k, v in args if k == "b"]
+    extra = "".join(f", {v}" for v in ints) + "".join(
+        f", {word}" for word, on in zip(("scaled", "paged"), flags) if on)
     return f"{name.group(1) if name else mangled[:40]}<{dtype}{extra}>"
 
 
@@ -135,6 +159,20 @@ def _named_leaves(tree, prefix=""):
             yield from _named_leaves(tree[k], prefix + k + "/")
         else:
             yield prefix + k, tree[k]
+
+
+def _device_rows(torch, prof, n):
+    """Kernel rows of a torch.profiler run (an operator row repeats its
+    kernels' time): the summed device ms and the ``n`` largest rows as
+    (name, ms, calls)."""
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == cuda and dev_us(e) > 0]
+    top = sorted(rows, key=dev_us, reverse=True)[:n]
+    return (sum(dev_us(e) for e in rows) / 1e3,
+            [(e.key, dev_us(e) / 1e3, e.count) for e in top])
 
 
 class Smoke:
@@ -658,6 +696,141 @@ class Smoke:
             self.rows["decode_attention_q8"] = case
         return case
 
+    def _paged_case(self, B, H, ps, nb, d, Q, quant, pos, time_it,
+                    main=False, spare=1):
+        """decode_attention_paged (bf16 pool) or decode_attention_paged_q8
+        (int8 codes + f32 steps) against its plain version, bitwise against
+        the dense kernel over the gathered view, unchanged by garbage in
+        the scratch page and in unowned pages; with time_it its times
+        beside the bound, the plain version and SDPA on the gathered
+        bf16 view (alone, and with the gather). ``pos`` [B] positions;
+        the table is a shuffle of a pool of 1 + B * nb + spare pages,
+        entries past each row's live pages name the scratch page 0."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from paddle_tpu_torch.ops.kernels import decode_attention as da
+        from paddle_tpu_torch.quantization.gpt_quant import quantize_rows
+        name = "decode_attention_paged_q8" if quant else \
+            "decode_attention_paged"
+        P = 1 + B * nb + spare
+        g = torch.Generator(device=self.dev).manual_seed(
+            B * 1009 + ps * nb + Q + quant)
+        q = torch.randn((B, H, Q, d), generator=g, device=self.dev).to(
+            torch.bfloat16)
+        mk = lambda: torch.randn((P, H, ps, d), generator=g, device=self.dev)
+        kp, vp = ((quantize_rows(mk()), quantize_rows(mk())) if quant
+                  else (mk().to(torch.bfloat16), mk().to(torch.bfloat16)))
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=self.dev)
+        perm = torch.randperm(P - 1, generator=g, device=self.dev) + 1
+        ptab = perm[:B * nb].reshape(B, nb).to(torch.int32)
+        live_pages = (pos.long() + Q + ps - 1) // ps           # [B]
+        dead = torch.arange(nb, device=self.dev)[None, :] \
+            >= live_pages[:, None]
+        ptab = torch.where(dead, torch.zeros_like(ptab), ptab).contiguous()
+        scale = 1.0 / d ** 0.5
+        kern = da.decode_attention_paged_q8 if quant \
+            else da.decode_attention_paged
+        out = kern(q, kp, vp, pos, ptab, scale)
+        torch.cuda.synchronize()
+        ref = da.bounded_decode_attention(q, kp, vp, pos.long(), scale, ps,
+                                          ptab=ptab)
+        err = (out - ref).abs().max().item()
+        # the dense kernel over the gathered view: the same float ops
+        kv, vv = da.paged_view(kp, ptab), da.paged_view(vp, ptab)
+        kv, vv = ((tuple(t.contiguous() for t in kv),
+                   tuple(t.contiguous() for t in vv)) if quant
+                  else (kv.contiguous(), vv.contiguous()))
+        dense_kern = da.decode_attention_q8 if quant else da.decode_attention
+        dense = dense_kern(q, kv, vv, pos, scale, block=ps)
+        # garbage in page 0 and in the pages no row owns changes nothing
+        owned = torch.zeros(P, dtype=torch.bool, device=self.dev)
+        owned[ptab.long().flatten()] = True
+        owned[0] = False
+        junk = ~owned
+        kg = tuple(t.clone() for t in kp) if quant else kp.clone()
+        vg = tuple(t.clone() for t in vp) if quant else vp.clone()
+        for leaf, fill in ((kg, 1.0), (vg, -1.0)):
+            if quant:
+                leaf[0][junk] = int(127 * fill)
+                leaf[1][junk] = 1e4
+            else:
+                leaf[junk] = 1e4 * fill
+        out_g = kern(q, kg, vg, pos, ptab, scale)
+        torch.cuda.synchronize()
+        del kg, vg
+        bitwise = bool(torch.equal(out, dense))
+        err_g = (out_g - out).abs().max().item()
+        tol = DECODE_TOL["f32"]
+        case = dict(kernel=name, B=B, H=H, page_size=ps, pages_per_row=nb,
+                    pool_pages=P, d=d, Q=Q, pos=[int(p) for p in pos],
+                    dead_entries=int(dead.sum()), max_abs_err=err, tol=tol,
+                    bitwise_equal_dense_kernel_on_view=bitwise,
+                    garbage_delta=err_g)
+        log(f"[kernels] {json.dumps(case)}")
+        if not bool(torch.isfinite(out).all()) or err > tol or not bitwise \
+                or err_g != 0.0:
+            raise AssertionError(f"{name} disagrees: {case}")
+        if not time_it:
+            return case
+        live = sum(min(int(p) + Q, nb * ps) for p in pos)
+        pages = int(live_pages.clamp(max=nb).sum())
+        per_pos = d + 4 if quant else 2 * d       # bytes a position and head
+        nbytes = 2 * H * live * per_pos + q.numel() * q.element_size() \
+            + out.numel() * 4 + B * 4 + 4 * pages
+        ops = sum(4 * H * d * (int(p) + j + 1) for p in pos for j in range(Q))
+        case.update(self._bound(ops, nbytes, "f32"))
+        case["ms"] = self.time_ms(lambda: kern(q, kp, vp, pos, ptab, scale),
+                                  iters=200)
+        posl = pos.long()
+        case["plain_ms"] = self.time_ms(
+            lambda: da.bounded_decode_attention(q, kp, vp, posl, scale, ps,
+                                               ptab=ptab), iters=20)
+        case["dense_kernel_ms"] = self.time_ms(
+            lambda: dense_kern(q, kv, vv, pos, scale), iters=200)
+        S = nb * ps
+        idx = torch.arange(S, device=self.dev)
+        qpos = posl[:, None] + torch.arange(Q, device=self.dev)[None]
+        mask = (idx[None, None, :] <= qpos[:, :, None])[:, None]  # B,1,Q,S
+
+        def view16(pool):
+            g_ = da.paged_view(pool, ptab)
+            return ((g_[0].float() * g_[1][..., None]).to(torch.bfloat16)
+                    if quant else g_)
+
+        k16, v16 = view16(kp), view16(vp)
+        case["library_ms"] = self.time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k16, v16, attn_mask=mask, scale=scale), iters=200)
+        case["library"] = ("sdpa, explicit mask, on the pre-gathered "
+                           + ("dequantized " if quant else "")
+                           + "bf16 view")
+        case["gather_sdpa_ms"] = self.time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, view16(kp), view16(vp), attn_mask=mask, scale=scale),
+            iters=50)
+        log(f"[kernels] {json.dumps(case)}")
+        if main:
+            self.rows[name] = case
+        return case
+
+    def _paged_cases(self):
+        """The paged kernels at the server's shape (main), generate's, a
+        long cache (Q = 1 and 4) and an edge case (small heads, a 3-row
+        window, 8- and 16-key pages, dead table entries)."""
+        for quant in (False, True):
+            self._paged_case(8, 16, 128, 4, 128, 1, quant,
+                             [round(511 * i / 7) for i in range(8)], True,
+                             main=True)
+            self._paged_case(4, 16, 128, 3, 128, 1, quant,
+                             [380, 381, 382, 383], True)
+            for Q in (1, 4):
+                self._paged_case(8, 16, 128, 16, 128, Q, quant,
+                                 [round((2047 - Q) * i / 7)
+                                  for i in range(8)], True)
+            for ps in (8, 16):
+                self._paged_case(3, 4, ps, 64 // ps, 16, 3, quant,
+                                 [60, 9, 33], False, spare=3)
+
     def phase_kernels(self):
         torch = self.torch
         bf16, f32 = torch.bfloat16, torch.float32
@@ -704,6 +877,7 @@ class Smoke:
         for Q in (1, 4):
             self._decode_q8_case(8, 16, 2048, 128, Q, True)
         self._decode_q8_case(3, 4, 64, 16, 3, False)
+        self._paged_cases()
 
     # ------------------------------------------------------ main path
     def _counters(self):
@@ -711,6 +885,7 @@ class Smoke:
         from paddle_tpu_torch.ops.kernels.decode_attention import (
             decode_attention)
         from paddle_tpu_torch.ops.kernels.decode_attention import (
+            decode_attention_paged, decode_attention_paged_q8,
             decode_attention_q8)
         from paddle_tpu_torch.ops.kernels.fused_adamw import (
             fused_adamw_update)
@@ -721,7 +896,9 @@ class Smoke:
                 "decode_attention": decode_attention,
                 "fused_adamw": fused_adamw_update,
                 "quant_matmul": quant_matmul,
-                "decode_attention_q8": decode_attention_q8}
+                "decode_attention_q8": decode_attention_q8,
+                "decode_attention_paged": decode_attention_paged,
+                "decode_attention_paged_q8": decode_attention_paged_q8}
 
     def _zero_counts(self):
         for fn in self._counters().values():
@@ -831,15 +1008,7 @@ class Smoke:
                 fn()
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
-            dev_us = lambda e: getattr(e, "self_device_time_total",
-                                       getattr(e, "self_cuda_time_total", 0))
-            # kernel rows only: an operator row repeats its kernels' time
-            cuda = torch.autograd.DeviceType.CUDA
-            rows = [e for e in prof.key_averages()
-                    if getattr(e, "device_type", None) == cuda
-                    and dev_us(e) > 0]
-            busy_ms = sum(dev_us(e) for e in rows) / 1e3
-            top = sorted(rows, key=dev_us, reverse=True)[:8]
+            busy_ms, top = _device_rows(torch, prof, 8)
             log("[profile] " + json.dumps(dict(
                 region=name, batch=B, prompt=P,
                 wall_ms_unprofiled=round(plain_ms, 3),
@@ -848,8 +1017,8 @@ class Smoke:
                 # against the unprofiled wall: the profiler slows the host
                 device_idle_share=round(1 - busy_ms / plain_ms, 4)
                 if busy_ms else None,
-                top=[dict(name=e.key[:60], ms=round(dev_us(e) / 1e3, 3),
-                          calls=e.count) for e in top])))
+                top=[dict(name=k[:60], ms=round(ms, 3), calls=c)
+                     for k, ms, c in top])))
 
     def phase_server(self):
         torch = self.torch
@@ -1146,6 +1315,292 @@ class Smoke:
         torch.cuda.empty_cache()
 
 
+    # ------------------------------------------------------------ paged
+    def _replay(self, tag, sess, trace, chunk, prefix_blocks=0,
+                count=True):
+        """One seeded trace through a ServingEngine on ``sess``: a warm-up
+        request, then the trace with the launch counters zeroed just
+        before and read just after. Every request must end DONE with its
+        token budget. Returns (streams, the metrics line, counts)."""
+        torch = self.torch
+        from paddle_tpu_torch.serving import RequestState, ServingEngine
+        eng = ServingEngine(sess, max_queue=64, prefill_chunk=chunk,
+                            prefix_cache_blocks=prefix_blocks,
+                            device=self.dev)
+        # the warm-up prompt holds no full block: nothing enters the pool
+        warm = eng.submit(trace[0][0][:64], max_new_tokens=2)
+        eng.run()
+        if warm.state is not RequestState.DONE:
+            raise AssertionError(f"{tag}: warm-up request did not finish")
+        sess.reset_metrics()
+        self._zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=m) for p, m in trace]
+        peak_rows = peak_shared = backpressure = polls = 0
+        while eng.pending:
+            free, queued = len(sess.free_slots()), eng._queued
+            admitted = len(eng.poll()["admitted"])
+            polls += 1
+            # rows held right after this poll's admissions
+            peak_rows = max(peak_rows, sess.max_slots - free + admitted)
+            if sess.kv_paged:
+                peak_shared = max(peak_shared, sess.kv_page_stats()[2])
+            # admission stopped with a slot free and a request queued:
+            # the pool had too few pages for the head request
+            backpressure += admitted < min(free, queued)
+            if polls > 20000:
+                raise AssertionError(f"{tag}: replay did not drain")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for r, (_, m) in zip(reqs, trace):
+            if r.state is not RequestState.DONE or len(r.output) != m:
+                raise AssertionError(f"{tag} {r.request_id}: {r.state} with "
+                                     f"{len(r.output)} of {m} tokens")
+        counts = self._read_counts(tag, ()) if count else None
+        met = eng.metrics()
+        toks = sum(len(r.output) for r in reqs)
+        line = dict(run=tag, prefill_chunk=chunk, requests=len(reqs),
+                    polls=polls, suffix_prefills=met["prefill_chunks"],
+                    decode_ticks=met["decode_ticks"], new_tokens=toks,
+                    wall_s=round(wall, 3), tokens_per_s=round(toks / wall, 1),
+                    ttft_ms_p50=met["ttft_ms_p50"],
+                    ttft_ms_p99=met["ttft_ms_p99"],
+                    decode_ms_per_token_p50=met["decode_ms_per_token_p50"],
+                    peak_admitted_rows=peak_rows,
+                    page_backpressure_polls=backpressure)
+        if sess.kv_paged:
+            line.update(kv_pages_total=met["kv_pages_total"],
+                        peak_shared_pages=peak_shared)
+        if eng.prefix_cache is not None:
+            line["prefix_cache"] = met["prefix_cache"]
+            line["prefix_hit_tokens"] = sum(r.prefix_hit_tokens
+                                            for r in reqs)
+        log("[paged] " + json.dumps(line))
+        eng.close()
+        # the pool's page references go with the engine
+        while eng.prefix_cache is not None and len(eng.prefix_cache):
+            eng.prefix_cache._evict_one()
+        return [list(r.output) for r in reqs], line, counts
+
+    def _expect_tick_counts(self, tag, counts, line, L, kernel,
+                            quant=False):
+        """Exact counts of a replay: one attention kernel a layer a tick,
+        and with quantized weights two quant_matmul a layer a forward."""
+        want = {kernel: L * line["decode_ticks"]}
+        if quant:
+            want["quant_matmul"] = 2 * L * (line["suffix_prefills"]
+                                            + line["decode_ticks"])
+        self._expect_counts(tag, counts, want)
+
+    def _shared_prefix_trace(self, cfg, n=12, prefix=256):
+        """``n`` requests sharing a ``prefix``-token prefix (two pages),
+        each with a unique 16-128-token tail and a 16-64-token budget."""
+        import numpy as np
+        rng = np.random.default_rng(6)
+        shared = rng.integers(0, cfg.vocab_size, (prefix,))
+        return [(np.concatenate([shared, rng.integers(
+                    0, cfg.vocab_size, (int(t),))]), int(m))
+                for t, m in zip(rng.integers(16, 129, n),
+                                rng.integers(16, 65, n))]
+
+    def _session(self, params, cfg, paged, kv_pages=None):
+        from paddle_tpu_torch.inference import GenerationSession
+        return GenerationSession(params, cfg, max_slots=8,
+                                 max_prompt_len=384, max_len=512,
+                                 kv_paged=paged,
+                                 kv_pages=kv_pages if paged else None,
+                                 device=self.dev)
+
+    def _tick_profile(self, tag, sess, prompt):
+        """16 decode ticks of a session holding 8 admitted rows under
+        torch.profiler: wall with and without the profiler, device busy
+        time, idle share, top kernels."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        slots = sess.admit(prompt)
+        for _ in range(2):
+            sess.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(16):
+            sess.step()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(16):
+                sess.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        for s in slots:
+            sess.evict(s)
+        busy_ms, top = _device_rows(torch, prof, 8)
+        log("[profile] " + json.dumps(dict(
+            region=f"{tag} session, 16 decode ticks", batch=len(slots),
+            prompt=int(prompt.shape[1]),
+            wall_ms_unprofiled=round(plain_ms, 3),
+            wall_ms_profiled=round(wall_ms, 3),
+            device_busy_ms=round(busy_ms, 3),
+            device_idle_share=round(1 - busy_ms / plain_ms, 4)
+            if busy_ms else None,
+            top=[dict(name=k[:60], ms=round(ms, 3), calls=c)
+                 for k, ms, c in top])))
+
+    def phase_paged(self):
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.quantization import quantize_gpt_params
+        cfg, params = self._model()
+        L = cfg.n_layers
+        trace = self._server_trace(cfg)
+        paged = self._session(params, cfg, True)
+        dense = self._session(params, cfg, False)
+        if paged.metrics()["kv_pages_total"] != 32:
+            raise AssertionError("the paged pool should hold 32 pages")
+        # 1. the server trace, paged (33 pages) against dense, both
+        # admission modes: equal streams, exact counts
+        for chunk in (0, 128):
+            out_p, line, counts = self._replay(
+                f"paged bf16 chunk={chunk}", paged, trace, chunk)
+            self._expect_tick_counts(line["run"], counts, line, L,
+                                     "decode_attention_paged")
+            out_d, line_d, counts = self._replay(
+                f"dense bf16 chunk={chunk}", dense, trace, chunk)
+            self._expect_tick_counts(line_d["run"], counts, line_d, L,
+                                     "decode_attention")
+            same = sum(a == b for a, b in zip(out_p, out_d))
+            log(f"[paged] chunk={chunk}: paged and dense streams identical "
+                f"for {same}/{len(trace)} requests")
+            if same != len(trace):
+                raise AssertionError("paged and dense streams differ")
+        # 2. half the dense pool's bytes: 16 grantable pages (a dense pool
+        # of those bytes holds 4 rows of 512 positions)
+        half = self._session(params, cfg, True, kv_pages=17)
+        out_h, line, counts = self._replay("paged bf16 kv_pages=17", half,
+                                           trace, 128)
+        self._expect_tick_counts(line["run"], counts, line, L,
+                                 "decode_attention_paged")
+        log("[paged] " + json.dumps(dict(
+            half_bytes_pool=dict(kv_pages=17, dense_rows_of_same_bytes=4,
+                                 peak_admitted_rows=line["peak_admitted_rows"],
+                                 page_backpressure_polls=line[
+                                     "page_backpressure_polls"],
+                                 tokens_per_s=line["tokens_per_s"]))))
+        del half
+        # 3. a shared-prefix trace, paged and dense, reuse on and off
+        shared = self._shared_prefix_trace(cfg)
+        streams = {}
+        for sess_name, sess in (("paged", paged), ("dense", dense)):
+            for blocks in (16, 0):
+                tag = f"{sess_name} bf16 shared-prefix reuse={bool(blocks)}"
+                out, line, counts = self._replay(tag, sess, shared, 128,
+                                                 prefix_blocks=blocks)
+                self._expect_tick_counts(
+                    tag, counts, line, L, "decode_attention_paged"
+                    if sess_name == "paged" else "decode_attention")
+                streams[(sess_name, bool(blocks))] = out
+        if streams[("paged", True)] != streams[("dense", True)]:
+            raise AssertionError("paged and dense streams with prefix reuse "
+                                 "differ")
+        agree = np.mean([a == b for sa, sb in zip(streams[("paged", True)],
+                                                   streams[("paged", False)])
+                         for a, b in zip(sa, sb)])
+        log("[paged] " + json.dumps(dict(
+            shared_prefix="reuse against no reuse (information: the batch "
+                          "makeup differs, bf16 rounds differently)",
+            top1_agreement=round(float(agree), 4))))
+        # 6. where a paged tick's time goes, beside the dense tick
+        prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                   (8, 256))
+        for tag, sess in (("paged", paged), ("dense", dense)):
+            self._tick_profile(f"{tag} bf16", sess, prompt)
+        del paged, dense
+        torch.cuda.empty_cache()
+        # 4. the server trace in w8kv8, paged against dense
+        qcfg = gpt.gpt3_1p3b(weight_quant="int8", kv_cache_dtype="int8")
+        qp = quantize_gpt_params(params, qcfg, 8)
+        outs = {}
+        for tag, is_paged in (("paged", True), ("dense", False)):
+            qsess = self._session(qp, qcfg, is_paged)
+            outs[tag], line, counts = self._replay(
+                f"{tag} w8kv8 chunk=128", qsess, trace, 128)
+            self._expect_tick_counts(
+                line["run"], counts, line, L, "decode_attention_paged_q8"
+                if is_paged else "decode_attention_q8", quant=True)
+            self._tick_profile(f"{tag} w8kv8", qsess, prompt)
+            del qsess
+        if outs["paged"] != outs["dense"]:
+            raise AssertionError("paged and dense w8kv8 streams differ")
+        log("[paged] w8kv8: paged and dense streams identical for "
+            f"{len(trace)}/{len(trace)} requests")
+        del qp
+        torch.cuda.empty_cache()
+
+    def phase_paged_parity(self):
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.inference import GenerationSession
+        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.quantization import quantize_gpt_params
+        fp_cfg = gpt.gpt3_1p3b(n_layers=2, dtype=torch.float32)
+        weights = {str(dev): gpt.init_params(fp_cfg, seed=0, device=dev)
+                   for dev in ("cpu", self.dev)}
+        prompt = np.random.default_rng(7).integers(0, fp_cfg.vocab_size,
+                                                   (2, 100))
+        lengths = np.asarray([100, 77])
+        for tag, tol in (("fp", 1e-4), ("w8kv8", QUANT_PARITY_TOL)):
+            cfg = fp_cfg if tag == "fp" else gpt.gpt3_1p3b(
+                n_layers=2, dtype=torch.float32, weight_quant="int8",
+                kv_cache_dtype="int8")
+            logits = {}
+            for dev in ("cpu", self.dev):
+                params = weights[str(dev)] if tag == "fp" else \
+                    quantize_gpt_params(weights[str(dev)], cfg, 8)
+                sess = GenerationSession(params, cfg, max_slots=2,
+                                         max_prompt_len=128, max_len=256,
+                                         kv_paged=True, device=dev)
+                sess.admit(prompt, lengths)
+                seen = [sess._logits.cpu()]
+                for _ in range(4):
+                    sess.step()
+                    seen.append(sess._logits.cpu())
+                logits[str(dev)] = seen
+            cpu, card = logits["cpu"], logits[str(self.dev)]
+            errs = [(c - g).abs().max().item() for c, g in zip(cpu, card)]
+            same = all(torch.equal(c.argmax(-1), g.argmax(-1))
+                       for c, g in zip(cpu, card))
+            log("[paged_parity] " + json.dumps(dict(
+                config=f"gpt3_1p3b(n_layers=2, f32, {tag}), paged session, "
+                       "page size 128", prompt=[2, 100],
+                max_abs_err_prefill=errs[0],
+                max_abs_err_decode=max(errs[1:]), tol=tol,
+                greedy_tokens_identical=same)))
+            if max(errs) > tol or not same:
+                raise AssertionError(f"paged {tag}: CPU and card disagree")
+        # on the card: reuse on and off give the same greedy streams
+        cfg, params = fp_cfg, weights[str(self.dev)]
+        trace = [(p, 8) for p, _ in self._shared_prefix_trace(cfg, n=6)]
+        streams = []
+        for blocks in (16, 0):
+            sess = GenerationSession(params, cfg, max_slots=4,
+                                     max_prompt_len=384, max_len=512,
+                                     kv_paged=True, device=self.dev)
+            out, line, _ = self._replay(
+                f"paged f32 2-layer shared-prefix reuse={bool(blocks)}",
+                sess, trace, 128, prefix_blocks=blocks, count=False)
+            streams.append(out)
+            if blocks and not line["prefix_hit_tokens"]:
+                raise AssertionError("the shared prefix was never reused")
+        log(f"[paged_parity] f32 shared-prefix streams with and without "
+            f"reuse identical: {streams[0] == streams[1]}")
+        if streams[0] != streams[1]:
+            raise AssertionError("prefix reuse changed the f32 streams")
+        del weights
+        torch.cuda.empty_cache()
+
     # ------------------------------------------------------------ train
     @staticmethod
     def _model_flops(cfg, tokens: int, seq: int) -> float:
@@ -1175,23 +1630,15 @@ class Smoke:
             params, opt, _ = step(params, opt, tokens, labels)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        dev_us = lambda e: getattr(e, "self_device_time_total",
-                                   getattr(e, "self_cuda_time_total", 0))
-        cuda = torch.autograd.DeviceType.CUDA
-        rows = [e for e in prof.key_averages()
-                if getattr(e, "device_type", None) == cuda and dev_us(e) > 0]
-        busy_ms = sum(dev_us(e) for e in rows) / 1e3
-        top = sorted(rows, key=dev_us, reverse=True)[:10]
+        busy_ms, top = _device_rows(torch, prof, 10)
         log("[profile] " + json.dumps(dict(
             region="train_step", wall_ms_unprofiled=round(plain_ms, 3),
             wall_ms_profiled=round(wall_ms, 3),
             device_busy_ms=round(busy_ms, 3),
             device_busy_share=round(busy_ms / plain_ms, 4) if busy_ms
             else None,
-            top=[dict(name=e.key[:70], ms=round(dev_us(e) / 1e3, 3),
-                      calls=e.count, share=round(dev_us(e) / 1e3 / busy_ms,
-                                                 4))
-                 for e in top])))
+            top=[dict(name=k[:70], ms=round(ms, 3), calls=c,
+                      share=round(ms / busy_ms, 4)) for k, ms, c in top])))
         return params, opt
 
     def phase_train(self):
@@ -1231,11 +1678,9 @@ class Smoke:
         per_step = {"flash_attention_fwd": 2 * cfg.n_layers,
                     "flash_attention_bwd_dq": cfg.n_layers,
                     "flash_attention_bwd_dkv": cfg.n_layers,
-                    "fused_adamw": 16, "decode_attention": 0,
-                    "quant_matmul": 0, "decode_attention_q8": 0}
-        want = {n: c * n_timed for n, c in per_step.items()}
-        if counts != want:
-            raise AssertionError(f"train launches {counts}, expected {want}")
+                    "fused_adamw": 16}
+        self._expect_counts("train", counts,
+                            {n: c * n_timed for n, c in per_step.items()})
         step_s = sum(times) / len(times)
         flops = self._model_flops(cfg, B * S, S)
         log("[train] " + json.dumps(dict(
@@ -1361,7 +1806,11 @@ def main(argv=None) -> int:
             ("fused_adamw", "fused_adamw.cu", "fused_adamw.py:34"),
             ("quant_matmul", "quant_matmul.cu", "quant_matmul.py:65"),
             ("decode_attention_q8", "decode_attention.cu",
-             "decode_attention.py:266")):
+             "decode_attention.py:266"),
+            ("decode_attention_paged", "decode_attention.cu",
+             "decode_attention.py:362"),
+            ("decode_attention_paged_q8", "decode_attention.cu",
+             "decode_attention.py:371")):
         row = dict(smoke.rows.get(name, {}))
         row.update(name=name, route="cuda", source=csrc + src,
                    replaces=pallas + rep)

@@ -21,8 +21,23 @@ Quantized serving (``cfg.weight_quant="int8"/"int4"`` with params from
 ``quantization.quantize_gpt_params``, and/or ``cfg.kv_cache_dtype="int8"``
 for the scaled-int8 cache) runs through the same calls: the session then
 holds ``(codes, steps)`` cache pairs and keeps its byte accounting in
-``quant_stats``. Paged KV, speculative decoding, meshes and prefix span
-copies belong to later slices and raise ``NotImplementedError``.
+``quant_stats``.
+
+Paged KV (``kv_paged=True`` or ``PADDLE_TPU_KV_PAGED=1``): the cache is
+ONE page pool ``[L, kv_pages, H, page_size, hd]`` (page size =
+``cfg.decode_block``) and each slot an int32 page table. Whole-prompt
+``admit`` grants a full row of pages, ``alloc_slot(need_tokens=...)`` only
+the pages a request can touch; page exhaustion backpressures like slot
+exhaustion. Page 0 is the scratch page that takes dead rows' writes.
+Pages are refcounted: ``read_prefix_block`` hands the prefix pool a
+by-reference :class:`~..serving.prefix_cache.PageSpan` (zero bytes
+moved), ``copy_prefix_into`` aliases pooled pages into a row's table, and
+a page returns to the free list only when its last reader (a row or a
+pooled entry, ``release_pooled_entry``) lets go. Paging changes where
+K/V lives, never the numbers: paged streams equal dense ones.
+
+Speculative decoding, meshes and the fleet's span export/import belong to
+later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,13 +51,20 @@ import torch
 from ..device import resolve_device
 from ..models.gpt import (GPTConfig, _wq_bits, check_params_device,
                           check_prefill_mode, decode_one_token, init_kv_cache,
-                          pad_cache_len, prefill, prefill_suffix,
+                          kv_data, pad_cache_len, prefill, prefill_suffix,
                           sample_logits)
 from ..observability import ServingMetrics
 from ..observability.quant import record_session_quant
 from ..quantization.gpt_quant import kv_cache_quantized
+from ..serving.prefix_cache import PageSpan, span_concat
 
 _SESSION_SEQ = itertools.count()
+
+
+def _leaves(cache):
+    """The tensors of a cache or span: itself, or a scaled-int8 pair's
+    codes and steps."""
+    return cache if isinstance(cache, tuple) else (cache,)
 
 
 class GenerationSession:
@@ -63,23 +85,22 @@ class GenerationSession:
                  top_k: int = 0, top_p: float = 0.0, seed: int = 0,
                  prefill_mode: str | None = None, device=None, mesh=None,
                  spec_decode: int | None = None,
-                 kv_paged: bool | None = None):
-        # the reference also arms paging and speculation from the
-        # environment; neither may be ignored silently
-        env_paged = os.environ.get("PADDLE_TPU_KV_PAGED", "0").strip()
+                 kv_paged: bool | None = None, kv_pages: int | None = None):
+        # the reference also arms speculation from the environment; it
+        # may not be ignored silently
         env_spec = os.environ.get("PADDLE_TPU_SPEC_DECODE", "").strip()
         for what, armed, later in (
                 ("mesh", mesh is not None, "multi-device serving"),
                 ("spec_decode", (spec_decode or 0) > 1
                  or (spec_decode is None and env_spec not in ("", "0", "1")),
-                 "speculative decoding"),
-                ("kv_paged", kv_paged or (kv_paged is None and env_paged
-                                          not in ("", "0", "false", "False")),
-                 "paged KV cache")):
+                 "speculative decoding")):
             if armed:
                 raise NotImplementedError(
                     f"GenerationSession: {what} belongs to the {later} "
                     "slice of the port")
+        env_paged = os.environ.get("PADDLE_TPU_KV_PAGED", "0").strip()
+        self.kv_paged = (bool(kv_paged) if kv_paged is not None
+                         else env_paged not in ("", "0", "false", "False"))
         self.device = resolve_device(device)
         check_params_device(params, self.device)
         self._mode = check_prefill_mode(
@@ -106,8 +127,34 @@ class GenerationSession:
         # the cache length rounds up to a decode_block multiple; rows
         # still FREEZE at max_len (the logical limit)
         self._phys_len = pad_cache_len(self.max_len, cfg.decode_block)
-        self._kc, self._vc = init_kv_cache(cfg, self.max_slots,
-                                           self._phys_len, self.device)
+        if self.kv_paged:
+            # page size = decode_block, the prefix pool's block; the row
+            # length rounds UP to whole pages (a partial page has no
+            # table entry), and page 0 is the scratch page
+            self._page_size = int(cfg.decode_block)
+            if self._page_size < 1:
+                raise ValueError(
+                    f"kv_paged needs decode_block >= 1 (the page size), "
+                    f"got {cfg.decode_block}")
+            self._phys_len = -(-self._phys_len // self._page_size) \
+                * self._page_size
+            self._pages_per_row = self._phys_len // self._page_size
+            self._n_pages = (int(kv_pages) if kv_pages
+                             else 1 + self.max_slots * self._pages_per_row)
+            if self._n_pages < 1 + self._pages_per_row:
+                raise ValueError(
+                    f"kv_pages={self._n_pages} cannot host even one full "
+                    f"row ({self._pages_per_row} pages) plus the scratch "
+                    "page — raise kv_pages or shrink max_len")
+            self._kc, self._vc = init_kv_cache(cfg, self._n_pages,
+                                               self._page_size, self.device)
+        else:
+            if kv_pages is not None:
+                raise ValueError(
+                    "kv_pages only applies to paged sessions — pass "
+                    "kv_paged=True (or PADDLE_TPU_KV_PAGED=1)")
+            self._kc, self._vc = init_kv_cache(cfg, self.max_slots,
+                                               self._phys_len, self.device)
         dev = self.device
         self._pos = torch.zeros((self.max_slots,), dtype=torch.long,
                                 device=dev)
@@ -130,6 +177,23 @@ class GenerationSession:
                                      device=dev)
         self._dump_dirty = False
 
+        # ---- paged pool host state ----
+        # _ptab mirrors the device page table (re-sent only when dirty);
+        # _page_ref counts readers per page (a row holding it, plus the
+        # prefix pool per pooled entry); _free_pg pops ascending first and
+        # LIFO after, so identical replays build identical tables;
+        # _row_pages is each row's held pages, aliased ones included
+        if self.kv_paged:
+            self._ptab = np.zeros((self.max_slots, self._pages_per_row),
+                                  np.int32)
+            self._ptab_dev = torch.zeros(self._ptab.shape,
+                                         dtype=torch.int32, device=dev)
+            self._ptab_dirty = False
+            self._page_ref = np.zeros((self._n_pages,), np.int32)
+            self._free_pg = list(range(self._n_pages - 1, 0, -1))
+            self._row_pages: list[list[int]] = [
+                [] for _ in range(self.max_slots)]
+
         self._telemetry = ServingMetrics(f"session{next(_SESSION_SEQ)}",
                                          self.max_slots)
         self._admit_t = [0.0] * self.max_slots
@@ -141,6 +205,8 @@ class GenerationSession:
                 _wq_bits(cfg)    # an unknown mode fails here, explained
             self._quant_stats = record_session_quant(
                 cfg, self._params, (self._kc, self._vc), self.max_slots)
+        if self.kv_paged:
+            self._telemetry.kv_pages(*self.kv_page_stats())
 
     # ------------------------------------------------------------- admission
     def free_slots(self) -> list[int]:
@@ -175,13 +241,26 @@ class GenerationSession:
                 f"{n} prompts but only {len(free)} free slots — evict "
                 "finished slots first")
         slots = free[:n]
+        if self.kv_paged:
+            # whole-prompt admission has no budget hint: each row gets a
+            # FULL page table (alloc_slot grants need-sized tables)
+            need = n * self._pages_per_row
+            if need > len(self._free_pg):
+                self._telemetry.rejected(n)
+                raise ValueError(
+                    f"{n} prompts need {need} KV pages but only "
+                    f"{len(self._free_pg)} are free — evict finished "
+                    "slots first")
+            for s in slots:
+                self._grant_pages(s, self._pages_per_row)
         dev = self.device
         rows = torch.as_tensor(slots, device=dev)
         lens = torch.as_tensor(lengths, device=dev)
         logits, _, _ = prefill(self._params, self.cfg,
                                torch.as_tensor(prompts, device=dev),
                                self._kc, self._vc, lengths=lens,
-                               mode=self._mode, rows=rows)
+                               mode=self._mode, rows=rows,
+                               page_table=self._ptab_of(rows))
         self._pos[rows] = lens
         self._activ[rows] = True
         self._logits[rows] = logits
@@ -201,10 +280,13 @@ class GenerationSession:
 
     def try_admit(self, prompts, lengths=None, arrival_ts=None):
         """``admit()`` that returns None instead of raising when free
-        slots are short (no reject is counted: the caller is probing
-        capacity). Malformed prompts still raise."""
+        slots or KV pages are short (no reject is counted: the caller is
+        probing capacity). Malformed prompts still raise."""
         prompts = np.asarray(prompts, np.int64)
         if prompts.ndim == 2 and prompts.shape[0] > len(self.free_slots()):
+            return None
+        if self.kv_paged and prompts.ndim == 2 and \
+                prompts.shape[0] * self._pages_per_row > len(self._free_pg):
             return None
         return self.admit(prompts, lengths, arrival_ts)
 
@@ -221,15 +303,40 @@ class GenerationSession:
         """The session's ServingMetrics, shared with the serving engine."""
         return self._telemetry
 
-    def alloc_slot(self) -> int | None:
+    def kv_row_pages_total(self) -> int:
+        """Page grants summed over rows: an aliased (prefix-shared) page
+        counts once per row that holds it, unlike :meth:`kv_page_stats`,
+        which counts physical pages. 0 on a dense session."""
+        if not self.kv_paged:
+            return 0
+        return sum(len(r) for r in self._row_pages)
+
+    def kv_bytes_per_token(self) -> int:
+        """K+V bytes one resident token position costs across layers (the
+        byte value of a prefix-cache hit)."""
+        leaves = [t for c in (self._kc, self._vc)
+                  for t in (c if isinstance(c, tuple) else (c,))]
+        total = sum(t.numel() * t.element_size() for t in leaves)
+        positions = (self._n_pages * self._page_size if self.kv_paged
+                     else self.max_slots * self._phys_len)
+        return int(total // max(1, positions))
+
+    def alloc_slot(self, need_tokens: int | None = None) -> int | None:
         """Reserve a free slot WITHOUT prefilling (the chunked admission
         path). It stays inactive — decode ticks skip it — until a
         finalizing :meth:`prefill_chunks` call. None when no slot is
-        free."""
+        free. On a paged session the row's pages are granted here:
+        ``need_tokens`` (prompt + budget) sizes the grant, None grants a
+        full row; None is returned when the pool cannot cover it."""
         free = self.free_slots()
         if not free:
             return None
         s = free[0]
+        if self.kv_paged:
+            n = self._pages_for(need_tokens)
+            if n > len(self._free_pg):
+                return None
+            self._grant_pages(s, n)
         self._occupied[s] = True
         self._host_active[s] = False
         self._host_pos[s] = 0
@@ -243,6 +350,8 @@ class GenerationSession:
         if self._host_active[slot]:
             raise ValueError(f"slot {slot} is active — evict() it")
         self._occupied[slot] = False
+        if self.kv_paged:
+            self._release_row_pages(slot)
         self._set_dump(slot, 0)
 
     def _set_dump(self, slot: int, pos: int) -> None:
@@ -258,13 +367,241 @@ class GenerationSession:
         """How many tokens the slot has emitted since admission."""
         return len(self._new[slot])
 
+    # ----------------------------------------------------- paged KV pool
+    def _pages_for(self, need_tokens: int | None) -> int:
+        """Pages a row needs to hold ``need_tokens`` positions; None = a
+        full row's worth."""
+        if need_tokens is None:
+            return self._pages_per_row
+        n = -(-min(int(need_tokens), self.max_len) // self._page_size)
+        return max(1, min(n, self._pages_per_row))
+
+    def _grant_pages(self, slot: int, n: int) -> None:
+        """Grant ``n`` fresh pages to a row's table (callers check the
+        pool first). Unused entries stay 0, the scratch page, so writes
+        past the grant land harmlessly."""
+        if n > len(self._free_pg):
+            raise RuntimeError(f"slot {slot} needs {n} KV pages but only "
+                               f"{len(self._free_pg)} are free")
+        row = [self._free_pg.pop() for _ in range(n)]
+        self._page_ref[row] = 1
+        self._ptab[slot, :n] = row
+        self._ptab[slot, n:] = 0
+        self._row_pages[slot] = row
+        self._ptab_dirty = True
+        self._page_note("page_alloc", slot=int(slot), pages=n)
+
+    def _unref_page(self, pid: int) -> bool:
+        """Drop one reader of a page; at zero it goes back to the free list
+        (LIFO). Returns True when the page was freed."""
+        self._page_ref[pid] -= 1
+        if self._page_ref[pid] < 0:
+            raise AssertionError(f"KV page {pid} refcount went negative")
+        if self._page_ref[pid] == 0:
+            self._free_pg.append(pid)
+            return True
+        return False
+
+    def _release_row_pages(self, slot: int) -> None:
+        """Every page the row holds drops one reader; pages shared with the
+        prefix pool or other rows survive until their last reader goes."""
+        row = self._row_pages[slot]
+        if not row:
+            return
+        freed = sum(self._unref_page(pid) for pid in row)
+        self._row_pages[slot] = []
+        self._ptab[slot, :] = 0
+        self._ptab_dirty = True
+        self._page_note("page_free", slot=int(slot), pages=int(freed))
+
+    def kv_page_stats(self) -> tuple[int, int, int]:
+        """(total, free, shared) over the allocatable pool — page 0, the
+        scratch page, is bookkeeping, not capacity; shared counts pages
+        with more than one reader."""
+        return (self._n_pages - 1, len(self._free_pg),
+                int((self._page_ref[1:] > 1).sum()))
+
+    def _page_note(self, kind: str, **kw) -> None:
+        self._telemetry.kv_pages(*self.kv_page_stats(), event=kind, **kw)
+
+    def _sync_ptab(self) -> None:
+        """Re-send the page tables to the device when they changed."""
+        if self._ptab_dirty:
+            self._ptab_dev = torch.as_tensor(self._ptab, device=self.device)
+            self._ptab_dirty = False
+
+    def _ptab_of(self, rows=None):
+        """The device page tables of ``rows`` (all slots when None); None
+        on a dense session."""
+        if not self.kv_paged:
+            return None
+        self._sync_ptab()
+        return self._ptab_dev if rows is None else self._ptab_dev[rows]
+
+    # ------------------------------------------------------- prefix spans
     def copy_prefix_into(self, slot: int, blocks) -> int:
-        raise NotImplementedError(
-            "prefix KV span copies belong to the prefix-cache slice")
+        """Prefix KV reuse: land already-computed prefix blocks in a
+        reserved slot, so those positions never rerun prefill. ``blocks``:
+        [(k, v)] pairs from :meth:`read_prefix_block` ([L, H, block, hd]
+        arrays or scaled-int8 pairs; :class:`PageSpan` pairs on a paged
+        session). Returns the prefix length now resident; follow with a
+        suffix :meth:`prefill_chunks` from that offset."""
+        if not self._occupied[slot] or self._host_active[slot]:
+            raise ValueError(
+                f"slot {slot} must be reserved (alloc_slot) and "
+                "inactive to take a prefix copy")
+        blocks = list(blocks)
+        if not blocks:
+            return 0
+        if self.kv_paged:
+            return self._copy_prefix_paged(slot, blocks)
+        kb = span_concat([b[0] for b in blocks])
+        vb = span_concat([b[1] for b in blocks])
+        n = int(kv_data(kb).shape[2])
+        if n > self.max_len:
+            raise ValueError(f"prefix ({n} tokens) exceeds the cache "
+                             f"length ({self.max_len})")
+        for cache, span in ((self._kc, kb), (self._vc, vb)):
+            for c, b in zip(_leaves(cache), _leaves(span)):
+                c[:, slot, :, :n] = b.to(c.dtype)
+        # decode ticks before the next chunk dump their dead-row write
+        # PAST the copied prefix, not over it
+        self._set_dump(slot, n)
+        return n
+
+    def _copy_prefix_paged(self, slot: int, blocks) -> int:
+        """Paged prefix landing: :class:`PageSpan` blocks ALIAS their pooled
+        pages into the row's table (refcount up, the row's own granted
+        page goes back to the pool — zero bytes moved); array blocks copy
+        into the row's own granted pages."""
+        ps = self._page_size
+        runs: list[tuple[bool, list]] = []   # consecutive blocks of a kind
+        for kb, vb in blocks:
+            by_ref = isinstance(kb, PageSpan)
+            if runs and runs[-1][0] == by_ref:
+                runs[-1][1].append((kb, vb))
+            else:
+                runs.append((by_ref, [(kb, vb)]))
+        o = 0
+        for by_ref, run in runs:
+            if by_ref:
+                for kb, vb in run:
+                    if kb.pages != vb.pages:
+                        raise ValueError(
+                            "PageSpan K/V page lists must agree (one "
+                            "physical page holds both planes' rows)")
+                    for pid in kb.pages:
+                        if o % ps:
+                            raise ValueError(
+                                f"PageSpan block lands at token {o}, not a "
+                                f"page boundary ({ps})")
+                        idx = o // ps
+                        if idx >= self._pages_per_row:
+                            raise ValueError(
+                                f"prefix overruns the row's page table "
+                                f"({self._pages_per_row} pages)")
+                        old = int(self._ptab[slot, idx])
+                        if old == 0:
+                            raise ValueError(
+                                f"slot {slot} page index {idx} was never "
+                                "granted — alloc_slot with a need covering "
+                                "the prefix first")
+                        if old != pid:
+                            self._page_ref[pid] += 1
+                            self._ptab[slot, idx] = pid
+                            self._row_pages[slot][idx] = pid
+                            self._unref_page(old)
+                            self._ptab_dirty = True
+                        o += ps
+                self._page_note("page_share", slot=int(slot),
+                                pages=sum(len(kb.pages) for kb, _ in run))
+                continue
+            kb = span_concat([b[0] for b in run])
+            vb = span_concat([b[1] for b in run])
+            n = int(kv_data(kb).shape[2])
+            if o % ps or n % ps:
+                raise ValueError(f"paged prefix copies must be page-aligned: "
+                                 f"[{o}, {o + n}) vs page size {ps}")
+            pages = [int(p) for p in self._ptab[slot, o // ps:(o + n) // ps]]
+            if len(pages) != n // ps or 0 in pages:
+                raise ValueError(
+                    f"slot {slot} holds no granted pages for [{o}, {o + n}) "
+                    "— alloc_slot with a need covering the prefix first")
+            idx = torch.as_tensor(pages, device=self.device)
+            for cache, span in ((self._kc, kb), (self._vc, vb)):
+                for c, b in zip(_leaves(cache), _leaves(span)):
+                    # [L, H, n(, hd)] -> [L, pages, H, ps(, hd)]
+                    v = b.reshape(b.shape[:2] + (n // ps, ps) + b.shape[3:])
+                    c[:, idx] = v.movedim(2, 1).to(c.dtype)
+            o += n
+        if o > self.max_len:
+            raise ValueError(f"prefix ({o} tokens) exceeds the cache "
+                             f"length ({self.max_len})")
+        self._set_dump(slot, o)
+        return o
 
     def read_prefix_block(self, slot: int, start: int, block: int):
+        """One ``block``-sized K/V span of a slot's cache, [L, H, block,
+        hd] each (scaled-int8: codes and steps) — the pool-insertion side
+        of prefix reuse; a copy, so later writes to the slot leave it be.
+        On a paged session it moves ZERO bytes: the result is a
+        (:class:`PageSpan`, :class:`PageSpan`) pair naming the row's
+        pages, each page's refcount bumped once for the pool's hold
+        (released through :meth:`release_pooled_entry`)."""
+        if not self._occupied[slot]:
+            raise ValueError(f"slot {slot} is not occupied")
+        if self.kv_paged:
+            ps = self._page_size
+            if start % ps or block % ps or block <= 0:
+                raise ValueError(
+                    f"paged prefix blocks must be page-aligned: "
+                    f"[{start}, {start + block}) vs page size {ps}")
+            n = block // ps
+            pages = [int(p) for p in self._ptab[slot, start // ps:
+                                                start // ps + n]]
+            if len(pages) != n or 0 in pages:
+                raise ValueError(f"slot {slot} holds no pages for "
+                                 f"[{start}, {start + block})")
+            self._page_ref[pages] += 1
+            self._page_note("page_share", slot=int(slot), pages=n)
+            return PageSpan(pages, ps), PageSpan(pages, ps)
+        if start + block > self._phys_len:
+            raise ValueError(
+                f"block [{start}, {start + block}) runs past the physical "
+                f"cache length ({self._phys_len})")
+        win = slice(start, start + block)
+        read = lambda c: (tuple(t[:, slot, :, win].clone() for t in c)
+                          if isinstance(c, tuple)
+                          else c[:, slot, :, win].clone())
+        return read(self._kc), read(self._vc)
+
+    def release_pooled_entry(self, entry) -> None:
+        """``PrefixCache(on_release=...)`` hook: a pooled entry fell to LRU
+        eviction — drop the pool's reader on each page of a by-reference
+        (PageSpan) entry, so its pages return to the free list once no
+        row aliases them. Array entries hold no pages."""
+        if not self.kv_paged:
+            return
+        k = entry[0] if isinstance(entry, tuple) else entry
+        if not isinstance(k, PageSpan):
+            return
+        freed = sum(self._unref_page(pid) for pid in k.pages)
+        self._page_note("page_free", pool=True, pages=int(freed))
+
+    def export_kv_span(self, slot: int, length: int, start: int = 0):
         raise NotImplementedError(
-            "prefix KV span reads belong to the prefix-cache slice")
+            "KV span export (prefill->decode handoff) belongs to the fleet "
+            "slice of the port")
+
+    def import_kv_span(self, slot: int, k=None, v=None, blocks=None):
+        raise NotImplementedError(
+            "KV span import (prefill->decode handoff) belongs to the fleet "
+            "slice of the port")
+
+    def materialize_span(self, k, v=None):
+        raise NotImplementedError(
+            "materializing a by-reference span for transport belongs to "
+            "the fleet slice of the port")
 
     def prefill_chunks(self, chunks, width: int, arrivals=None,
                        queue_waits=None) -> None:
@@ -332,7 +669,8 @@ class GenerationSession:
         rows_d = torch.as_tensor(rows, device=dev)
         logits, _, _ = prefill_suffix(
             self._params, self.cfg, torch.as_tensor(toks, device=dev),
-            self._kc, self._vc, offsets=offs_d, lengths=lens_d, rows=rows_d)
+            self._kc, self._vc, offsets=offs_d, lengths=lens_d, rows=rows_d,
+            page_table=self._ptab_of(rows_d))
         if fin.any():
             f = torch.as_tensor(fin, device=dev)
             self._pos[rows_d[f]] = (offs_d + lens_d)[f]
@@ -387,8 +725,13 @@ class GenerationSession:
         # never over a resident prefix, and never inflating how far the
         # batch's attention has to read
         pos_step = torch.where(can, self._pos, self._dump_dev)
+        # paged: dead rows' writes go to the scratch page (valid = can),
+        # never to a page a live row or the prefix pool shares
+        paged = dict(page_table=self._ptab_of(), valid=can) \
+            if self.kv_paged else {}
         new_logits, _, _ = decode_one_token(self._params, self.cfg, tok,
-                                            pos_step, self._kc, self._vc)
+                                            pos_step, self._kc, self._vc,
+                                            **paged)
         self._pos = torch.where(still, self._pos + 1, self._pos)
         self._activ = still
         self._logits = torch.where(still[:, None], new_logits, self._logits)
@@ -433,6 +776,8 @@ class GenerationSession:
         if self._host_active[slot]:
             self.freeze([slot])
         self._occupied[slot] = False
+        if self.kv_paged:
+            self._release_row_pages(slot)
         out, self._new[slot] = self._new[slot], []
         self._telemetry.evicted(sum(self._occupied))
         return out
@@ -449,6 +794,10 @@ class GenerationSession:
         out["slot_occupancy"] = round(out["slots_occupied"]
                                       / self.max_slots, 4)
         out["slots_active"] = sum(self._host_active)
+        if self.kv_paged:
+            out["kv_pages_total"], out["kv_pages_free"], \
+                out["kv_pages_shared"] = self.kv_page_stats()
+            out["kv_page_size"] = self._page_size
         return dict(sorted(out.items()))
 
     # ----------------------------------------------------------- convenience

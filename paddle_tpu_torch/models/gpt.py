@@ -27,6 +27,13 @@ products of every serving block go through the quant_matmul kernel.
 Suffix prefill keeps the reference's plain band-masked attention, which
 the reference also left to the compiler.
 
+Paged serving (``page_table``/``valid`` on the serving entries): each
+layer's cache is a page pool ``[P, H, ps, hd]`` (the stacked leaf ``[L, P,
+H, ps, hd]``) and each row reads and writes it through its page table
+``[B, nb]``; page 0 is the scratch page that takes the writes of masked
+rows (:func:`paged_write`), and decode attention reads through the table
+(the paged decode kernels).
+
 Quantized serving (params from ``quantization.quantize_gpt_params``):
 the FFN ``w_in``/``w_out`` and ``wte`` are integer codes with ``*_s`` f32
 steps, and ``kv_cache_dtype="int8"`` makes each cache the pair ``(codes
@@ -47,7 +54,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.kernels.decode_attention import decode_attention
+from ..ops.kernels.decode_attention import decode_attention, paged_view
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.fused_adamw import (fused_adamw_update, tree_flatten,
                                        tree_unflatten)
@@ -447,16 +454,88 @@ def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int | None = None,
             torch.zeros(shape, dtype=dt, device=dev))
 
 
-def _block_decode(x, p, cfg: GPTConfig, k_cache, v_cache, pos):
+# --------------------------------------------------------------------------
+# Paged KV cache (block tables, Kwon et al. SOSP'23): the cache is a page
+# pool, per layer [P, H, ps, hd], and each row owns an int32 page table
+# [nb] mapping logical page i (positions [i*ps, (i+1)*ps)) to a pool page.
+# Page 0 is the scratch page: never granted to a row, it takes the writes
+# of dead and masked rows (table entries default to 0), so a frozen row's
+# write never lands on a page another row shares. These helpers are the
+# only code that turns (position, table) into pool coordinates.
+# --------------------------------------------------------------------------
+# pool leaf [P, H, ps(, hd)] + table [B, nb] -> [B, H, nb*ps(, hd)]
+paged_gather = paged_view
+
+
+def page_index(pos, n, page_table, ps, valid=None):
+    """Pool coordinates of absolute positions ``pos[b] + [0, n)`` through
+    the page table [B, nb]: (page, offset), each [B, n]; valid: [B] or
+    [B, n] bool — masked-off positions map to the scratch page 0. The
+    serving forwards compute it once and every layer's K and V leaves
+    write there (one index store each, as the dense cache's)."""
+    ap = pos[:, None] + torch.arange(n, device=pos.device)[None, :]  # [B, n]
+    pgi = (ap // ps).clamp(0, page_table.shape[1] - 1)
+    pg = torch.gather(page_table.long(), 1, pgi)
+    if valid is not None:
+        m = valid if valid.dim() == 2 else valid[:, None]
+        pg = torch.where(m, pg, torch.zeros_like(pg))
+    return pg, ap % ps
+
+
+def _page_put(c, vals, index):
+    """Store vals [B, H, n(, hd)] into one pool leaf [P, H, ps(, hd)] in
+    place at the :func:`page_index` coordinates."""
+    pg, off = index
+    # advanced indices on dims 0 and 2 put [B, n] first: value [B, n, H(, hd)]
+    c[pg, :, off] = vals.movedim(1, 2).to(c.dtype)
+
+
+def _page_scatter(c, vals, pos, page_table, valid=None):
+    """Write new per-row values into ONE pool leaf in place, through the
+    page table. c: [P, H, ps(, hd)]; vals: [B, H, n(, hd)] for absolute
+    positions ``pos[b] + [0, n)``; valid: [B] or [B, n] bool — masked-off
+    writes go to the scratch page 0."""
+    _page_put(c, vals, page_index(pos, vals.shape[2], page_table, c.shape[2],
+                                  valid))
+
+
+def paged_write(cache, new, pos=None, page_table=None, valid=None,
+                index=None):
+    """The paged counterpart of :func:`_kv_write`: write ``new`` [B, H, n,
+    hd] at per-row positions ``pos`` [B] through the page table, in place;
+    a scaled-int8 pool writes codes and steps at the same coordinates.
+    ``index``: those coordinates from :func:`page_index`, when the caller
+    computed them once for all layers."""
+    if index is None:
+        index = page_index(pos, new.shape[2], page_table,
+                           kv_data(cache).shape[2], valid)
+    if isinstance(cache, tuple):
+        q, s = quantize_rows(new)
+        _page_put(cache[0], q, index)
+        _page_put(cache[1], s, index)
+        return
+    _page_put(cache, new, index)
+
+
+def _block_decode(x, p, cfg: GPTConfig, k_cache, v_cache, pos,
+                  page_table=None, index=None):
     """One block on a window of new positions. x: [B, Q, D]; k/v_cache:
     this layer's [B, H, S, hd] or scaled-int8 pair (written in place);
-    pos: [B] position of window row 0. Row j attends keys <= pos + j."""
+    pos: [B] position of window row 0. Row j attends keys <= pos + j.
+    ``page_table`` makes the caches this layer's page pools: the window
+    writes at the :func:`page_index` coordinates ``index`` and attention
+    reads through the table."""
     h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
     q, k_new, v_new = _split_qkv(h @ p["w_qkv"] + p["b_qkv"], cfg)
-    _kv_write(k_cache, k_new, pos)
-    _kv_write(v_cache, v_new, pos)
+    if page_table is not None:
+        paged_write(k_cache, k_new, index=index)
+        paged_write(v_cache, v_new, index=index)
+    else:
+        _kv_write(k_cache, k_new, pos)
+        _kv_write(v_cache, v_new, pos)
     attn = decode_attention(q, k_cache, v_cache, pos,
-                            block=cfg.decode_block).to(x.dtype)
+                            block=cfg.decode_block,
+                            page_table=page_table).to(x.dtype)
     B, Q = x.shape[:2]
     attn = attn.transpose(1, 2).reshape(B, Q, -1)
     x = x + attn @ p["w_o"] + p["b_o"]
@@ -469,17 +548,21 @@ def _positions(pos, batch: int, device) -> torch.Tensor:
     return pos.expand(batch) if pos.dim() == 0 else pos
 
 
-def decode_one_token(params, cfg: GPTConfig, token, pos, k_cache, v_cache):
+def decode_one_token(params, cfg: GPTConfig, token, pos, k_cache, v_cache,
+                     page_table=None, valid=None):
     """token: [B] int; pos: int or [B] int positions. Writes this token's
     K/V into the caches in place and returns (logits [B, V] f32,
-    k_cache, v_cache)."""
+    k_cache, v_cache). ``page_table``/``valid``: the paged pool layout
+    (see :func:`_block_decode`)."""
     B = token.shape[0]
     pos = _positions(pos, B, token.device)
     emb = _take_wte(params, token[:, None], cfg) + params["wpe"][pos][:, None]
     x = emb.to(cfg.dtype)
+    index = None if page_table is None else page_index(
+        pos, 1, page_table, kv_data(k_cache).shape[3], valid)
     for i, lp in enumerate(layer_params(params)):
         x = _block_decode(x, lp, cfg, _kv_index(k_cache, i),
-                          _kv_index(v_cache, i), pos)
+                          _kv_index(v_cache, i), pos, page_table, index)
     x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
     return _lm_logits(x, params, cfg)[:, 0], k_cache, v_cache
 
@@ -502,10 +585,12 @@ def _attend_prefill(q, k, v, chunk: int):
 
 
 def _block_prefill(x, p, cfg: GPTConfig, k_cache, v_cache, chunk: int,
-                   rows):
+                   rows, index=None):
     """One block over the whole prompt. x: [n, P, D]; k/v_cache: this
     layer's [B, H, S, hd] or scaled-int8 pair; rows: [n] cache rows the
-    prompts own (their positions [0, P) are written in place)."""
+    prompts own (their positions [0, P) are written in place). ``index``
+    (the :func:`page_index` coordinates of positions [0, P)) makes the
+    caches page pools written there instead."""
     h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
     q, k_new, v_new = _split_qkv(h @ p["w_qkv"] + p["b_qkv"], cfg)
     P = x.shape[1]
@@ -515,14 +600,22 @@ def _block_prefill(x, p, cfg: GPTConfig, k_cache, v_cache, chunk: int,
         atts = []
         for cache, new in ((k_cache, k_new), (v_cache, v_new)):
             codes, steps = quantize_rows(new)
-            cache[0][rows, :, :P] = codes
-            cache[1][rows, :, :P] = steps
+            if index is not None:
+                _page_put(cache[0], codes, index)
+                _page_put(cache[1], steps, index)
+            else:
+                cache[0][rows, :, :P] = codes
+                cache[1][rows, :, :P] = steps
             atts.append((codes.float() * steps[..., None]).to(
                 q.dtype).contiguous())
         k_att, v_att = atts
     else:
-        k_cache[rows, :, :P] = k_new.to(k_cache.dtype)
-        v_cache[rows, :, :P] = v_new.to(v_cache.dtype)
+        if index is not None:
+            _page_put(k_cache, k_new, index)
+            _page_put(v_cache, v_new, index)
+        else:
+            k_cache[rows, :, :P] = k_new.to(k_cache.dtype)
+            v_cache[rows, :, :P] = v_new.to(v_cache.dtype)
         # attend over the cache-rounded K/V, the values decode will re-read
         k_att = k_new.to(k_cache.dtype).to(q.dtype).contiguous()
         v_att = v_new.to(v_cache.dtype).to(q.dtype).contiguous()
@@ -533,19 +626,28 @@ def _block_prefill(x, p, cfg: GPTConfig, k_cache, v_cache, chunk: int,
     return _ffn_serving(x, h, p, cfg)
 
 
+def _row_len(k_cache, page_table) -> int:
+    """Positions a cache row holds: the cache length, or a paged row's
+    pages_per_row * page_size (the pool leaf is [L, P, H, ps, hd])."""
+    ps = kv_data(k_cache).shape[3]
+    return ps if page_table is None else page_table.shape[1] * ps
+
+
 def prefill(params, cfg: GPTConfig, tokens, k_cache, v_cache, lengths=None,
-            mode: str = "full", rows=None):
+            mode: str = "full", rows=None, page_table=None, valid=None):
     """Single-pass batched prefill. tokens: [n, P] right-padded;
     lengths: [n] true lengths (None = P); rows: [n] cache rows to write
     (None = rows 0..n-1 of the caches). Positions past a row's length
     hold garbage K/V, never read: decode starts at the row's length and
-    overwrites before reading. Returns (logits [n, V] f32 at each row's
-    last real position, k_cache, v_cache)."""
+    overwrites before reading. ``page_table`` ([n, nb], the prompts'
+    tables) and ``valid`` ([n] bool) select the paged pool layout, which
+    needs no ``rows``. Returns (logits [n, V] f32 at each row's last real
+    position, k_cache, v_cache)."""
     n, P = tokens.shape
     dev = tokens.device
-    if P > kv_data(k_cache).shape[3]:
+    if P > _row_len(k_cache, page_table):
         raise ValueError(f"prompt width {P} exceeds the cache length "
-                         f"{kv_data(k_cache).shape[3]}")
+                         f"{_row_len(k_cache, page_table)}")
     chunk = cfg.prefill_chunk if mode == "chunked" else 0
     if mode == "chunked" and cfg.prefill_chunk <= 0:
         raise ValueError(
@@ -554,9 +656,12 @@ def prefill(params, cfg: GPTConfig, tokens, k_cache, v_cache, lengths=None,
     rows = (torch.arange(n, device=dev) if rows is None
             else torch.as_tensor(rows, device=dev).long())
     x = (_take_wte(params, tokens, cfg) + params["wpe"][:P]).to(cfg.dtype)
+    index = None if page_table is None else page_index(
+        torch.zeros((n,), dtype=torch.long, device=dev), P, page_table,
+        kv_data(k_cache).shape[3], valid)
     for i, lp in enumerate(layer_params(params)):
         x = _block_prefill(x, lp, cfg, _kv_index(k_cache, i),
-                           _kv_index(v_cache, i), chunk, rows)
+                           _kv_index(v_cache, i), chunk, rows, index)
     x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
     if lengths is None:
         last = x[:, P - 1]
@@ -567,7 +672,7 @@ def prefill(params, cfg: GPTConfig, tokens, k_cache, v_cache, lengths=None,
 
 
 def _block_prefill_suffix(x, p, cfg: GPTConfig, k_cache, v_cache, starts,
-                          shifts, rows):
+                          shifts, rows, page_table=None, index=None):
     """One block over a suffix chunk at per-row cache offsets. x: [n, C, D]
     (row r's real tokens sit at window indices [shifts[r], C)); the
     window [starts[r], starts[r] + C) of cache row rows[r] is written in
@@ -576,11 +681,25 @@ def _block_prefill_suffix(x, p, cfg: GPTConfig, k_cache, v_cache, starts,
     A scaled-int8 cache merges its codes AND its per-position steps the
     same way: a resident position keeps the step its codes were written
     with. Each query attends the WHOLE cache row under a band mask (key j
-    visible iff j <= its absolute position)."""
+    visible iff j <= its absolute position).
+
+    With ``page_table`` ([n, nb], the rows' tables) the caches are page
+    pools written at the :func:`page_index` coordinates ``index``, where
+    only window indices at or above the shift write (the dense merge below
+    the shift rewrites resident content with itself, so skipping it leaves
+    the same bytes, and a shared prefix page, always below the offset, is
+    never touched); the band attention reads the gathered whole-row
+    view."""
     h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
     q, k_new, v_new = _split_qkv(h @ p["w_qkv"] + p["b_qkv"], cfg)
     C = x.shape[1]
     ar = torch.arange(C, device=x.device)
+    if page_table is not None:
+        paged_write(k_cache, k_new, index=index)
+        paged_write(v_cache, v_new, index=index)
+        k_att = kv_dequant(paged_gather(k_cache, page_table), q.dtype)
+        v_att = kv_dequant(paged_gather(v_cache, page_table), q.dtype)
+        return _suffix_attend(x, p, cfg, q, k_att, v_att, starts, C)
     cols = starts[:, None] + ar[None, :]                        # [n, C]
     keep_new = (ar[None, :] >= shifts[:, None])[:, :, None, None]
     r = rows[:, None]
@@ -623,7 +742,8 @@ def _suffix_attend(x, p, cfg: GPTConfig, q, k_att, v_att, starts, C):
 
 
 def prefill_suffix(params, cfg: GPTConfig, tokens, k_cache, v_cache,
-                   offsets, lengths=None, rows=None):
+                   offsets, lengths=None, rows=None, page_table=None,
+                   valid=None):
     """Suffix-only prefill: run the forward over a chunk of new prompt
     tokens whose K/V prefix is already resident (chunked prefill, one
     chunk per serving tick). tokens: [n, C] right-padded; offsets: [n]
@@ -634,11 +754,13 @@ def prefill_suffix(params, cfg: GPTConfig, tokens, k_cache, v_cache,
     slides left to start = S - C; its tokens roll right by shift =
     offset - start inside the window and the write keeps the resident
     K/V below shift, so the real tokens land at their absolute
-    positions. Returns (logits [n, V] f32 at each row's last real
-    position, k_cache, v_cache)."""
+    positions. ``page_table`` ([n, nb]) and ``valid`` ([n] bool) select
+    the paged pool layout (no ``rows``); a paged row's length is nb * ps.
+    Returns (logits [n, V] f32 at each row's last real position, k_cache,
+    v_cache)."""
     n, C = tokens.shape
     dev = tokens.device
-    S = kv_data(k_cache).shape[3]
+    S = _row_len(k_cache, page_table)
     if C > S:
         raise ValueError(f"chunk width {C} exceeds the cache length {S}")
     rows = (torch.arange(n, device=dev) if rows is None
@@ -651,10 +773,17 @@ def prefill_suffix(params, cfg: GPTConfig, tokens, k_cache, v_cache,
     tokens = torch.gather(tokens, 1, (ar[None, :] - shifts[:, None]) % C)
     pos_ids = (starts[:, None] + ar[None, :]).clamp(0, cfg.max_seq - 1)
     x = (_take_wte(params, tokens, cfg) + params["wpe"][pos_ids]).to(cfg.dtype)
+    index = None
+    if page_table is not None:
+        wmask = ar[None, :] >= shifts[:, None]                  # [n, C]
+        if valid is not None:
+            wmask = wmask & valid[:, None]
+        index = page_index(starts, C, page_table, kv_data(k_cache).shape[3],
+                           wmask)
     for i, lp in enumerate(layer_params(params)):
         x = _block_prefill_suffix(x, lp, cfg, _kv_index(k_cache, i),
                                   _kv_index(v_cache, i), starts, shifts,
-                                  rows)
+                                  rows, page_table, index)
     x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
     lengths = (torch.full((n,), C, device=dev, dtype=torch.long)
                if lengths is None

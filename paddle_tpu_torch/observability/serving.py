@@ -6,7 +6,8 @@ the telemetry slice).
 Host-side only: per-request time-to-first-token, per-token decode
 latency over LIVE rows (eos-frozen and cache-full rows emit pad filler
 but add neither tokens nor samples), admission wait, rejects, expiries,
-queue depth and evictions. Latency distributions keep a bounded,
+queue depth, evictions and, for a paged session, the KV page pool
+(total, free, shared). Latency distributions keep a bounded,
 deterministically seeded reservoir (algorithm R) and report p50/p99.
 """
 from __future__ import annotations
@@ -63,6 +64,10 @@ class ServingMetrics:
         self.name = str(name)
         self.max_slots = int(max_slots)
         self._occupied = 0
+        # paged KV pool snapshot; a dense session never feeds it, so its
+        # metrics() keep exactly the dense keys
+        self.kv_pages_total = self.kv_pages_free = self.kv_pages_shared = 0
+        self._paged_seen = False
         self._ttft_ms = _Reservoir(seed=1)
         self._queue_wait_ms = _Reservoir(seed=2)
         self._decode_ms_tok = _Reservoir(seed=3)
@@ -102,6 +107,18 @@ class ServingMetrics:
             self.decode_s += wall_s
             self.tokens_emitted += emitted
             self._decode_ms_tok.add(wall_s / emitted * 1e3)
+
+    def kv_pages(self, total: int, free: int, shared: int,
+                 event: str | None = None, **kw) -> None:
+        """Paged-KV pool snapshot from the session's allocator: ``total``
+        / ``free`` / ``shared`` pages (shared = more than one reader).
+        ``event`` names the transition (``page_alloc``, ``page_free``,
+        ``page_share``) and ``kw`` its details; they feed the JSONL event
+        of the telemetry slice and are not kept here."""
+        self.kv_pages_total = int(total)
+        self.kv_pages_free = int(free)
+        self.kv_pages_shared = int(shared)
+        self._paged_seen = True
 
     def first_token(self, admit_t: float) -> None:
         ttft = time.perf_counter() - admit_t
@@ -166,4 +183,8 @@ class ServingMetrics:
             "ttft_ms_p50": rnd(self._ttft_ms, 50),
             "ttft_ms_p99": rnd(self._ttft_ms, 99),
         }
+        if self._paged_seen:
+            out["kv_pages_total"] = self.kv_pages_total
+            out["kv_pages_free"] = self.kv_pages_free
+            out["kv_pages_shared"] = self.kv_pages_shared
         return dict(sorted(out.items()))

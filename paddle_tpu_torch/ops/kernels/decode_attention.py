@@ -1,13 +1,21 @@
 """Length-bounded decode attention: the CUDA kernels of
 ``csrc/decode_attention.cu`` and their plain PyTorch versions.
 
-Port of paddle_tpu/ops/pallas/decode_attention.py for the dense cache and
-the scaled-int8 cache (the paged forms belong to a later slice). A window
-of Q query rows ``q [B, H, Q, d]`` attends a ring-buffer cache
-``[B, H, S, d]``: row j of batch row b sees keys ``<= pos[b] + j``. A
-cache is a bf16/f32 tensor, or the scaled-int8 pair ``(codes int8
-[B, H, S, d], steps f32 [B, H, S])`` with one absmax step per position and
-head (:func:`decode_attention_q8`; models/gpt.py owns the write side).
+Port of paddle_tpu/ops/pallas/decode_attention.py. A window of Q query
+rows ``q [B, H, Q, d]`` attends a ring-buffer cache ``[B, H, S, d]``: row
+j of batch row b sees keys ``<= pos[b] + j``. A cache is a bf16/f32
+tensor, or the scaled-int8 pair ``(codes int8 [B, H, S, d], steps f32
+[B, H, S])`` with one absmax step per position and head
+(:func:`decode_attention_q8`; models/gpt.py owns the write side).
+
+The paged forms (:func:`decode_attention_paged`,
+:func:`decode_attention_paged_q8`) read the same keys through a page
+table: the cache is a pool ``[P, H, ps, d]`` (steps ``[P, H, ps]``) and
+``page_table [B, nb]`` maps logical page i of row b (positions ``[i*ps,
+(i+1)*ps)``) to a pool page; page 0 is the scratch page that dead table
+entries name. :func:`paged_view` gathers the dense ``[B, H, nb*ps, d]``
+view a paged pool stands for.
+
 Scores, softmax and accumulation are f32 and the result is f32 — callers
 cast back.
 
@@ -46,6 +54,20 @@ def _dequant(data, steps):
     return data.float() * steps[..., None]
 
 
+def paged_view(cache, page_table):
+    """The dense per-row view of a paged pool, port of ``_paged_view``:
+    pool leaf ``[P, H, ps(, d)]`` + table ``[B, nb]`` -> ``[B, H, nb*ps(,
+    d)]``; logical position j of row b reads page ``page_table[b, j //
+    ps]`` at offset ``j % ps``. A ``(codes, steps)`` pair gathers leaf by
+    leaf. Dead entries read the scratch page 0, past each row's live
+    length, where masking hides them as it hides a dense cache's tail."""
+    if isinstance(cache, tuple):
+        return tuple(paged_view(c, page_table) for c in cache)
+    g = cache[page_table.long()].movedim(2, 1)   # [B, H, nb, ps(, d)]
+    b, h, nb, ps = g.shape[:4]
+    return g.reshape((b, h, nb * ps) + tuple(g.shape[4:]))
+
+
 def dense_decode_attention(q, k_cache, v_cache, pos, scale):
     """The full-buffer formulation (``PADDLE_TPU_DECODE_ATTN=full``),
     port of ``_dense_decode_attention``: f32 scores against every cache
@@ -64,17 +86,27 @@ def dense_decode_attention(q, k_cache, v_cache, pos, scale):
     return torch.cat(outs, dim=2)
 
 
-def bounded_decode_attention(q, k_cache, v_cache, pos, scale, block):
+def bounded_decode_attention(q, k_cache, v_cache, pos, scale, block,
+                             ptab=None):
     """Online softmax over only the live k-blocks, port of
     ``_xla_bounded_decode_attention``: ``ceil((max(pos) + Q) / block)``
     blocks of ``block`` keys (``S % block == 0``), scores multiplied by
     ``scale``; a scaled-int8 cache is dequantized one block at a time
-    (the reference's ``_block_f32``). The score products run one window row at a time so
-    a Q-wide window matches Q single-row calls."""
+    (the reference's ``_block_f32``). The score products run one window
+    row at a time so a Q-wide window matches Q single-row calls.
+
+    ``ptab`` ([B, nb] page table) reads a paged pool ``[P, H, block, d]``
+    instead (block = page size): loop step i fetches logical page i of
+    every row through the table; every op after the fetch is the dense
+    loop's, so the result equals the dense loop over :func:`paged_view`
+    exactly."""
     kd, kst = _kv_parts(k_cache)
     vd, vst = _kv_parts(v_cache)
-    B, H, S, d = kd.shape
-    Q = q.shape[2]
+    _, H, S, d = kd.shape
+    B, Q = q.shape[0], q.shape[2]
+    if ptab is not None:
+        ptab = ptab.long()
+        S = ptab.shape[1] * block
     qf = q.float()
     n_live = (int(pos.max()) + (Q - 1) + block) // block
     m = torch.full((B, H, Q, 1), NEG_INF, dtype=torch.float32,
@@ -83,9 +115,11 @@ def bounded_decode_attention(q, k_cache, v_cache, pos, scale, block):
     acc = torch.zeros((B, H, Q, d), dtype=torch.float32, device=q.device)
     for i in range(min(n_live, S // block)):
         start = i * block
-        win = slice(start, start + block)
-        kb = _dequant(kd[:, :, win], None if kst is None else kst[:, :, win])
-        vb = _dequant(vd[:, :, win], None if vst is None else vst[:, :, win])
+        # the rows' i-th pages, or the contiguous i-th block
+        win = ptab[:, i] if ptab is not None else (
+            slice(None), slice(None), slice(start, start + block))
+        kb = _dequant(kd[win], None if kst is None else kst[win])
+        vb = _dequant(vd[win], None if vst is None else vst[win])
         idx = start + torch.arange(block, device=q.device)
         rows = []
         for j in range(Q):
@@ -97,28 +131,38 @@ def bounded_decode_attention(q, k_cache, v_cache, pos, scale, block):
     return acc / torch.where(l == 0.0, torch.ones_like(l), l)
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argument types of the library's C entries: pointers, ints, scale, stream
+_ARGTYPES = {
+    "decode_attention": [_P] * 5 + [_I] * 6,
+    "decode_attention_q8": [_P] * 7 + [_I] * 5,
+    "decode_attention_paged": [_P] * 6 + [_I] * 8,
+    "decode_attention_paged_q8": [_P] * 8 + [_I] * 7,
+}
+
+
 def _lib(name="decode_attention"):
-    """The C entry ``name`` (``decode_attention`` or
-    ``decode_attention_q8``) of the library, with its argument types."""
+    """The C entry ``name`` (a key of ``_ARGTYPES``) of the library, with
+    its argument types."""
     fn = getattr(_build.load("decode_attention"), name)
     if fn.argtypes is None:
-        if name == "decode_attention":
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                           + [ctypes.c_float, ctypes.c_void_p])
-        else:
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                           + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = _ARGTYPES[name] + [ctypes.c_float, _P]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check_common(q, k_data, v_data):
+def _check_common(q, k_data, v_data, paged):
+    """Shapes the kernels take: q [B, H, Q, d] with Q in 1..MAX_Q and d in
+    _HEAD_DIMS against caches [B, H, S, d], or pools [P, H, ps, d]."""
+    # a pool's leading dim is its page count, not the batch
+    same_rows = paged or q.shape[0] == k_data.shape[0]
     if q.dim() != 4 or k_data.dim() != 4 or k_data.shape != v_data.shape \
-            or q.shape[:2] != k_data.shape[:2] \
+            or not same_rows or q.shape[1] != k_data.shape[1] \
             or q.shape[3] != k_data.shape[3]:
-        raise ValueError(f"decode_attention wants q [B,H,Q,d], caches "
-                         f"[B,H,S,d]; got {tuple(q.shape)}, "
-                         f"{tuple(k_data.shape)}, {tuple(v_data.shape)}")
+        want = "pools [P,H,ps,d]" if paged else "caches [B,H,S,d]"
+        raise ValueError(f"decode_attention wants q [B,H,Q,d], {want}; got "
+                         f"{tuple(q.shape)}, {tuple(k_data.shape)}, "
+                         f"{tuple(v_data.shape)}")
     if not 1 <= q.shape[2] <= MAX_Q:
         raise ValueError(f"decode_attention kernel takes 1..{MAX_Q} query "
                          f"rows, got {q.shape[2]}")
@@ -127,8 +171,8 @@ def _check_common(q, k_data, v_data):
                          f"{_HEAD_DIMS}, got {q.shape[3]}")
 
 
-def _check_inputs(q, k_cache, v_cache, pos):
-    _check_common(q, k_cache, v_cache)
+def _check_inputs(q, k_cache, v_cache, pos, paged=False):
+    _check_common(q, k_cache, v_cache, paged)
     if k_cache.dtype != v_cache.dtype or k_cache.dtype not in _DTYPES:
         raise ValueError(f"decode_attention kernel takes a bf16 or f32 "
                          f"cache, got {k_cache.dtype}/{v_cache.dtype}")
@@ -138,25 +182,37 @@ def _check_inputs(q, k_cache, v_cache, pos):
         raise ValueError("decode_attention kernel needs contiguous caches")
 
 
-def _check_q8_inputs(q, k_cache, v_cache, pos):
+def _check_q8_inputs(q, k_cache, v_cache, pos, paged=False):
     if not (isinstance(k_cache, tuple) and isinstance(v_cache, tuple)
             and len(k_cache) == len(v_cache) == 2):
         raise ValueError("decode_attention_q8 takes (codes, steps) caches")
     (kd, ks), (vd, vs) = k_cache, v_cache
-    _check_common(q, kd, vd)
+    _check_common(q, kd, vd, paged)
     if kd.dtype != torch.int8 or vd.dtype != torch.int8:
         raise ValueError(f"decode_attention_q8 codes must be int8, got "
                          f"{kd.dtype}/{vd.dtype}")
     if ks.dtype != torch.float32 or vs.dtype != torch.float32 \
             or ks.shape != kd.shape[:3] or vs.shape != vd.shape[:3]:
-        raise ValueError(f"decode_attention_q8 steps must be f32 [B,H,S] "
-                         f"= {tuple(kd.shape[:3])}, got {tuple(ks.shape)} "
+        raise ValueError(f"decode_attention_q8 steps must be f32 "
+                         f"{tuple(kd.shape[:3])}, got {tuple(ks.shape)} "
                          f"{ks.dtype}, {tuple(vs.shape)} {vs.dtype}")
     if len({t.device for t in (q, kd, vd, ks, vs, pos)}) != 1:
         raise ValueError("q, caches, steps and pos must lie on one device")
     if not all(t.is_contiguous() for t in (kd, vd, ks, vs)):
         raise ValueError("decode_attention_q8 kernel needs contiguous "
                          "codes and steps")
+
+
+def _table(page_table, q):
+    """The page table as the kernel reads it: int32, contiguous [B, nb],
+    on q's device (cast here, once a call)."""
+    pt = torch.as_tensor(page_table).to(torch.int32).contiguous()
+    if pt.dim() != 2 or pt.shape[0] != q.shape[0]:
+        raise ValueError(f"page_table must be [B={q.shape[0]}, nb], got "
+                         f"{tuple(pt.shape)}")
+    if pt.device != q.device:
+        raise ValueError("page_table must lie on q's device")
+    return pt
 
 
 def _prepare(q, pos, scale):
@@ -185,17 +241,44 @@ def _plain(q, k_cache, v_cache, pos, scale, block, mode):
     return bounded_decode_attention(q, k_cache, v_cache, pos, scale, block)
 
 
-def decode_attention(q, k_cache, v_cache, pos, scale=None, block=128):
+def _plain_paged(q, k_pool, v_pool, pos, ptab, scale, mode):
+    """The paged plain versions, as the reference dispatches them:
+    ``full`` gathers the dense view first and runs the full-buffer
+    formulation unchanged; ``bounded`` walks the live pages, block =
+    page size."""
+    if mode == "full":
+        return dense_decode_attention(q, paged_view(k_pool, ptab),
+                                      paged_view(v_pool, ptab), pos, scale)
+    ps = _kv_parts(k_pool)[0].shape[2]
+    return bounded_decode_attention(q, k_pool, v_pool, pos, scale, ps,
+                                    ptab=ptab)
+
+
+def _stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def decode_attention(q, k_cache, v_cache, pos, scale=None, block=128,
+                     page_table=None):
     """q: [B, H, Q, d]; k/v_cache: [B, H, S, d], or scaled-int8
     ``(codes, steps)`` pairs (handed to :func:`decode_attention_q8`);
     pos: int or [B] int tensor, the highest live cache index of window
     row 0. Returns [B, H, Q, d] f32.
+
+    ``page_table`` ([B, nb] int) makes the caches paged pools ``[P, H, ps,
+    d]`` (pairs: steps ``[P, H, ps]``), handed to
+    :func:`decode_attention_paged` / :func:`decode_attention_paged_q8`;
+    the block is then the page size.
 
     ``PADDLE_TPU_DECODE_ATTN`` picks the plain version run on CPU
     tensors: ``bounded`` (default, the online softmax over ``block``-key
     blocks up to the longest live row) or ``full`` (every cache slot).
     CUDA tensors launch the kernel in either mode — it reads exactly the
     live keys of each row — or raise."""
+    if page_table is not None:
+        paged = (decode_attention_paged_q8 if isinstance(k_cache, tuple)
+                 else decode_attention_paged)
+        return paged(q, k_cache, v_cache, pos, page_table, scale)
     if isinstance(k_cache, tuple):
         return decode_attention_q8(q, k_cache, v_cache, pos, scale, block)
     pos, scale, mode = _prepare(q, pos, scale)
@@ -210,8 +293,7 @@ def decode_attention(q, k_cache, v_cache, pos, scale=None, block=128):
     out = torch.empty((B, H, Q, d), dtype=torch.float32, device=q.device)
     err = _lib()(qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  p32.data_ptr(), out.data_ptr(), B, H, k_cache.shape[2], Q, d,
-                 _DTYPES[k_cache.dtype], float(scale),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 _DTYPES[k_cache.dtype], float(scale), _stream(q))
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return out
@@ -237,11 +319,69 @@ def decode_attention_q8(q, k_cache, v_cache, pos, scale=None, block=128):
     err = _lib("decode_attention_q8")(
         qf.data_ptr(), kd.data_ptr(), vd.data_ptr(), ks.data_ptr(),
         vs.data_ptr(), p32.data_ptr(), out.data_ptr(), B, H, kd.shape[2], Q,
-        d, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        d, float(scale), _stream(q))
     _build.check(err, "decode_attention_q8")
     decode_attention_q8.launches += 1
     return out
 
 
+def decode_attention_paged(q, k_pool, v_pool, pos, page_table, scale=None):
+    """:func:`decode_attention` over a paged bf16/f32 pool: k/v_pool
+    ``[P, H, ps, d]``, page_table ``[B, nb]`` (entries in [0, P); dead
+    ones name the scratch page 0), pos as for the dense form (row b's
+    logical length is ``nb * ps``). CPU tensors run the plain versions;
+    CUDA tensors launch the paged kernel, which reads each live key
+    through its row's table, or raise."""
+    pos, scale, mode = _prepare(q, pos, scale)
+    if q.device.type == "cpu":
+        return _plain_paged(q, k_pool, v_pool, pos, page_table, scale, mode)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_paged: no kernel for {q.device}")
+    _check_inputs(q, k_pool, v_pool, pos, paged=True)
+    pt = _table(page_table, q)
+    B, H, Q, d = q.shape
+    P, _, ps, _ = k_pool.shape
+    qf = q.float().contiguous()
+    p32 = pos.to(torch.int32).contiguous()
+    out = torch.empty((B, H, Q, d), dtype=torch.float32, device=q.device)
+    err = _lib("decode_attention_paged")(
+        qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pt.data_ptr(),
+        p32.data_ptr(), out.data_ptr(), B, H, P, ps, pt.shape[1], Q, d,
+        _DTYPES[k_pool.dtype], float(scale), _stream(q))
+    _build.check(err, "decode_attention_paged")
+    decode_attention_paged.launches += 1
+    return out
+
+
+def decode_attention_paged_q8(q, k_pool, v_pool, pos, page_table,
+                              scale=None):
+    """:func:`decode_attention_paged` over a scaled-int8 pool: k/v_pool
+    are ``(codes int8 [P, H, ps, d], steps f32 [P, H, ps])`` pairs. CUDA
+    tensors launch the paged int8 kernel or raise."""
+    pos, scale, mode = _prepare(q, pos, scale)
+    if q.device.type == "cpu":
+        return _plain_paged(q, k_pool, v_pool, pos, page_table, scale, mode)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_paged_q8: no kernel for "
+                         f"{q.device}")
+    _check_q8_inputs(q, k_pool, v_pool, pos, paged=True)
+    pt = _table(page_table, q)
+    (kd, ks), (vd, vs) = k_pool, v_pool
+    B, H, Q, d = q.shape
+    P, _, ps, _ = kd.shape
+    qf = q.float().contiguous()
+    p32 = pos.to(torch.int32).contiguous()
+    out = torch.empty((B, H, Q, d), dtype=torch.float32, device=q.device)
+    err = _lib("decode_attention_paged_q8")(
+        qf.data_ptr(), kd.data_ptr(), vd.data_ptr(), ks.data_ptr(),
+        vs.data_ptr(), pt.data_ptr(), p32.data_ptr(), out.data_ptr(), B, H,
+        P, ps, pt.shape[1], Q, d, float(scale), _stream(q))
+    _build.check(err, "decode_attention_paged_q8")
+    decode_attention_paged_q8.launches += 1
+    return out
+
+
 decode_attention.launches = 0
 decode_attention_q8.launches = 0
+decode_attention_paged.launches = 0
+decode_attention_paged_q8.launches = 0

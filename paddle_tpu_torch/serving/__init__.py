@@ -1,5 +1,8 @@
-"""Continuous-batching serving engine of the port."""
+"""Continuous-batching serving engine of the port, and its prefix KV
+pool."""
 from .engine import QueueFull, ServingEngine
+from .prefix_cache import PageSpan, PrefixCache
 from .request import Request, RequestState
 
-__all__ = ["QueueFull", "Request", "RequestState", "ServingEngine"]
+__all__ = ["PageSpan", "PrefixCache", "QueueFull", "Request",
+           "RequestState", "ServingEngine"]

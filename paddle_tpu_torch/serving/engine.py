@@ -11,10 +11,17 @@ paddle_tpu/serving/engine.py:
   (``prefill_chunk>0``): each :meth:`poll` advances every partial prompt
   by one chunk and decodes every live row (``session.fused_tick``), so a
   long prompt never stalls the decode batch;
-- full-occupancy decode: every poll fills freed slots first.
+- full-occupancy decode: every poll fills freed slots first;
+- prefix KV reuse (``prefix_cache_blocks > 0``): admission copies the
+  longest pooled block-aligned prefix into the slot and prefills only the
+  tail; a finalized prompt's full blocks are offered to the pool
+  (second-touch promotion). On a paged session pool entries are
+  by-reference page spans and the slot's page grant is sized to the
+  request (``need_tokens``); page exhaustion requeues like slot
+  exhaustion.
 
-Prefix KV reuse, the resilience plane (load shedding, retries, the crash
-journal), tenant metering and tracing belong to later slices and raise
+The resilience plane (load shedding, retries, the crash journal), tenant
+metering and tracing belong to later slices and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -24,6 +31,7 @@ import os
 import time
 
 from ..device import resolve_device
+from .prefix_cache import PrefixCache
 from .request import Request, RequestState
 
 __all__ = ["ServingEngine", "QueueFull"]
@@ -44,7 +52,8 @@ class QueueFull(RuntimeError):
 class ServingEngine:
     """Iteration-level request scheduler over a ``GenerationSession``.
 
-    >>> eng = ServingEngine(sess, max_queue=64, prefill_chunk=64)
+    >>> eng = ServingEngine(sess, max_queue=64, prefill_chunk=64,
+    ...                     prefix_cache_blocks=32)
     >>> req = eng.submit(prompt_tokens, max_new_tokens=32)
     >>> eng.run()                      # tick until drained
     >>> req.output                     # generated token ids
@@ -57,11 +66,11 @@ class ServingEngine:
     def __init__(self, session, max_queue: int = 64,
                  prefill_chunk: int = 0, clock=time.perf_counter,
                  device=None, prefix_cache_blocks: int = 0,
-                 resilience=None, metering=None):
+                 prefix_promote_after: int = 2, resilience=None,
+                 metering=None):
         # the reference arms the crash journal through ``resilience`` and
         # tracing / metering also through the environment
         for what, armed, later in (
-                ("prefix_cache_blocks", prefix_cache_blocks, "prefix-cache"),
                 ("resilience (shedding, retries, journal)", resilience,
                  "serving-resilience"),
                 ("metering", metering or os.environ.get(
@@ -91,6 +100,16 @@ class ServingEngine:
         if self.width < 1:
             raise ValueError(f"prefill chunk width must be >= 1, got "
                              f"{self.width}")
+        self.prefix_cache = None
+        if prefix_cache_blocks > 0:
+            # a paged session's entries are by-reference PageSpans: LRU
+            # eviction hands them back to the session's page refcounts
+            self.prefix_cache = PrefixCache(
+                block=session.cfg.decode_block,
+                max_blocks=prefix_cache_blocks,
+                promote_after=prefix_promote_after,
+                on_release=session.release_pooled_entry
+                if session.kv_paged else None)
         self._tm = session.telemetry
         self._heap: list[tuple] = []    # (sched_key, Request)
         self._queued = 0
@@ -156,6 +175,26 @@ class ServingEngine:
             return req
         return None
 
+    def _reuse_prefix(self, req: Request, slot: int) -> int:
+        """Land the longest pooled prefix of the prompt in the slot; returns
+        the offset its prefill starts at. The match stops one token short:
+        the last prompt position must prefill so its logits exist."""
+        if self.prefix_cache is None:
+            return 0
+        _, blocks = self.prefix_cache.match(req.tokens,
+                                            max_prefix=req.prompt_len - 1)
+        if not blocks:
+            return 0
+        req.prefix_hit_tokens = self.session.copy_prefix_into(slot, blocks)
+        return req.prefix_hit_tokens
+
+    def _pool_prompt(self, req: Request, slot: int) -> None:
+        """Offer the now-resident prompt's full blocks to the prefix pool
+        (one span read for the contiguous run it promotes)."""
+        self.prefix_cache.insert(
+            req.tokens, lambda start, length:
+            self.session.read_prefix_block(slot, start, length))
+
     def _collect_chunks(self):
         """This tick's chunk batch: every partial prompt advances one
         chunk; last chunks finalize."""
@@ -199,16 +238,20 @@ class ServingEngine:
             req = self._pop_best(now)
             if req is None:
                 break
-            slot = sess.alloc_slot()
+            # a paged session grants only the pages this request can touch
+            kw = {"need_tokens": req.prompt_len + req.max_new_tokens} \
+                if sess.kv_paged else {}
+            slot = sess.alloc_slot(**kw)
             if slot is None:
-                # no capacity: back into the queue, same FIFO position
+                # no capacity (slots or KV pages): back into the queue,
+                # same FIFO position
                 heapq.heappush(self._heap, (req.sched_key(), req))
                 self._queued += 1
                 break
             req.state = RequestState.PREFILLING
             req.slot = slot
             req.admitted_ts = now
-            self._partials[slot] = [req, 0]
+            self._partials[slot] = [req, self._reuse_prefix(req, slot)]
             admitted.append(req)
 
         # 2. one chunk for every partial prompt and one decode token for
@@ -233,6 +276,8 @@ class ServingEngine:
             del self._partials[slot]
             req.state = RequestState.DECODING
             self._by_slot[slot] = req
+            if self.prefix_cache is not None:
+                self._pool_prompt(req, slot)
 
         emitted_n = 0
         if emitted:
@@ -345,4 +390,6 @@ class ServingEngine:
         for r in self._requests:
             by_state[r.state.value] = by_state.get(r.state.value, 0) + 1
         out["requests_by_state"] = dict(sorted(by_state.items()))
+        if self.prefix_cache is not None:
+            out["prefix_cache"] = self.prefix_cache.stats()
         return dict(sorted(out.items()))

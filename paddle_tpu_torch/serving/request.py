@@ -55,6 +55,8 @@ class Request:
     finished_ts: float | None = None
     slot: int | None = None
     output: list[int] = dataclasses.field(default_factory=list)
+    # prompt positions served from the prefix pool instead of prefill
+    prefix_hit_tokens: int = 0
 
     def __post_init__(self):
         self.tokens = np.asarray(self.tokens, np.int32).reshape(-1)

@@ -1,6 +1,6 @@
 """The port stands alone: no module under paddle_tpu_torch/ imports jax or
-paddle_tpu, the package imports, serves (fp and quantized) and trains with
-both blocked, and every entry point defaults to the CUDA device and raises
+paddle_tpu, the package imports, serves (fp, quantized, and paged with
+prefix reuse) and trains with both blocked, and every entry point defaults to the CUDA device and raises
 without one."""
 import ast
 import subprocess
@@ -71,6 +71,19 @@ def test_package_runs_with_jax_blocked():
         reqs = [eng.submit(p, max_new_tokens=4) for p in prompt]
         eng.run()
         assert [r.output for r in reqs] == qout[:, 5:].tolist()
+        cfg_p = gpt.gpt_tiny(n_layers=2, decode_block=4)
+        sess = GenerationSession(params, cfg_p, max_slots=2,
+                                 max_prompt_len=12, kv_paged=True,
+                                 device="cpu")
+        eng = ServingEngine(sess, prefill_chunk=4, prefix_cache_blocks=8,
+                            prefix_promote_after=1, device="cpu")
+        shared = np.arange(8) % cfg.vocab_size
+        reqs = [eng.submit(np.concatenate([shared, [t, t + 1]]),
+                           max_new_tokens=3) for t in (20, 30, 40)]
+        eng.run()
+        assert all(len(r.output) == 3 for r in reqs)
+        assert eng.metrics()["prefix_cache"]["hits"] >= 2
+        assert sum(r.prefix_hit_tokens for r in reqs) >= 8
         assert not any(m and m.startswith(("jax", "paddle_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("OK")

@@ -155,16 +155,26 @@ def test_admission_control_and_later_slices(setup, monkeypatch):
         _session(setup, max_slots=2, max_prompt_len=4).admit(
             np.asarray([[1, 2]]), lengths=[3])
     assert _session(setup, max_slots=1).admit(np.zeros((0, 3))) == []
-    for kw in ({"kv_paged": True}, {"spec_decode": 4}, {"mesh": object()}):
+    for kw in ({"spec_decode": 4}, {"mesh": object()},
+               {"kv_paged": True, "mesh": object()}):
         with pytest.raises(NotImplementedError, match="slice"):
             _session(setup, max_slots=1, **kw)
-    for env, val in (("PADDLE_TPU_KV_PAGED", "1"),
-                     ("PADDLE_TPU_SPEC_DECODE", "4")):
-        with monkeypatch.context() as mp:
-            mp.setenv(env, val)
-            with pytest.raises(NotImplementedError, match="slice"):
-                _session(setup, max_slots=1)
-    with pytest.raises(NotImplementedError, match="prefix"):
+    with monkeypatch.context() as mp:
+        mp.setenv("PADDLE_TPU_SPEC_DECODE", "4")
+        with pytest.raises(NotImplementedError, match="slice"):
+            _session(setup, max_slots=1)
+    # paged KV and prefix spans are this slice: from the argument and the
+    # environment alike
+    paged = _session(setup, max_slots=1, kv_paged=True)
+    assert paged.metrics()["kv_page_size"] == setup[2].decode_block
+    with monkeypatch.context() as mp:
+        mp.setenv("PADDLE_TPU_KV_PAGED", "1")
+        assert _session(setup, max_slots=1).kv_paged
+    slot = paged.alloc_slot()
+    assert paged.copy_prefix_into(slot, []) == 0
+    with pytest.raises(NotImplementedError, match="fleet"):
+        paged.export_kv_span(slot, 8)
+    with pytest.raises(ValueError, match="reserved"):
         sess.copy_prefix_into(0, [])
 
 
@@ -316,10 +326,11 @@ def test_bounded_queue_rejects_loudly_and_validates(setup, monkeypatch):
     assert eng.metrics()["requests_by_state"]["done"] == 2
     with pytest.raises(RuntimeError, match="closed"):
         eng.submit(_prompt(rng, 4))
-    for kw in ({"prefix_cache_blocks": 8}, {"resilience": object()},
-               {"metering": True}):
+    for kw in ({"resilience": object()}, {"metering": True}):
         with pytest.raises(NotImplementedError, match="slice"):
             ServingEngine(sess, device="cpu", **kw)
+    reuse = ServingEngine(sess, device="cpu", prefix_cache_blocks=8)
+    assert reuse.metrics()["prefix_cache"]["max_blocks"] == 8
     for env in ("PADDLE_TPU_TRACING", "PADDLE_TPU_TENANT_METERING"):
         with monkeypatch.context() as mp:
             mp.setenv(env, "1")
