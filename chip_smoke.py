@@ -4,17 +4,21 @@
     python3 chip_smoke.py              # every phase, exits 0 only if all pass
     python3 chip_smoke.py --phases build,kernels,train,train_parity
     python3 chip_smoke.py --phases build,kernels,paged,paged_parity
+    python3 chip_smoke.py --phases build,incubate,sampling
 
 Phases, each fatal on failure:
 
 1. build    — compile every kernel under paddle_tpu_torch/csrc with nvcc
               (one process per source, in parallel) and print the seconds
-              and the ptxas register / spill report.
+              and the ptxas register / spill report. (The two Triton
+              kernels compile at their first launch.)
 2. kernels  — call each kernel wrapper on the card at the main path's
               shapes and at edge shapes, hold it against its plain PyTorch
               version on the same inputs (stated tolerance; the paged
               decode kernels also bitwise against the dense ones over the
-              gathered view), and time the
+              gathered view; the fused bias-dropout-residual LayerNorm at
+              [8192, 2048] and edge shapes; the Triton factories on ReLU,
+              a*b+1, sum and max at 2^24 f32, ragged and empty), and time the
               kernel, the plain version and one PyTorch library call that
               computes the same function, beside the least time the card
               could take (bound_ms).
@@ -78,6 +82,21 @@ Phases, each fatal on failure:
               versions) and on the card (kernels) from the same numpy
               weights: losses within 1e-4, params within the AdamW
               tolerance.
+12. incubate — incubate.nn.FusedBiasDropoutResidualLayerNorm(2048, p=0.1)
+              on [4, 2048, 2048] bf16: 3 training forward+backward steps,
+              each with a grad-norm monitor built from the primitive
+              factories (square, sum), then an eval forward, counted exactly
+              (one fused launch a forward); masks fresh each step and equal
+              after seed() again; gradients equal autograd through the plain
+              version; a [64, 256] f32 cut and the dropout hash equal on the
+              CPU and the card.
+13. sampling — the threefry known answers on the card; bits and uniform
+              over [4, 50304] bitwise equal on the card and the CPU; one
+              categorical's kernel launches and time; full-width generate()
+              B=4 x P=256 (+32), greedy beside sampled (temperature 0.8, top-k
+              50, seed 0), ms a token each, exact launch counts; the 12-request
+              replay sampled; 2-layer f32 sampled streams equal on the CPU and
+              the card.
 
 The line before the last holds {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or run from a
@@ -95,7 +114,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "generate", "server", "parity", "quant",
-          "quant_parity", "paged", "paged_parity", "train", "train_parity")
+          "quant_parity", "paged", "paged_parity", "train", "train_parity",
+          "incubate", "sampling")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -129,6 +149,11 @@ QMM_TOL = 1e-4
 # that differ by summation-order ulps, which can move a code across a
 # rounding tie by one step
 QUANT_PARITY_TOL = 1e-3
+# fused bias-dropout-residual LayerNorm against its plain version, relative
+# to max(|plain|, 1): the same f32 math in another summation order, so one
+# bf16 step of the output (2^-7) in bf16 and 1e-5 in f32; one dropout mask
+# bit off would be an O(1) error
+FLN_TOL = {"bf16": 2 ** -7, "f32": 1e-5}
 
 
 def log(msg: str) -> None:
@@ -144,6 +169,7 @@ def _kernel_label(line: str) -> str:
     name = re.search(r"\d+([a-z_]+_kernel)I", mangled)
     args = re.findall(r"L([ib])(\d+)E", mangled)
     dtype = ("bf16" if "bfloat16" in mangled
+             else "f16" if "6__half" in mangled
              else "int8" if re.search(r"_kernelIa", mangled) else "f32")
     ints = [v for k, v in args if k == "i"]
     flags = [v == "1" for k, v in args if k == "b"]
@@ -175,6 +201,38 @@ def _device_rows(torch, prof, n):
             [(e.key, dev_us(e) / 1e3, e.count) for e in top])
 
 
+def _triton_functors() -> dict:
+    """The functors this script hands the primitive factories, as
+    ``@triton.jit`` functions (Triton is imported here, on the card's
+    machine only; ``tl`` is a module global so Triton resolves it)."""
+    global tl
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def relu(x):
+        return tl.maximum(x, 0.0)
+
+    @triton.jit
+    def mul_add_one(a, b):
+        return a * b + 1.0
+
+    @triton.jit
+    def square(x):
+        return x * x
+
+    @triton.jit
+    def tile_sum(x):
+        return tl.sum(x, axis=0)
+
+    @triton.jit
+    def tile_max(x):
+        return tl.max(x, axis=0)
+
+    return dict(relu=relu, mul_add_one=mul_add_one, square=square,
+                tile_sum=tile_sum, tile_max=tile_max)
+
+
 class Smoke:
     def __init__(self, torch):
         self.torch = torch
@@ -194,6 +252,19 @@ class Smoke:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
+
+    def device_ms(self, fn, iters=20) -> float:
+        """Device time of one call of ``fn``: the kernels' summed time over
+        ``iters`` calls under torch.profiler, without the host's time."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        return _device_rows(torch, prof, 0)[0] / iters
 
     # ------------------------------------------------------------ build
     def phase_build(self):
@@ -831,6 +902,173 @@ class Smoke:
                 self._paged_case(3, 4, ps, 64 // ps, 16, 3, quant,
                                  [60, 9, 33], False, spare=3)
 
+    # ------------------------------------------- fused LN and factories
+    def _fused_ln_case(self, N, D, dtype, training, p, time_it, main=False):
+        """The fused bias-dropout-residual LayerNorm kernel against its plain
+        version on the same inputs (f32 params drawn from a seed)."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from paddle_tpu_torch.ops.kernels import fused_residual_ln as fr
+        g = torch.Generator(device=self.dev).manual_seed(N + D)
+        x = torch.randn((N, D), generator=g, device=self.dev).to(dtype)
+        res = torch.randn((N, D), generator=g, device=self.dev).to(dtype)
+        bias, beta = (torch.randn((D,), generator=g, device=self.dev) * 0.1
+                      for _ in range(2))
+        gamma = 1.0 + 0.1 * torch.randn((D,), generator=g, device=self.dev)
+        seed = 0x5EED0000 + N
+        args = (x, bias, res, gamma, beta)
+        kw = dict(p=p, eps=1e-5, training=training, seed=seed)
+        out = fr.fused_bias_dropout_residual_ln(*args, **kw)
+        torch.cuda.synchronize()
+        ref = fr.fused_bias_dropout_residual_ln_ref(*args, seed, p, 1e-5,
+                                                    training)
+        tname = "bf16" if dtype == torch.bfloat16 else "f32"
+        # relative to max(|plain|, 1): a mask bit off is an O(1) error
+        err = ((out.float() - ref.float()).abs()
+               / ref.float().abs().clamp_min(1.0)).max().item()
+        case = dict(kernel="fused_residual_ln", shape=[N, D], dtype=tname,
+                    training=training, p=p, max_abs_err=err,
+                    tol=FLN_TOL[tname])
+        log(f"[kernels] {json.dumps(case)}")
+        if not bool(torch.isfinite(out.float()).all()) or err > FLN_TOL[tname]:
+            raise AssertionError(f"fused_residual_ln disagrees with its plain "
+                                 f"version: {case}")
+        if not time_it:
+            return case
+        case["ms"] = self.time_ms(
+            lambda: fr.fused_bias_dropout_residual_ln(*args, **kw), iters=100)
+        case["device_ms"] = self.device_ms(
+            lambda: fr.fused_bias_dropout_residual_ln(*args, **kw))
+        case["plain_ms"] = self.time_ms(
+            lambda: fr.fused_bias_dropout_residual_ln_ref(
+                *args, seed, p, 1e-5, training), iters=10)
+        # the library's LayerNorm on the pre-summed input (eval: no mask)
+        h = (x.float() + bias + res.float()).to(dtype)
+        gl, bl = gamma.to(dtype), beta.to(dtype)
+        case["library_ms"] = self.time_ms(
+            lambda: F.layer_norm(h, (D,), gl, bl, 1e-5), iters=100)
+        case["library"] = "F.layer_norm on x + bias + residual, params in x's dtype"
+        elem = x.element_size()
+        # x and residual read, y written; the three f32 [D] params read
+        nbytes = 3 * N * D * elem + 3 * D * 4
+        case.update(self._bound(30 * N * D, nbytes, "f32"))
+        log(f"[kernels] {json.dumps(case)}")
+        if main:
+            self.rows["fused_residual_ln"] = case
+        return case
+
+    def _fused_ln_cases(self):
+        torch = self.torch
+        from paddle_tpu_torch.ops.kernels import fused_residual_ln as fr
+        bf16, f32 = torch.bfloat16, torch.float32
+        # the incubate phase's shape: gpt3_1p3b's d_model over the train
+        # phase's B x S = 4 x 2048 tokens, training (p = 0.1) and eval
+        for dt in (bf16, f32):
+            for training in (True, False):
+                self._fused_ln_case(4 * 2048, 2048, dt, training, 0.1,
+                                    dt is bf16,
+                                    main=dt is bf16 and training)
+        for N, D in ((1, 2048), (1000, 2048), (1000, 96), (77, 2050),
+                     (3, 8192), (70000, 64)):
+            for dt in (bf16, f32):
+                self._fused_ln_case(N, D, dt, True, 0.5, False)
+        wide = torch.zeros((2, fr.MAX_D + 1), device=self.dev)
+        vec = torch.zeros(fr.MAX_D + 1, device=self.dev)
+        try:
+            fr.fused_bias_dropout_residual_ln(wide, vec, wide, vec, vec)
+        except ValueError as e:
+            log(f"[kernels] fused_residual_ln D={fr.MAX_D + 1} raises: {e}")
+        else:
+            raise AssertionError("fused_residual_ln took a row past MAX_D")
+
+    def _triton_functors(self):
+        if getattr(self, "_functors", None) is None:
+            self._functors = _triton_functors()
+        return self._functors
+
+    def _factory_cases(self):
+        """elementwise_kernel and reduce_kernel (Triton) against their plain
+        versions: ReLU and a*b+1, sum and max, at 2^24 f32 (timed), ragged
+        sizes and empty input."""
+        torch = self.torch
+        from paddle_tpu_torch.ops.kernels import primitives as prim
+        fn = self._triton_functors()
+        g = torch.Generator(device=self.dev).manual_seed(24)
+        cases = [("relu", fn["relu"], lambda v: torch.clamp_min(v, 0.0), 1,
+                  torch.relu),
+                 ("a*b+1", fn["mul_add_one"], lambda a, b: a * b + 1.0, 2,
+                  None)]
+        for n in (2 ** 24, 100, 407, 0):
+            for name, jit_fn, plain, arity, lib in cases:
+                ops = [torch.randn((n,), generator=g, device=self.dev)
+                       for _ in range(arity)]
+                run = prim.elementwise_kernel(jit_fn)
+                out = run(*ops)
+                torch.cuda.synchronize()
+                ref = prim.elementwise_plain(plain, ops, 4096)
+                # a*b+1 may fuse into one multiply-add: one f32 rounding
+                err = ((out - ref).abs() / ref.abs().clamp_min(1.0)).max(
+                    ).item() if n else 0.0
+                tol = 0.0 if name == "relu" else 2 ** -22
+                case = dict(kernel="elementwise_kernel", functor=name, n=n,
+                            max_abs_err=err, tol=tol,
+                            shape_ok=out.shape == ops[0].shape)
+                if err > tol or not case["shape_ok"]:
+                    raise AssertionError(f"elementwise_kernel disagrees with "
+                                         f"its plain version: {case}")
+                if n == 2 ** 24:
+                    case["ms"] = self.time_ms(lambda: run(*ops), iters=100)
+                    case["device_ms"] = self.device_ms(lambda: run(*ops))
+                    case["plain_ms"] = self.time_ms(
+                        lambda: prim.elementwise_plain(plain, ops, 4096),
+                        iters=2, warmup=1)
+                    case["library_ms"] = self.time_ms(
+                        lambda: lib(*ops), iters=100) if lib else None
+                    case.update(self._bound(n, 4 * n * (arity + 1), "f32"))
+                    if name == "relu":
+                        self.rows["elementwise_kernel"] = case
+                log(f"[kernels] {json.dumps(case)}")
+        for n in (2 ** 24, 1000, 0):
+            for name, jit_fn, plain, ident, lib in (
+                    ("sum", fn["tile_sum"], torch.sum, 0.0, torch.sum),
+                    ("max", fn["tile_max"], torch.amax, -float("inf"),
+                     torch.amax)):
+                # sums of uniform [0, 1) values (no cancellation), so the
+                # summation order shows as a relative error; max of normals
+                x = (torch.rand if name == "sum" else torch.randn)(
+                    (n,), generator=g, device=self.dev)
+                run = prim.reduce_kernel(jit_fn, ident)
+                out = run(x)
+                torch.cuda.synchronize()
+                ref = prim.reduce_plain(plain, ident, x, 4096)
+                if name == "sum":    # 1e-6 relative: the order differs
+                    # (0.5 of a sum near 8.4e6 measured at 2**24, one f32
+                    # ulp); the float64 sum holds both f32 orders
+                    ref64 = x.double().sum().item()
+                    err = max(abs(out.item() - ref.item()),
+                              abs(out.item() - ref64))
+                    tol = 1e-6 * abs(ref64)
+                else:                # max is exact
+                    err, tol = abs(out.item() - ref.item()) if n else 0.0, 0.0
+                case = dict(kernel="reduce_kernel", functor=name, n=n,
+                            max_abs_err=err, tol=tol, value=out.item())
+                if not err <= tol or out.shape != ():
+                    raise AssertionError(f"reduce_kernel disagrees with its "
+                                         f"plain version: {case}")
+                if n == 2 ** 24:
+                    case["ms"] = self.time_ms(lambda: run(x), iters=100)
+                    case["device_ms"] = self.device_ms(lambda: run(x))
+                    case["plain_ms"] = self.time_ms(
+                        lambda: prim.reduce_plain(plain, ident, x, 4096),
+                        iters=2, warmup=1)
+                    case["library_ms"] = self.time_ms(lambda: lib(x),
+                                                      iters=100)
+                    case.update(self._bound(n, 4 * n + 4, "f32"))
+                    if name == "sum":
+                        self.rows["reduce_kernel"] = case
+                log(f"[kernels] {json.dumps(case)}")
+
+
     def phase_kernels(self):
         torch = self.torch
         bf16, f32 = torch.bfloat16, torch.float32
@@ -878,6 +1116,8 @@ class Smoke:
             self._decode_q8_case(8, 16, 2048, 128, Q, True)
         self._decode_q8_case(3, 4, 64, 16, 3, False)
         self._paged_cases()
+        self._fused_ln_cases()
+        self._factory_cases()
 
     # ------------------------------------------------------ main path
     def _counters(self):
@@ -890,6 +1130,9 @@ class Smoke:
         from paddle_tpu_torch.ops.kernels.fused_adamw import (
             fused_adamw_update)
         from paddle_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+        from paddle_tpu_torch.ops.kernels import primitives as prim
+        from paddle_tpu_torch.ops.kernels.fused_residual_ln import (
+            fused_bias_dropout_residual_ln)
         return {"flash_attention_fwd": fa.flash_attention,
                 "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
                 "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
@@ -898,7 +1141,10 @@ class Smoke:
                 "quant_matmul": quant_matmul,
                 "decode_attention_q8": decode_attention_q8,
                 "decode_attention_paged": decode_attention_paged,
-                "decode_attention_paged_q8": decode_attention_paged_q8}
+                "decode_attention_paged_q8": decode_attention_paged_q8,
+                "fused_residual_ln": fused_bias_dropout_residual_ln,
+                "elementwise_kernel": prim.elementwise_kernel,
+                "reduce_kernel": prim.reduce_kernel}
 
     def _zero_counts(self):
         for fn in self._counters().values():
@@ -1746,6 +1992,310 @@ class Smoke:
         if loss_err > 1e-4 or param_err > param_tol:
             raise AssertionError("CPU and card training disagree")
 
+    # ---------------------------------------------------------- incubate
+    def phase_incubate(self):
+        """FusedBiasDropoutResidualLayerNorm at d=2048 on [4, 2048, 2048]
+        bf16: 3 training forward+backward steps, each followed by a grad-norm
+        monitor built from the primitive factories (square, then sum), and
+        one eval forward, counted exactly; then the mask and gradient checks
+        and a CPU/card comparison."""
+        torch = self.torch
+        import numpy as np
+        import paddle_tpu_torch
+        from paddle_tpu_torch.framework import prng, random
+        from paddle_tpu_torch.incubate.nn import (
+            FusedBiasDropoutResidualLayerNorm)
+        from paddle_tpu_torch.ops.kernels import fused_residual_ln as fr
+        from paddle_tpu_torch.ops.kernels import primitives as prim
+        B, S, d, p = 4, 2048, 2048, 0.1
+        layer = FusedBiasDropoutResidualLayerNorm(d, dropout_rate=p,
+                                                  device=self.dev)
+        g = torch.Generator(device=self.dev).manual_seed(2048)
+        with torch.no_grad():
+            for t, base in ((layer.linear_bias, 0.0), (layer.ln_scale, 1.0),
+                            (layer.ln_bias, 0.0)):
+                t.copy_(base + 0.1 * torch.randn(d, generator=g,
+                                                 device=self.dev))
+        mk = lambda: torch.randn((B, S, d), generator=g,
+                                 device=self.dev).to(torch.bfloat16)
+        x, res, gout = mk().requires_grad_(), mk().requires_grad_(), mk()
+        fn = self._triton_functors()
+        square = prim.elementwise_kernel(fn["square"])
+        total = prim.reduce_kernel(fn["tile_sum"], 0.0)
+        fused = fr.fused_bias_dropout_residual_ln
+        layer.train()
+        paddle_tpu_torch.seed(1234)
+        torch.cuda.synchronize()
+        self._zero_counts()
+        outs, grads, norms, times = [], [], [], []
+        for step in range(3):
+            for t in (x, res, *layer.parameters()):
+                t.grad = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = fused.launches
+            out = layer(x, res)
+            if fused.launches - before != 1:
+                raise AssertionError(f"step {step}: {fused.launches - before} "
+                                     "fused-LN launches in one forward")
+            out.backward(gout)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            params = [t.grad for t in layer.parameters()]
+            norms.append(sum(float(total(square(gp))) for gp in params)
+                         ** 0.5)
+            want = torch.linalg.vector_norm(torch.cat(params)).item()
+            if abs(norms[-1] - want) > 1e-5 * want:
+                raise AssertionError(f"grad-norm monitor {norms[-1]} against "
+                                     f"torch's {want}")
+            outs.append(out.detach())
+            grads.append([t.grad.clone() for t in (x, res,
+                                                   *layer.parameters())])
+        layer.eval()
+        with torch.no_grad():
+            out_eval = layer(x, res)
+        counts = self._read_counts("incubate", (
+            "fused_residual_ln", "elementwise_kernel", "reduce_kernel"))
+        self._expect_counts("incubate", counts, {
+            "fused_residual_ln": 4, "elementwise_kernel": 9,
+            "reduce_kernel": 9})
+        # fresh masks from step to step, the same ones after seed() again
+        fresh = all(not torch.equal(outs[i], outs[i + 1]) for i in range(2))
+        layer.train()
+        paddle_tpu_torch.seed(1234)
+        with torch.no_grad():
+            again = layer(x, res)
+        # the gradients equal autograd through the plain version with the
+        # seed step 0 drew
+        paddle_tpu_torch.seed(1234)
+        seed0 = prng._bits_host(random.next_key())
+        leaves = [t.detach().clone().requires_grad_() for t in (
+            x, res, *layer.parameters())]
+        ref = fr.fused_bias_dropout_residual_ln_ref(
+            leaves[0].reshape(-1, d), leaves[2], leaves[1].reshape(-1, d),
+            leaves[3], leaves[4], seed0, p, 1e-5, True)
+        ref.backward(gout.reshape(-1, d))
+        # relative to each leaf's largest gradient; the same ops on the same
+        # inputs, so 0 is expected
+        grad_err = max(((a.float() - b.grad.float()).abs().max()
+                        / b.grad.float().abs().max().clamp_min(1e-30)).item()
+                       for a, b in zip(grads[0], leaves))
+        fwd_err = ((outs[0].reshape(-1, d).float() - ref.detach().float())
+                   .abs() / ref.detach().float().abs().clamp_min(1.0)
+                   ).max().item()
+        eval_ref = fr.fused_bias_dropout_residual_ln_ref(
+            x.detach().reshape(-1, d), layer.linear_bias.detach(),
+            res.detach().reshape(-1, d), layer.ln_scale.detach(),
+            layer.ln_bias.detach(), 0, p, 1e-5, False)
+        eval_err = ((out_eval.reshape(-1, d).float() - eval_ref.float()).abs()
+                    / eval_ref.float().abs().clamp_min(1.0)).max().item()
+        kept = (outs[0] != outs[1]).float().mean().item()
+        # CPU (plain) against the card (kernel): [64, 256] f32, and the hash
+        # bits over rows past 2^16
+        rng = np.random.default_rng(64)
+        cut = [rng.standard_normal(s).astype(np.float32)
+               for s in ((64, 256), (256,), (64, 256), (256,), (256,))]
+        sides = [fr.fused_bias_dropout_residual_ln(
+            *(torch.from_numpy(a).to(dev) for a in cut), p=0.3,
+            training=True, seed=0xDEADBEEF).cpu() for dev in ("cpu", self.dev)]
+        cut_err = (sides[0] - sides[1]).abs().max().item()
+        rows = torch.arange(65500, 65600)
+        hash_same = torch.equal(
+            fr.hash_uniform(0xDEADBEEF, rows, 256),
+            fr.hash_uniform(0xDEADBEEF, rows.to(self.dev), 256).cpu())
+        line = dict(layer="FusedBiasDropoutResidualLayerNorm(2048, p=0.1)",
+                    x=[B, S, d], dtype="bf16", steps=3,
+                    step_ms=[round(t, 3) for t in times],
+                    grad_norms=norms, fresh_masks=fresh,
+                    same_masks_after_seed=torch.equal(again, outs[0]),
+                    changed_share_between_steps=round(kept, 4),
+                    max_grad_rel_err_vs_plain_autograd=grad_err,
+                    grad_tol=1e-6,
+                    max_fwd_err_vs_plain=fwd_err, max_eval_err_vs_plain=eval_err,
+                    tol=FLN_TOL["bf16"], cpu_vs_card_f32_cut=cut_err,
+                    cpu_vs_card_tol=1e-5, hash_bits_equal=hash_same)
+        log("[incubate] " + json.dumps(line))
+        if not (fresh and line["same_masks_after_seed"] and hash_same
+                and grad_err <= 1e-6 and fwd_err <= FLN_TOL["bf16"]
+                and eval_err <= FLN_TOL["bf16"] and cut_err <= 1e-5):
+            raise AssertionError(f"incubate checks failed: {line}")
+        paddle_tpu_torch.seed(0)
+        del x, res, gout, outs, grads, leaves, ref
+        torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- sampling
+    def _sampling_profile(self, cfg, params, prompt, samp, steps=8):
+        """Where a sampled decode step's time goes, beside a greedy one:
+        ``steps`` steps of generate()'s loop (split, sample_logits,
+        decode_one_token) under torch.profiler: wall with and without the
+        profiler, device busy time, kernel launches a step, the host's
+        synchronising CUDA calls and the operators with the most host
+        time."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from paddle_tpu_torch.framework import prng
+        from paddle_tpu_torch.models import gpt
+        B, P = prompt.shape
+        tokens = torch.as_tensor(prompt, device=self.dev)
+        kc, vc = gpt.init_kv_cache(cfg, B, P + 128, device=self.dev)
+        first = gpt.prefill(params, cfg, tokens, kc, vc)[0]
+
+        def run(kw):
+            key, logits = prng.PRNGKey(0), first
+            for i in range(steps):
+                key, sub = prng.split(key)
+                tok = gpt.sample_logits(logits, sub, **kw)
+                logits, _, _ = gpt.decode_one_token(params, cfg, tok, P + i,
+                                                    kc, vc)
+
+        cuda = torch.autograd.DeviceType.CUDA
+        sync_calls = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                      "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
+        for tag, kw in (("greedy", dict(temperature=0.0)),
+                        ("sampled", {k: v for k, v in samp.items()
+                                     if k != "seed"})):
+            run(kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run(kw)
+                torch.cuda.synchronize()
+            busy_ms, _ = _device_rows(torch, prof, 0)
+            rows = prof.key_averages()
+            launches = sum(e.count for e in rows
+                           if getattr(e, "device_type", None) == cuda)
+            syncs = {e.key: e.count for e in rows if e.key in sync_calls}
+            host = sorted((e for e in rows if e.key.startswith("aten::")),
+                          key=lambda e: e.self_cpu_time_total,
+                          reverse=True)[:6]
+            log("[profile] " + json.dumps(dict(
+                region=f"{tag} decode, {steps} steps of generate()'s loop",
+                batch=B, prompt=P, wall_ms_unprofiled=round(plain_ms, 3),
+                ms_per_step=round(plain_ms / steps, 3),
+                device_busy_ms=round(busy_ms, 3),
+                device_idle_share=round(1 - busy_ms / plain_ms, 4),
+                kernel_launches_per_step=launches / steps,
+                host_sync_calls=syncs,
+                top_host=[dict(op=e.key, self_cpu_ms=round(
+                    e.self_cpu_time_total / 1e3, 3), calls=e.count)
+                    for e in host])))
+        del kc, vc
+
+    def phase_sampling(self):
+        """Sampled decoding with the threefry PRNG: the known answers and
+        bits/uniform on the card against the CPU, one categorical's launches
+        and time, a full-width sampled generate() beside the greedy one, the
+        12-request replay sampled, and sampled streams at 2 layers f32 equal
+        on the CPU and the card."""
+        torch = self.torch
+        import numpy as np
+        from torch.profiler import ProfilerActivity, profile
+        from paddle_tpu_torch.framework import prng
+        from paddle_tpu_torch.models import gpt
+        M = 0xFFFFFFFF
+        known = [((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+                 ((M, M), (M, M), (0x1CB996FC, 0xBB002BE7)),
+                 ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+                  (0xC4923A9C, 0x483DF7A0))]
+        for key, (c0, c1), want in known:
+            y = prng.threefry2x32(key, torch.tensor([c0], device=self.dev),
+                                  torch.tensor([c1], device=self.dev))
+            if (int(y[0]), int(y[1])) != want:
+                raise AssertionError(f"threefry{key, (c0, c1)} on the card: "
+                                     f"{int(y[0]):#x}, {int(y[1]):#x}")
+        V, B = 50304, 4
+        key = prng.PRNGKey(7)
+        same_bits = torch.equal(prng.bits(key, (B, V), self.dev).cpu(),
+                                prng.bits(key, (B, V), "cpu"))
+        same_u = torch.equal(
+            prng.uniform(key, (B, V), 1e-38, 1.0, self.dev).cpu().view(
+                torch.int32),
+            prng.uniform(key, (B, V), 1e-38, 1.0, "cpu").view(torch.int32))
+        logits = torch.randn((B, V), device=self.dev)
+        prng.categorical(key, logits)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prng.categorical(key, logits)
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        launches = sum(e.count for e in prof.key_averages()
+                       if getattr(e, "device_type", None) == cuda)
+        cat_ms = self.time_ms(lambda: prng.categorical(key, logits), iters=20)
+        cat_dev = self.device_ms(lambda: prng.categorical(key, logits))
+        log("[sampling] " + json.dumps(dict(
+            threefry_known_answers_on_card=True, bits_equal_cpu_card=same_bits,
+            uniform_equal_cpu_card=same_u, categorical_shape=[B, V],
+            categorical_kernel_launches=launches, categorical_ms=cat_ms,
+            categorical_device_ms=cat_dev)))
+        if not (same_bits and same_u and launches > 0):
+            raise AssertionError("threefry bits differ between CPU and card")
+        # full width: generate() sampled beside greedy, in this call
+        cfg, params = self._model()
+        L = cfg.n_layers
+        prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                   (4, 256))
+        N, samp = 32, dict(temperature=0.8, top_k=50, seed=0)
+        gpt.generate(params, cfg, prompt[:2, :16], 2, device=self.dev, **samp)
+        per_tok = {}
+        for tag, kw in (("greedy", {}), ("sampled", samp)):
+            t = []
+            self._zero_counts()
+            for n in (1, N):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = gpt.generate(params, cfg, prompt, n, device=self.dev,
+                                   **kw)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter() - t0)
+            counts = self._read_counts(f"sampling generate {tag}", (
+                "flash_attention_fwd", "decode_attention"))
+            self._expect_counts(f"sampling generate {tag}", counts, {
+                "flash_attention_fwd": 2 * L,
+                "decode_attention": L * (N - 1)})
+            if out.shape != (4, 256 + N) or not bool(
+                    ((out >= 0) & (out < cfg.vocab_size)).all()):
+                raise AssertionError(f"{tag} generate output bad")
+            per_tok[tag] = (t[1] - t[0]) / (N - 1) * 1e3
+            if tag == "sampled":
+                again = gpt.generate(params, cfg, prompt, N, device=self.dev,
+                                     **kw)
+                if not torch.equal(out, again):
+                    raise AssertionError("sampled generate did not repeat")
+        log("[sampling] " + json.dumps(dict(
+            path="generate", batch=4, prompt=256, new_tokens=N, **samp,
+            decode_ms_per_token_greedy=per_tok["greedy"],
+            decode_ms_per_token_sampled=per_tok["sampled"],
+            sampled_minus_greedy_ms=per_tok["sampled"] - per_tok["greedy"])))
+        self._sampling_profile(cfg, params, prompt, samp)
+        # the server's replay, sampled
+        from paddle_tpu_torch.inference import GenerationSession
+        sess = GenerationSession(params, cfg, max_slots=8, max_prompt_len=384,
+                                 max_len=512, device=self.dev, **samp)
+        _, line, counts = self._replay("sampled bf16 chunk=128", sess,
+                                       self._server_trace(cfg), 128)
+        self._expect_tick_counts(line["run"], counts, line, L,
+                                 "decode_attention")
+        del sess
+        torch.cuda.empty_cache()
+        # 2 layers, f32: the CPU and the card draw the same streams
+        pcfg = gpt.gpt3_1p3b(n_layers=2, dtype=torch.float32)
+        pprompt = np.random.default_rng(8).integers(0, pcfg.vocab_size,
+                                                    (2, 64))
+        streams = [gpt.generate(gpt.init_params(pcfg, seed=0, device=dev),
+                                pcfg, pprompt, 16, device=dev, **samp).cpu()
+                   for dev in ("cpu", self.dev)]
+        same = torch.equal(streams[0], streams[1])
+        log("[sampling] " + json.dumps(dict(
+            path="generate, gpt3_1p3b(n_layers=2, f32), B=2 x P=64 + 16",
+            **samp, cpu_and_card_streams_equal=same)))
+        if not same:
+            raise AssertionError("sampled streams differ between the CPU "
+                                 "and the card")
+
 
 def gpu_line() -> str:
     return subprocess.run(
@@ -1794,6 +2344,7 @@ def main(argv=None) -> int:
             "library_ms")
     kernels = []
     csrc, pallas = "paddle_tpu_torch/csrc/", "paddle_tpu/ops/pallas/"
+    triton_src = "paddle_tpu_torch/ops/kernels/primitives_triton.py"
     for name, src, rep in (
             ("flash_attention_fwd", "flash_attention_fwd.cu",
              "flash_attention.py:55"),
@@ -1810,9 +2361,15 @@ def main(argv=None) -> int:
             ("decode_attention_paged", "decode_attention.cu",
              "decode_attention.py:362"),
             ("decode_attention_paged_q8", "decode_attention.cu",
-             "decode_attention.py:371")):
+             "decode_attention.py:371"),
+            ("fused_residual_ln", "fused_residual_ln.cu",
+             "fused_residual_ln.py:60"),
+            ("elementwise_kernel", triton_src, "primitives.py:101"),
+            ("reduce_kernel", triton_src, "primitives.py:134")):
         row = dict(smoke.rows.get(name, {}))
-        row.update(name=name, route="cuda", source=csrc + src,
+        route = "triton" if src == triton_src else "cuda"
+        row.update(name=name, route=route,
+                   source=src if route == "triton" else csrc + src,
                    replaces=pallas + rep)
         row.setdefault("launches", 0)
         kernels.append({k: row.get(k) for k in keys})

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..framework import prng
 from ..models.gpt import (GPTConfig, _wq_bits, check_params_device,
                           check_prefill_mode, decode_one_token, init_kv_cache,
                           kv_data, pad_cache_len, prefill, prefill_suffix,
@@ -162,7 +163,9 @@ class GenerationSession:
                                   device=dev)
         self._logits = torch.zeros((self.max_slots, cfg.vocab_size),
                                    dtype=torch.float32, device=dev)
-        self._gen = torch.Generator(device=dev).manual_seed(int(seed))
+        # one threefry key for the session, split once a decode tick (a
+        # host pair: splitting launches nothing)
+        self._key = prng.PRNGKey(int(seed))
 
         # ---- host mirrors (no device sync per step) ----
         self._occupied = [False] * self.max_slots
@@ -715,8 +718,8 @@ class GenerationSession:
         # rows at the LOGICAL cache limit freeze like eos rows
         can = self._activ & (self._pos < self.max_len)
         temperature, top_k, top_p = self._sampling
-        tok = sample_logits(self._logits, self._gen, temperature, top_k,
-                            top_p)
+        self._key, sub = prng.split(self._key)
+        tok = sample_logits(self._logits, sub, temperature, top_k, top_p)
         tok = torch.where(can, tok, torch.full_like(tok, self.pad_token_id))
         still = can
         if self.eos_token_id is not None:

@@ -54,6 +54,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..framework import prng
 from ..ops.kernels.decode_attention import decode_attention, paged_view
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.fused_adamw import (fused_adamw_update, tree_flatten,
@@ -819,8 +820,12 @@ def filtered_probs(logits, temperature, top_k=0, top_p=0.0):
     <= 0 get the one-hot of their argmax. ``temperature`` may be a
     scalar or a per-row tensor."""
     lg = logits.float()
-    t = torch.as_tensor(temperature, dtype=torch.float32,
-                        device=lg.device).expand(lg.shape[:-1])
+    if torch.is_tensor(temperature):
+        t = temperature.to(device=lg.device, dtype=torch.float32).expand(
+            lg.shape[:-1])
+    else:   # a fill: a host-to-device copy would wait for the card
+        t = torch.full(lg.shape[:-1], float(temperature),
+                       dtype=torch.float32, device=lg.device)
     greedy = t <= 0.0
     lg = lg / torch.where(greedy, torch.ones_like(t), t)[..., None]
     if top_k > 0 or top_p > 0.0:
@@ -845,15 +850,16 @@ def filtered_probs(logits, temperature, top_k=0, top_p=0.0):
     return torch.where(greedy[..., None], onehot, probs)
 
 
-def sample_logits(logits, generator=None, temperature=0.0, top_k=0,
-                  top_p=0.0):
-    """Greedy argmax at temperature 0, else one draw per row from
-    :func:`filtered_probs` with ``generator`` (a torch.Generator on the
-    logits' device). torch's draws differ from jax.random's."""
+def sample_logits(logits, key=None, temperature=0.0, top_k=0, top_p=0.0):
+    """Greedy argmax at temperature 0 (``key`` unused, nothing launched
+    beyond the argmax), else one draw per row from :func:`filtered_probs`
+    with the threefry ``key`` (a :mod:`..framework.prng` pair):
+    ``categorical(key, log(probs))``, the reference's draw bit for bit.
+    log(0) = -inf marks filtered-out tokens."""
     if temperature == 0.0:
         return logits.argmax(-1)
     probs = filtered_probs(logits, temperature, top_k, top_p)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return prng.categorical(key, torch.log(probs))
 
 
 @torch.no_grad()
@@ -879,10 +885,11 @@ def generate(params, cfg: GPTConfig, prompt_tokens, max_new_tokens=32,
     kc, vc = init_kv_cache(cfg, B, pad_cache_len(P + max_new_tokens,
                                                  cfg.decode_block), dev)
     logits, kc, vc = prefill(params, cfg, prompt, kc, vc, mode=mode)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    key = prng.PRNGKey(seed)
     toks = []
     for i in range(max_new_tokens):
-        tok = sample_logits(logits, gen, temperature, top_k, top_p)
+        key, sub = prng.split(key)
+        tok = sample_logits(logits, sub, temperature, top_k, top_p)
         toks.append(tok)
         if i + 1 < max_new_tokens:   # the last token needs no forward
             logits, kc, vc = decode_one_token(params, cfg, tok, P + i, kc, vc)

@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 
 from paddle_tpu.models import gpt as jg
+from paddle_tpu_torch.framework import prng
 from paddle_tpu_torch.models import gpt as tg
 
 torch.set_num_threads(1)
@@ -172,19 +173,26 @@ def test_filtered_probs_matches(temp, top_k, top_p):
 def test_sampling_respects_filter_and_seed(models):
     logits = torch.from_numpy(np.random.default_rng(5).standard_normal(
         (4, 50)).astype(np.float32))
-    g = torch.Generator().manual_seed(0)
-    draws = torch.stack([tg.sample_logits(logits, g, 1.0, top_k=3)
-                         for _ in range(30)])
+    keys = prng.split(prng.PRNGKey(0), 30)
+    draws = torch.stack([tg.sample_logits(logits, k, 1.0, top_k=3)
+                         for k in keys])
     top3 = logits.topk(3).indices
     assert all((draws[:, b:b + 1] == top3[b]).any(-1).all()
                for b in range(4))
     assert torch.equal(tg.sample_logits(logits), logits.argmax(-1))
-    _, _, tcfg, tp = models
+    # each draw is the reference's draw with the same threefry key
+    ref = np.stack([np.asarray(jg.sample_logits(
+        jnp.asarray(logits.numpy()), jnp.asarray(k, jnp.uint32), 1.0,
+        top_k=3)) for k in keys])
+    np.testing.assert_array_equal(draws.numpy(), ref)
+    jcfg, jp, tcfg, tp = models
     a = tg.generate(tp, tcfg, _prompt(6, (2, 4)), 6, temperature=1.0,
                     top_k=8, seed=3, device="cpu")
     b = tg.generate(tp, tcfg, _prompt(6, (2, 4)), 6, temperature=1.0,
                     top_k=8, seed=3, device="cpu")
     assert torch.equal(a, b)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(jg.generate(
+        jp, jcfg, _prompt(6, (2, 4)), 6, temperature=1.0, top_k=8, seed=3)))
 
 
 @pytest.mark.parametrize("mode", ["full", "chunked"])

@@ -231,6 +231,6 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.build(["decode_attention"])
     assert _build.sources() == ["decode_attention", "flash_attention_bwd",
                                 "flash_attention_fwd", "fused_adamw",
-                                "quant_matmul"]
+                                "fused_residual_ln", "quant_matmul"]
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         _build.check(1, "decode_attention")

@@ -1,6 +1,8 @@
 """The port stands alone: no module under paddle_tpu_torch/ imports jax or
 paddle_tpu, the package imports, serves (fp, quantized, and paged with
-prefix reuse) and trains with both blocked, and every entry point defaults to the CUDA device and raises
+prefix reuse; greedy and sampled), trains, and runs the fused
+bias-dropout-residual LayerNorm layer and the primitive factories with both
+blocked, and every entry point defaults to the CUDA device and raises
 without one."""
 import ast
 import subprocess
@@ -84,6 +86,28 @@ def test_package_runs_with_jax_blocked():
         assert all(len(r.output) == 3 for r in reqs)
         assert eng.metrics()["prefix_cache"]["hits"] >= 2
         assert sum(r.prefix_hit_tokens for r in reqs) >= 8
+        import paddle_tpu_torch
+        from paddle_tpu_torch.framework import prng
+        from paddle_tpu_torch.incubate.nn import (
+            FusedBiasDropoutResidualLayerNorm)
+        from paddle_tpu_torch.ops.kernels.primitives import (
+            elementwise_kernel, reduce_kernel)
+        s1 = gpt.generate(params, cfg, prompt, 4, temperature=0.8, top_k=5,
+                          seed=1, device="cpu")
+        assert torch.equal(s1, gpt.generate(params, cfg, prompt, 4,
+                                            temperature=0.8, top_k=5, seed=1,
+                                            device="cpu"))
+        assert int(prng.bits(prng.PRNGKey(0), (), "cpu")) == 0xF29A4FA7
+        layer = FusedBiasDropoutResidualLayerNorm(16, 0.2, device="cpu")
+        paddle_tpu_torch.seed(3)
+        x = torch.randn(2, 3, 16)
+        y = layer(x, x)
+        paddle_tpu_torch.seed(3)
+        assert torch.equal(y, layer(x, x)) and y.shape == (2, 3, 16)
+        y.sum().backward()
+        sq = elementwise_kernel(lambda v: v * v, 8)(x)
+        assert torch.allclose(reduce_kernel(torch.sum, 0.0, 8)(sq),
+                              (x * x).sum())
         assert not any(m and m.startswith(("jax", "paddle_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("OK")
@@ -96,6 +120,8 @@ def test_package_runs_with_jax_blocked():
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from paddle_tpu_torch import resolve_device
+    from paddle_tpu_torch.framework import prng
+    from paddle_tpu_torch.incubate.nn import FusedBiasDropoutResidualLayerNorm
     from paddle_tpu_torch.inference import GenerationSession
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.ops.kernels.fused_adamw import fused_adamw_update
@@ -137,6 +163,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                                                 np.zeros((1, 2)), 1),
         "GenerationSession(w8kv8)": lambda: GenerationSession(qparams, qcfg,
                                                               1),
+        "FusedBiasDropoutResidualLayerNorm": lambda:
+            FusedBiasDropoutResidualLayerNorm(8),
+        "prng.bits": lambda: prng.bits(prng.PRNGKey(0), (2, 3)),
+        "prng.bits(scalar)": lambda: prng.bits(prng.PRNGKey(0)),
+        "prng.uniform": lambda: prng.uniform(prng.PRNGKey(0), (2, 3)),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):
