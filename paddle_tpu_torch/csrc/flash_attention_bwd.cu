@@ -15,36 +15,60 @@
 // each of s, dp and dq in one kernel and s, dp, dv and dk in the other (14*D
 // operations per pair against the 10*D of a single fused pass), against
 // 8 [*, D] tensors of bytes: at training lengths it is bound by operations.
-// This first version does them on the CUDA cores in f32 (no wgmma, no TMA):
-// it is right and simple, and far from the 989 TFLOP/s bf16 tensor-core
-// peak. What the design does about the bound:
-//   - the TPU's two kernels stay two kernels, so neither needs atomics: the
-//     dq kernel has one block per (q tile, head, batch) and loops over k
-//     tiles up to the causal limit; the dk/dv kernel has one block per
-//     (k tile, head, batch) and loops over the q tiles from the first one
-//     that can see its keys. The loop inside the block replaces the TPU's
-//     sequential grid axis; blocks run in any order;
-//   - p is recomputed per tile from the one-per-row LSE, so no [Sq, Skv]
-//     tensor reaches device memory; p and ds stay f32 in shared memory;
-//   - 256 threads, each owning 4 rows x 4 columns of the score tile and
-//     4 rows x D/16 columns of each accumulator: the dk/dv kernel's two
-//     [64, D] f32 accumulators take 64 registers a thread at D = 128, which
-//     128 threads could not hold without spilling;
-//   - masked positions (above the diagonal, past Sq or past Skv) are
-//     predicated to an exact 0; any Sq and Skv, ragged tiles zero-filled.
+// The TPU's two kernels stay two kernels, so neither needs atomics and the
+// result is deterministic: the dq kernel has one block per (q tile, head,
+// batch) and loops over k tiles up to the causal limit; the dk/dv kernel
+// has one block per (k tile, head, batch) and loops over the q tiles from
+// the first one that can see its keys. p is recomputed per tile from the
+// one-per-row LSE, so no [Sq, Skv] tensor reaches device memory. Masked
+// positions (above the diagonal, past Sq or past Skv) are an exact 0.
+//
+// Two routes, chosen by dtype (a dispatch, not a fallback):
+//
+// bf16 — "wgmma": every product on the tensor cores (wgmma, f32
+//   accumulators in registers), every tile in by TMA. A block is two
+//   consumer warpgroups (64 rows each) and one producer warpgroup. The
+//   block keeps its own 128 rows' operands (q and dO, or k and v) in shared
+//   memory and the producer streams the other pair, shared by both
+//   consumers, through a 2-stage ring of 64-row tiles, each
+//   [64 rows][64 columns] box 128-byte swizzled by TMA to match the wgmma
+//   descriptors (D = 128 is two boxes side by side; D = 16 and 32 are one
+//   box zero-filled past D). The tensor maps are 3-D (D, S, B*H), so a
+//   ragged last tile zero-fills at its own head's end. Per k tile the dq
+//   kernel runs S = q k^T and dP = dO v^T (both operands from shared
+//   memory), forms p and ds in registers, rounds ds to bf16 and runs
+//   dq += ds k with ds as the register A operand: the f32 accumulator
+//   fragment of one wgmma, packed to bf16x2, is the A fragment of the next,
+//   and k (MN-major there) is read through the transpose bit. The dk/dv
+//   kernel runs S^T = k q^T and dP^T = v dO^T, reads lse and di per column
+//   from the stage (the producer warp stages them), and accumulates
+//   dv += bf16(p^T) dO and dk += bf16(ds^T) q the same way. No p or ds
+//   tile touches shared memory. setmaxnreg gives the consumers 232
+//   registers (dk and dv take 128 a thread at D = 128) and the producer
+//   32, out of the 168 a thread the block launches with. Only tiles that
+//   cross the diagonal or a ragged edge are masked; a warpgroup skips a
+//   tile wholly above its part of the diagonal.
+//   Blocks are ordered so that the longest causal loops launch first.
+//   Numerics: p and ds are rounded to bf16 before the three products that
+//   consume them (the plain versions keep them f32).
+// f32 — "cuda-core f32": the first version's kernels, f32 math on the CUDA
+//   cores (a tensor-core f32 product would be TF32, three decimal digits).
+//   256 threads, each owning 4 rows x 4 columns of the score tile and 4
+//   rows x D/16 columns of each accumulator; p and ds stay f32 in shared
+//   memory.
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-namespace {
+namespace cuda_core {
 
 constexpr int BQ = 64;     // query rows per tile
 constexpr int BK = 64;     // keys per tile
 constexpr int NT = 256;    // threads: 16 row groups x 16 column groups
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // rows [r0, r0 + rows) of a [S, D] matrix into a [rows][D + 1] f32 tile,
 // zero past S
@@ -389,11 +413,720 @@ cudaError_t dispatch_dkv(const void* q, const void* k, const void* v,
   }
 }
 
-}  // namespace
+}  // namespace cuda_core
+
+namespace wgmma_route {
+
+constexpr int TILE = 64;                    // rows of every tile = wgmma M
+constexpr int BOX_BYTES = TILE * 64 * 2;    // one [64][64] bf16 box, 8 KB
+constexpr int STAGES = 2;
+constexpr int WGS = 2;                      // consumer warpgroups
+constexpr int CONSUMERS = 128 * WGS;
+constexpr int THREADS = CONSUMERS + 128;    // and one producer warpgroup
+constexpr int BLOCK_ROWS = TILE * WGS;      // rows a block owns
+constexpr int CONSUMER_REGS = 232;
+constexpr int PRODUCER_REGS = 32;   // 24 spills the dk/dv producer
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one [64][64] box of a 3-D map at (column c0, row c1, head c2)
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout SW128.
+// K-major [rows][64] boxes: SBO = 8 rows = 1024 bytes, a k step of 16 adds
+// 32 bytes inside the swizzle atom (LBO unused). MN-major [k rows][64]
+// boxes: SBO = 8 k rows = 1024 bytes, LBO = the next 64 MN columns (the
+// next box), a k step of 16 adds 16 rows = 2048 bytes.
+// The volatile move keeps each descriptor where it is used: hoisted out of
+// the tile loop, the loop-invariant ones would hold 2 registers each.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  uint32_t a;
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(a) : "r"(addr));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from touching accumulators across an async wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 2^x in one instruction (relative error 2^-22, results below 2^-126
+// flushed to 0): far inside the bf16 rounding p gets next
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// wgmma m64nNk16, f32 += bf16 x bf16. ss: A and B from shared memory, both
+// K-major. rs: A from registers (4 bf16x2 a thread), B MN-major (the
+// transpose bit). The accumulator of m64nN holds, in thread t of the
+// warpgroup (warp w, lane l), d[i] at row 16w + l/4 + 8*((i >> 1) & 1) and
+// column 8*(i/4) + 2*(l%4) + (i&1).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// S (or S^T) = A_tile B_tile^T over depth D, both [64][D] K-major tiles
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[32], uint32_t a,
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+    wgmma_ss_n64(s, sw128_desc(a + off, 16, 1024),
+                 sw128_desc(b + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc += A (64 x 64, bf16 fragments in registers) @ B, B a [64][D] tile
+// read MN-major (N = 64 per box; D = 128 spans two boxes)
+// one k step of 16: A is 4 registers, b the step's first row of B
+template <int NCH>
+__device__ __forceinline__ void accumulate_step(float (&acc)[32 * NCH],
+                                                const uint32_t* a,
+                                                uint32_t b) {
+  const uint64_t desc = sw128_desc(b, BOX_BYTES, 1024);
+  if constexpr (NCH == 2)
+    wgmma_rs_n128(acc, a, desc);
+  else
+    wgmma_rs_n64(acc, a, desc);
+}
+
+template <int NCH>
+__device__ __forceinline__ void accumulate(float (&acc)[32 * NCH],
+                                           const uint32_t (&a)[16],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    accumulate_step<NCH>(acc, a + 4 * kk, b + kk * 2048);
+}
+
+template <int D>
+__host__ __device__ constexpr int n_boxes() { return D == 128 ? 2 : 1; }
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return 1024 + (2 * WGS + 2 * STAGES) * n_boxes<D>() * BOX_BYTES +
+         (1 + 2 * STAGES) * sizeof(uint64_t);
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return 1024 + (2 * WGS + 2 * STAGES) * n_boxes<D>() * BOX_BYTES +
+         STAGES * 2 * TILE * sizeof(float) +
+         (1 + 2 * STAGES) * sizeof(uint64_t);
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
+// grid (B*H, 128-row q blocks); the last q blocks (the longest causal
+// loops) launch first. Consumer warpgroup w owns q rows q0 + 64w.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
+              const __grid_constant__ CUtensorMap mk,
+              const __grid_constant__ CUtensorMap mv,
+              const __grid_constant__ CUtensorMap mdo,
+              const float* __restrict__ lse, const float* __restrict__ di,
+              __nv_bfloat16* __restrict__ dq, int Sq, int Skv, float scale,
+              int causal) {
+  constexpr int NCH = n_boxes<D>();
+  constexpr int STAGE_BYTES = 2 * NCH * BOX_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align_1024(smem_raw);         // [WGS][NCH] boxes
+  uint8_t* dos = qs + WGS * NCH * BOX_BYTES;  // [WGS][NCH] boxes
+  uint8_t* ring = dos + WGS * NCH * BOX_BYTES;  // stage: k boxes, v boxes
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES);
+  uint64_t* qbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BLOCK_ROWS;
+  const int offset = Skv - Sq;
+  const int k_end =
+      causal ? min(Skv, min(q0 + BLOCK_ROWS, Sq) + offset) : Skv;
+  const int n_tiles = (k_end + TILE - 1) / TILE;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // producer: q and dO once, then k and v tiles through the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(qbar, 2 * WGS * NCH * BOX_BYTES);
+      for (int w = 0; w < WGS; ++w)
+        for (int c = 0; c < NCH; ++c) {
+          const int box = (w * NCH + c) * BOX_BYTES;
+          tma_load(qs + box, &mq, qbar, 64 * c, q0 + TILE * w, bh);
+          tma_load(dos + box, &mdo, qbar, 64 * c, q0 + TILE * w, bh);
+        }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES, n = t / STAGES;
+        if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
+        uint8_t* ks = ring + s * STAGE_BYTES;
+        mbar_expect_tx(&full[s], STAGE_BYTES);
+        for (int c = 0; c < NCH; ++c) {
+          tma_load(ks + c * BOX_BYTES, &mk, &full[s], 64 * c, t * TILE, bh);
+          tma_load(ks + (NCH + c) * BOX_BYTES, &mv, &full[s], 64 * c,
+                   t * TILE, bh);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int wg = threadIdx.x / 128;
+    const int warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+    const int qw = q0 + TILE * wg;          // this warpgroup's first row
+    const int ra = 16 * warp + lane / 4;    // this thread's rows: ra, ra + 8
+    const int cl = 2 * (lane % 4);          // its first column in each n8
+    // the warpgroup's last live row sees keys up to k_last
+    const int k_last = min(qw + TILE, Sq) - 1 + offset;
+    const float scale2 = scale * LOG2E;
+    float lse2[2], dir[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = qw + ra + 8 * h;
+      const long long at = static_cast<long long>(bh) * Sq + row;
+      lse2[h] = row < Sq ? lse[at] * LOG2E : 0.f;
+      dir[h] = row < Sq ? di[at] : 0.f;
+    }
+    float acc[32 * NCH];
+#pragma unroll
+    for (int i = 0; i < 32 * NCH; ++i) acc[i] = 0.f;
+    const uint32_t q_addr = smem_u32(qs + wg * NCH * BOX_BYTES);
+    const uint32_t do_addr = smem_u32(dos + wg * NCH * BOX_BYTES);
+    mbar_wait(qbar, 0);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % STAGES, n = t / STAGES;
+      const int k0 = t * TILE;
+      mbar_wait(&full[s], n & 1);
+      // a tile wholly above this warpgroup's diagonal (or rows past Sq)
+      // adds nothing: release it untouched
+      if (qw >= Sq || (causal && k0 > k_last)) {
+        mbar_arrive(&empty[s]);
+        continue;
+      }
+      const uint32_t k_addr = smem_u32(ring + s * STAGE_BYTES);
+      const uint32_t v_addr = k_addr + NCH * BOX_BYTES;
+      float sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+      wgmma_fence();
+      scores<D>(sc, q_addr, k_addr);
+      scores<D>(dp, do_addr, v_addr);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      const bool edge =
+          (causal && k0 + TILE - 1 > qw + offset) || k0 + TILE > Skv;
+      uint32_t ds[16];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int h = (i >> 1) & 1;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p = exp2_approx(sc[i + e] * scale2 - lse2[h]);
+          if (edge) {
+            const int col = k0 + 8 * (i / 4) + cl + e;
+            const int row = qw + ra + 8 * h;
+            if (col >= Skv || (causal && row + offset < col)) p = 0.f;
+          }
+          v[e] = p * (dp[i + e] - dir[h]) * scale;
+        }
+        ds[i / 2] = pack_bf16(v[0], v[1]);
+      }
+      wgmma_fence();
+      accumulate<NCH>(acc, ds, k_addr);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      mbar_arrive(&empty[s]);
+    }
+
+    __nv_bfloat16* out = dq + static_cast<long long>(bh) * Sq * D;
+#pragma unroll
+    for (int i = 0; i < 32 * NCH; i += 2) {
+      const int row = qw + ra + 8 * ((i >> 1) & 1);
+      const int col = 8 * (i / 4) + cl;
+      if (row < Sq && col < D)
+        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * D +
+                                           col) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
+  }
+}
+
+// grid (B*H, 128-key blocks); the first key blocks (the longest causal
+// loops) launch first. Consumer warpgroup w owns keys k0 + 64w.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq,
+               const __grid_constant__ CUtensorMap mk,
+               const __grid_constant__ CUtensorMap mv,
+               const __grid_constant__ CUtensorMap mdo,
+               const float* __restrict__ lse, const float* __restrict__ di,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+               int Sq, int Skv, float scale, int causal) {
+  constexpr int NCH = n_boxes<D>();
+  constexpr int STAGE_BYTES = 2 * NCH * BOX_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align_1024(smem_raw);         // [WGS][NCH] boxes
+  uint8_t* vs = ks + WGS * NCH * BOX_BYTES;   // [WGS][NCH] boxes
+  uint8_t* ring = vs + WGS * NCH * BOX_BYTES;   // stage: q boxes, dO boxes
+  float* stats = reinterpret_cast<float*>(ring + STAGES * STAGE_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stats + STAGES * 2 * TILE);
+  uint64_t* kvbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BLOCK_ROWS;
+  const int offset = Skv - Sq;
+  // the first query row that sees key k0 is k0 - offset
+  const int q_begin = causal ? max(0, k0 - offset) / TILE * TILE : 0;
+  const int n_tiles = (Sq - q_begin + TILE - 1) / TILE;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);    // the producer's first warp
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // producer: k and v once, then q, dO, lse and di through the ring;
+    // lane 0 of its first warp issues the TMA loads, each lane of that
+    // warp stages two lse and di values
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    const int lane = threadIdx.x - CONSUMERS;
+    if (lane < 32) {
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, 2 * WGS * NCH * BOX_BYTES);
+        for (int w = 0; w < WGS; ++w)
+          for (int c = 0; c < NCH; ++c) {
+            const int box = (w * NCH + c) * BOX_BYTES;
+            tma_load(ks + box, &mk, kvbar, 64 * c, k0 + TILE * w, bh);
+            tma_load(vs + box, &mv, kvbar, 64 * c, k0 + TILE * w, bh);
+          }
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES, n = t / STAGES;
+        if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
+        const int q0 = q_begin + t * TILE;
+        float* st = stats + s * 2 * TILE;
+        for (int r = lane; r < TILE; r += 32) {
+          const int row = q0 + r;
+          const long long at = static_cast<long long>(bh) * Sq + row;
+          st[r] = row < Sq ? lse[at] * LOG2E : 0.f;
+          st[TILE + r] = row < Sq ? di[at] : 0.f;
+        }
+        if (lane == 0) {
+          uint8_t* qt = ring + s * STAGE_BYTES;
+          mbar_expect_tx(&full[s], STAGE_BYTES);
+          for (int c = 0; c < NCH; ++c) {
+            tma_load(qt + c * BOX_BYTES, &mq, &full[s], 64 * c, q0, bh);
+            tma_load(qt + (NCH + c) * BOX_BYTES, &mdo, &full[s], 64 * c, q0,
+                     bh);
+          }
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int wg = threadIdx.x / 128;
+    const int warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+    const int kw = k0 + TILE * wg;          // this warpgroup's first key
+    const int ra = 16 * warp + lane / 4;    // this thread's keys: ra, ra + 8
+    const int cl = 2 * (lane % 4);          // its first query column in an n8
+    const float scale2 = scale * LOG2E;
+    float dk_acc[32 * NCH], dv_acc[32 * NCH];
+#pragma unroll
+    for (int i = 0; i < 32 * NCH; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    const uint32_t k_addr = smem_u32(ks + wg * NCH * BOX_BYTES);
+    const uint32_t v_addr = smem_u32(vs + wg * NCH * BOX_BYTES);
+    mbar_wait(kvbar, 0);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % STAGES, n = t / STAGES;
+      const int q0 = q_begin + t * TILE;
+      mbar_wait(&full[s], n & 1);
+      // a q tile whose rows see none of this warpgroup's keys (or keys
+      // past Skv) adds nothing: release it untouched
+      if (kw >= Skv || (causal && q0 + TILE - 1 + offset < kw)) {
+        mbar_arrive(&empty[s]);
+        continue;
+      }
+      const uint32_t q_addr = smem_u32(ring + s * STAGE_BYTES);
+      const uint32_t do_addr = q_addr + NCH * BOX_BYTES;
+      const float* st = stats + s * 2 * TILE;
+      float sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+      wgmma_fence();
+      scores<D>(sc, k_addr, q_addr);
+      scores<D>(dp, v_addr, do_addr);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      const bool edge = (causal && q0 + offset < kw + TILE - 1) ||
+                        q0 + TILE > Sq || kw + TILE > Skv;
+      // n8 block j holds query columns c, c + 1 of keys ra and ra + 8;
+      // their lse and di are read per block (the compiler barrier keeps
+      // the reads from being hoisted into 32 live registers at once).
+      // Blocks 2kk and 2kk + 1 are the query rows of k step kk: once they
+      // are packed, that step of dv += p^T dO and dk += ds^T q is issued,
+      // so the f32 scores die as they are consumed and the rest of the
+      // tile's elementwise work overlaps the products
+      uint32_t pf[16], dsf[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + cl;
+        const float2 lse2 = *reinterpret_cast<const float2*>(st + c);
+        const float2 di2 = *reinterpret_cast<const float2*>(st + TILE + c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h;
+          const int key = kw + ra + 8 * h;
+          float pv[2], dsv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float p =
+                exp2_approx(sc[i + e] * scale2 - (e ? lse2.y : lse2.x));
+            if (edge) {
+              const int row = q0 + c + e;
+              if (row >= Sq || key >= Skv || (causal && row + offset < key))
+                p = 0.f;
+            }
+            pv[e] = p;
+            dsv[e] = p * (dp[i + e] - (e ? di2.y : di2.x)) * scale;
+          }
+          pf[i / 2] = pack_bf16(pv[0], pv[1]);
+          dsf[i / 2] = pack_bf16(dsv[0], dsv[1]);
+        }
+        asm volatile("" ::: "memory");
+        if (j % 2 == 1) {
+          const int kk = j / 2;
+          wgmma_fence();
+          accumulate_step<NCH>(dv_acc, pf + 4 * kk, do_addr + kk * 2048);
+          accumulate_step<NCH>(dk_acc, dsf + 4 * kk, q_addr + kk * 2048);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      mbar_arrive(&empty[s]);
+    }
+
+    const long long head = static_cast<long long>(bh) * Skv * D;
+#pragma unroll
+    for (int i = 0; i < 32 * NCH; i += 2) {
+      const int key = kw + ra + 8 * ((i >> 1) & 1);
+      const int col = 8 * (i / 4) + cl;
+      if (key < Skv && col < D) {
+        const long long at = head + static_cast<long long>(key) * D + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, without linking libcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a contiguous bf16 [B*H, S, D] as the 3-D map (D, S, B*H) of [64][64]
+// boxes, 128-byte swizzle; rows past S (and columns past D) read as zeros
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int D, int S,
+                     int BH) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(S) * D * 2};
+  const cuuint32_t box[3] = {64, TILE, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// setmaxnreg moves registers inside the block's launch allocation of R a
+// thread: the producer warpgroup gives (R - 32) x 128, the consumers take
+// (232 - R) x 256. A kernel built with too few registers would wait
+// forever in setmaxnreg.inc, so refuse to launch it.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if ((CONSUMER_REGS - attr.numRegs) * CONSUMERS >
+      (attr.numRegs - PRODUCER_REGS) * (THREADS - CONSUMERS))
+    return cudaErrorInvalidConfiguration;
+  return cudaSuccess;
+}
+
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+cudaError_t make_maps(Maps* m, const void* q, const void* k, const void* v,
+                      const void* dout, int BH, int Sq, int Skv, int D) {
+  cudaError_t err;
+  if ((err = make_map(&m->q, q, D, Sq, BH)) != cudaSuccess) return err;
+  if ((err = make_map(&m->k, k, D, Skv, BH)) != cudaSuccess) return err;
+  if ((err = make_map(&m->v, v, D, Skv, BH)) != cudaSuccess) return err;
+  return make_map(&m->dout, dout, D, Sq, BH);
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* di,
+                      void* dq, int B, int H, int Sq, int Skv, float scale,
+                      int causal, cudaStream_t stream) {
+  Maps m;
+  cudaError_t err = make_maps(&m, q, k, v, dout, B * H, Sq, Skv, D);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = dq_smem_bytes<D>();
+  if ((err = prepare(bwd_dq_kernel<D>, smem)) != cudaSuccess) return err;
+  dim3 grid(B * H, (Sq + BLOCK_ROWS - 1) / BLOCK_ROWS);
+  bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
+      m.q, m.k, m.v, m.dout, lse, di, static_cast<__nv_bfloat16*>(dq), Sq,
+      Skv, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* di,
+                       void* dk, void* dv, int B, int H, int Sq, int Skv,
+                       float scale, int causal, cudaStream_t stream) {
+  Maps m;
+  cudaError_t err = make_maps(&m, q, k, v, dout, B * H, Sq, Skv, D);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = dkv_smem_bytes<D>();
+  if ((err = prepare(bwd_dkv_kernel<D>, smem)) != cudaSuccess) return err;
+  dim3 grid(B * H, (Skv + BLOCK_ROWS - 1) / BLOCK_ROWS);
+  bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
+      m.q, m.k, m.v, m.dout, lse, di, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), Sq, Skv, scale, causal);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_dq(const void* q, const void* k, const void* v,
+                        const void* dout, const float* lse, const float* di,
+                        void* dq, int B, int H, int Sq, int Skv, int D,
+                        float scale, int causal, cudaStream_t s) {
+  switch (D) {
+    case 16: return launch_dq<16>(q, k, v, dout, lse, di, dq, B, H, Sq, Skv, scale, causal, s);
+    case 32: return launch_dq<32>(q, k, v, dout, lse, di, dq, B, H, Sq, Skv, scale, causal, s);
+    case 64: return launch_dq<64>(q, k, v, dout, lse, di, dq, B, H, Sq, Skv, scale, causal, s);
+    case 128: return launch_dq<128>(q, k, v, dout, lse, di, dq, B, H, Sq, Skv, scale, causal, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_dkv(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse, const float* di,
+                         void* dk, void* dv, int B, int H, int Sq, int Skv,
+                         int D, float scale, int causal, cudaStream_t s) {
+  switch (D) {
+    case 16: return launch_dkv<16>(q, k, v, dout, lse, di, dk, dv, B, H, Sq, Skv, scale, causal, s);
+    case 32: return launch_dkv<32>(q, k, v, dout, lse, di, dk, dv, B, H, Sq, Skv, scale, causal, s);
+    case 64: return launch_dkv<64>(q, k, v, dout, lse, di, dk, dv, B, H, Sq, Skv, scale, causal, s);
+    case 128: return launch_dkv<128>(q, k, v, dout, lse, di, dk, dv, B, H, Sq, Skv, scale, causal, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wgmma_route
 
 // q, dout, dq: [B, H, Sq, D]; k, v: [B, H, Skv, D], contiguous, one dtype
-// (is_bf16 = 1 for bf16, 0 for f32); lse, di: [B, H, Sq] f32.
-// Returns the cudaError_t of the launch (0 on success).
+// (is_bf16 = 1 for bf16: the wgmma route; 0 for f32: the CUDA-core route);
+// lse, di: [B, H, Sq] f32. Returns the cudaError_t of the launch (0 on
+// success; 500 when the driver has no cuTensorMapEncodeTiled, 716 when a
+// bf16 pointer is not 16-byte aligned, 9 when the kernel was built with too
+// few registers for setmaxnreg).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* di,
@@ -404,8 +1137,8 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
   if (is_bf16)
-    return (int)dispatch_dq<__nv_bfloat16>(q, k, v, dout, l, d, dq, B, H, Sq, Skv, D, scale, causal, s);
-  return (int)dispatch_dq<float>(q, k, v, dout, l, d, dq, B, H, Sq, Skv, D, scale, causal, s);
+    return (int)wgmma_route::dispatch_dq(q, k, v, dout, l, d, dq, B, H, Sq, Skv, D, scale, causal, s);
+  return (int)cuda_core::dispatch_dq<float>(q, k, v, dout, l, d, dq, B, H, Sq, Skv, D, scale, causal, s);
 }
 
 // As above; dk, dv: [B, H, Skv, D] in the input dtype.
@@ -419,6 +1152,6 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
   if (is_bf16)
-    return (int)dispatch_dkv<__nv_bfloat16>(q, k, v, dout, l, d, dk, dv, B, H, Sq, Skv, D, scale, causal, s);
-  return (int)dispatch_dkv<float>(q, k, v, dout, l, d, dk, dv, B, H, Sq, Skv, D, scale, causal, s);
+    return (int)wgmma_route::dispatch_dkv(q, k, v, dout, l, d, dk, dv, B, H, Sq, Skv, D, scale, causal, s);
+  return (int)cuda_core::dispatch_dkv<float>(q, k, v, dout, l, d, dk, dv, B, H, Sq, Skv, D, scale, causal, s);
 }

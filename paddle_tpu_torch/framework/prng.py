@@ -1,10 +1,13 @@
 """JAX's default PRNG (threefry2x32) in PyTorch, bit for bit.
 
 Port of what jax 0.9 computes for ``jax.random.PRNGKey``, ``split``,
-``fold_in``, ``bits`` (uint32), ``uniform`` (float32) and ``categorical``
-(gumbel-max, ``mode="low"``) with ``jax_threefry_partitionable`` on (its
-default): counters are the 64-bit flat index of each element, split into
-(hi, lo) words, and a 32-bit draw is the XOR of the two output words.
+``fold_in``, ``bits`` (uint32), ``uniform`` and ``normal`` (float32) and
+``categorical`` (gumbel-max, ``mode="low"``) with
+``jax_threefry_partitionable`` on (its default): counters are the 64-bit
+flat index of each element, split into (hi, lo) words, and a 32-bit draw
+is the XOR of the two output words. A draw's element depends only on its
+flat index, so ``offset=`` draws a slice of a larger draw: the elements
+at flat indices ``[offset, offset + prod(shape))``.
 
 A key is a pair of Python ints ``(k0, k1)``, each a uint32 value, so
 ``split`` and ``fold_in`` run on the host and launch nothing. Only
@@ -78,12 +81,16 @@ def _shape(shape) -> tuple[int, ...]:
         int(s) for s in shape)
 
 
-def _bits64(key, shape, device) -> torch.Tensor:
-    """``bits`` as an int64 tensor of uint32 values on ``device``."""
+def _bits64(key, shape, device, offset=0) -> torch.Tensor:
+    """``bits`` as an int64 tensor of uint32 values on ``device``, at the
+    flat indices ``offset`` onward."""
     shape = _shape(shape)
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    if n > MASK + 1:
+    offset = int(offset)
+    if offset < 0:
+        raise ValueError(f"counter offset must be >= 0, got {offset}")
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
+    if offset + n > MASK + 1:
         hi, lo = idx >> 32, idx & MASK
     else:   # high words all 0: a Python int broadcasts and spares launches
         hi, lo = 0, idx
@@ -98,14 +105,15 @@ def _bits_host(key) -> int:
     return y0 ^ y1
 
 
-def bits(key, shape=(), device=None) -> torch.Tensor:
+def bits(key, shape=(), device=None, offset=0) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)``: a torch.uint32 tensor on
-    ``device`` (default the CUDA card)."""
-    return _bits64(key, shape, resolve_device(device)).to(torch.uint32)
+    ``device`` (default the CUDA card); ``offset``: see the module doc."""
+    return _bits64(key, shape, resolve_device(device), offset).to(
+        torch.uint32)
 
 
-def uniform(key, shape=(), minval=0.0, maxval=1.0,
-            device=None) -> torch.Tensor:
+def uniform(key, shape=(), minval=0.0, maxval=1.0, device=None,
+            offset=0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: the
     top 23 bits of each draw as the mantissa of a float in [1, 2), minus
     1, scaled and shifted, then floored at ``minval``; on ``device``
@@ -113,8 +121,9 @@ def uniform(key, shape=(), minval=0.0, maxval=1.0,
 
     XLA contracts the scale-and-shift into one fused multiply-add; here
     it is formed in float64 (the product of two float32 values is exact
-    there) and rounded to float32 once, which gives XLA's bits."""
-    b = _bits64(key, shape, resolve_device(device))
+    there) and rounded to float32 once, which gives XLA's bits.
+    ``offset``: see the module doc."""
+    b = _bits64(key, shape, resolve_device(device), offset)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo, hi = np.float32(minval), np.float32(maxval)
     scale = float(np.float32(hi - lo))
@@ -122,6 +131,124 @@ def uniform(key, shape=(), minval=0.0, maxval=1.0,
         return f
     out = (f.double() * scale + float(lo)).float()
     return torch.clamp_min(out, float(lo))
+
+
+def _fma32(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as the fused multiply-add XLA's
+    CPU code contracts ``a * b + c`` into. Formed from IEEE float64 adds
+    and multiplies, which round alike on every device: the product of two
+    float32 values is exact in float64, and the float64 sum, rounded to
+    float32, is the fused result unless it landed exactly on a float32
+    rounding midpoint (or below float32's normal range). Only then is
+    the sum's error (exact by TwoSum) needed: it moves the sum one
+    float64 step toward the exact value, off the midpoint."""
+    p = a.double() * b
+    s = p + c
+    si = s.view(torch.int64)
+    suspect = ((si & 0x1FFFFFFF) == 0x10000000) | (s.abs() < _F32_TINY)
+    if bool(suspect.any()):
+        bb = s - p
+        err = (p - (s - bb)) + (c - bb)
+        step = torch.sign(err * s).long()
+        si = torch.where(suspect, si + step, si)
+        s = si.view(torch.float64)
+    return s.float()
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+# XLA's f32 logf (Cephes): mantissa polynomial, in the pairs its CPU code
+# evaluates together
+_LOG_P = tuple(_f32(c) for c in (
+    7.0376836292e-2, -1.1514610310e-1, -1.2420140846e-1, 1.4249322787e-1,
+    2.0000714765e-1, -2.4999993993e-1, 1.1676998740e-1, -1.6668057665e-1,
+    3.3333331174e-1))
+_SQRTHF = _f32(0.707106781186547524)
+# XLA's log1p below sqrt(2) - 1: Cephes' rational approximation
+_LOG1P_NUM = tuple(_f32(c) for c in (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+    6.5787325942061044846969e0, 2.9911919328553073277375e1,
+    6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1))
+_LOG1P_DEN = tuple(_f32(c) for c in (
+    1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+    2.2176239823732856465394e2, 3.0909872225312059774938e2,
+    2.1642788614495947685003e2, 6.0118660497603843919306e1))
+# XLA's f32 erf_inv (Giles): coefficients for w < 5 and w >= 5
+_ERFINV_LT5 = tuple(_f32(c) for c in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+    1.50140941))
+_ERFINV_GE5 = tuple(_f32(c) for c in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
+
+
+def _log_f32(y: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``log`` on the CPU, for finite y > 0 (the only inputs
+    :func:`_log1p_f32` gives it): y = m 2^e with m in [sqrt(1/2),
+    sqrt(2)), a degree-8 polynomial in m - 1, and e ln 2 added in two
+    parts."""
+    y = torch.clamp_min(y, _F32_TINY)
+    b = y.view(torch.int32)
+    e = ((b >> 23) - 127).float() + 1.0
+    m = ((b & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    low = m < _SQRTHF
+    x = (m - 1.0) + torch.where(low, m, 0.0)
+    e = e - low.float()
+    x2 = x * x
+    x3 = x2 * x
+    c = _LOG_P
+    pa = _fma32(_fma32(x, c[0], c[1]), x, c[6])
+    pb = _fma32(_fma32(x, c[2], c[3]), x, c[7])
+    pc = _fma32(_fma32(x, c[4], c[5]), x, c[8])
+    r = _fma32(_fma32(pa, x3, pb), x3, pc)
+    r = _fma32(r, x3, e * _f32(-2.12194440e-4))
+    t = _fma32(x2, -0.5, x)
+    return _fma32(e, 0.693359375, t + r)
+
+
+def _log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``log1p`` on the CPU, for x in (-1, 0]: ``log(1 +
+    x)`` where |x| >= sqrt(2) - 1, else ``x - x^2/2 + x^3 P(x)/Q(x)``."""
+    num = torch.full_like(x, _LOG1P_NUM[0])
+    den = torch.ones_like(x)
+    for cn, cd in zip(_LOG1P_NUM[1:], _LOG1P_DEN[1:]):
+        num = _fma32(num, x, cn)
+        den = _fma32(den, x, cd)
+    x2 = x * x
+    small = x + _fma32(x2, -0.5, (x * x2) * (num / den))
+    large = _log_f32(x + 1.0)
+    return torch.where(x.abs() < _f32(0.41421356237309504880), small, large)
+
+
+def _erf_inv_f32(u: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` (Giles' single-precision polynomials in
+    ``w = -log1p(-u^2)``), for u in (-1, 1)."""
+    w = -_log1p_f32(u * -u)
+    lt5 = w < 5.0
+    # sqrt in float64, rounded once: float32's correctly rounded sqrt
+    w = torch.where(lt5, w - 2.5, w.double().sqrt().float() - 3.0)
+    p = torch.where(lt5, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma32(p, w, torch.where(lt5, a, b))
+    return p * u
+
+
+def normal(key, shape=(), dtype=torch.float32, device=None,
+           offset=0) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``, bit for bit: ``sqrt(2)
+    * erf_inv(u)`` with u uniform over [nextafter(-1, 0), 1), through
+    XLA's own float32 ``erf_inv`` and ``log1p`` (``torch.erfinv`` and
+    ``torch.log1p`` give other bits), on ``device`` (default the CUDA
+    card); cast to ``dtype`` last. Only IEEE adds, multiplies, divides
+    and square roots, so the card and the CPU give the same bits.
+    ``offset``: see the module doc."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0, device=device, offset=offset)
+    return (_erf_inv_f32(u) * _f32(math.sqrt(2.0))).to(dtype)
 
 
 def categorical(key, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:

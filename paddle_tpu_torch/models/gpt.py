@@ -191,23 +191,49 @@ def _shapes(cfg: GPTConfig, quantized: bool = False) -> dict:
 _QUANT_LEAVES = ("w_in", "w_out", "wte", "w_in_s", "w_out_s", "wte_s")
 
 
+# elements of one f32 draw: a leaf is drawn this many at a time (one
+# layer of a [L, ...] leaf whenever a layer is larger)
+_DRAW_ELEMS = 1 << 24
+# the reference's key of each drawn leaf: split(PRNGKey(seed), 10)[i]
+_INIT_KEYS = {"wte": 0, "wpe": 1, "w_qkv": 2, "w_o": 3, "w_in": 4,
+              "w_out": 5}
+
+
+def init_leaf(key, shape, cfg: GPTConfig, device, div=None,
+              rows=None) -> torch.Tensor:
+    """One matrix leaf as the reference draws it: ``normal(key, shape) *
+    0.02`` in f32, cast to ``cfg.dtype``, then divided by ``div`` in
+    ``cfg.dtype`` (a true division by a 0-dim tensor). Drawn a block of
+    leading rows at a time (a layer of an [L, ...] leaf) through the
+    counter offset, so memory holds one block's f32 draw. ``rows``: only
+    those leading rows (a ``range``), e.g. one layer."""
+    rows = range(shape[0]) if rows is None else rows
+    row = math.prod(shape[1:])
+    per = max(1, _DRAW_ELEMS // max(row, 1))
+    out = torch.empty((len(rows), *shape[1:]), dtype=cfg.dtype,
+                      device=device)
+    divisor = (None if div is None else
+               torch.tensor(div, dtype=cfg.dtype, device=device))
+    for i in range(0, len(rows), per):
+        r0, r1 = rows[i], rows[min(i + per, len(rows)) - 1] + 1
+        x = (prng.normal(key, (r1 - r0, *shape[1:]), device=device,
+                         offset=r0 * row) * 0.02).to(cfg.dtype)
+        out[i:i + r1 - r0] = x if divisor is None else x / divisor
+    return out
+
+
 def init_params(cfg: GPTConfig, seed: int = 0, device=None) -> dict:
-    """Random weights with the reference's initialisation (N(0, 0.02)
-    matrices, the residual projections scaled by 1/sqrt(2L), unit
-    LayerNorm gains, zero biases), drawn from a numpy Generator so the
-    same seed gives the same weights on every device. Matrices are drawn
-    one layer at a time, so host memory holds one layer's f32 draw."""
+    """The reference's weights, bit for bit: ``ks = split(PRNGKey(seed),
+    10)``; wte, wpe, w_qkv, w_o, w_in and w_out are ``normal(ks[i]) *
+    0.02`` (keys 0-5) cast to ``cfg.dtype``, w_o and w_out then divided
+    by sqrt(2L); unit LayerNorm gains, zero biases. jax's threefry and
+    ``normal`` are ported bit for bit (``framework.prng``), so a seed
+    gives the same weights on every device. Each leaf is drawn one layer
+    (or 2^24 elements) at a time (:func:`init_leaf`)."""
     dev = resolve_device(device)
-    rng = np.random.default_rng(seed)
-    std = 0.02
+    ks = prng.split(prng.PRNGKey(seed), 10)
     L = cfg.n_layers
-
-    def normal(shape, div=1.0):
-        x = rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
-        if div != 1.0:
-            x = x / np.float32(div)
-        return torch.from_numpy(x).to(device=dev, dtype=cfg.dtype)
-
+    div = math.sqrt(2 * L)
     shapes = _shapes(cfg)
     blocks = {}
     for name, shape in shapes["blocks"].items():
@@ -216,12 +242,11 @@ def init_params(cfg: GPTConfig, seed: int = 0, device=None) -> dict:
         elif name.startswith(("b_", "ln")):
             blocks[name] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
         else:
-            div = math.sqrt(2 * L) if name in ("w_o", "w_out") else 1.0
-            t = torch.empty(shape, dtype=cfg.dtype, device=dev)
-            for layer in range(L):
-                t[layer] = normal(shape[1:], div)
-            blocks[name] = t
-    return {"wte": normal(shapes["wte"]), "wpe": normal(shapes["wpe"]),
+            blocks[name] = init_leaf(
+                ks[_INIT_KEYS[name]], shape, cfg, dev,
+                div if name in ("w_o", "w_out") else None)
+    return {"wte": init_leaf(ks[0], shapes["wte"], cfg, dev),
+            "wpe": init_leaf(ks[1], shapes["wpe"], cfg, dev),
             "blocks": blocks,
             "lnf_g": torch.ones(shapes["lnf_g"], dtype=cfg.dtype, device=dev),
             "lnf_b": torch.zeros(shapes["lnf_b"], dtype=cfg.dtype,

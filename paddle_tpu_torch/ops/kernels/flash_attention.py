@@ -8,7 +8,8 @@ the causal mask is aligned bottom-right (query i sees keys
 The backward is the reference's FlashAttention-2 pair: the forward keeps
 the per-row log-sum-exp, and two kernels recompute each probability tile
 from it — one accumulates dq over k tiles, the other dk and dv over q
-tiles. :class:`FlashAttention` is the ``custom_vjp`` of the reference as a
+tiles. Their route depends on the dtype (:data:`BWD_ROUTES`): bf16 runs
+on the tensor cores (wgmma, TMA), f32 on the CUDA cores. :class:`FlashAttention` is the ``custom_vjp`` of the reference as a
 ``torch.autograd.Function``; on the CPU autograd differentiates
 :func:`xla_attention` directly, the reference's own off-TPU route.
 """
@@ -24,6 +25,10 @@ from .primitives import causal_mask
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
+# the backward kernels' route by dtype: bf16 products on the tensor cores
+# (wgmma, tiles in by TMA), f32 on the CUDA cores (a tensor-core f32
+# product would be TF32)
+BWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda-core f32"}
 
 
 def xla_attention(q, k, v, scale, causal, with_lse=False):
@@ -67,7 +72,8 @@ def bwd_dq_ref(q, k, v, dout, lse, di, scale, causal):
 def bwd_dkv_ref(q, k, v, dout, lse, di, scale, causal):
     """Plain version of the dk/dv kernel: ``dk = ds^T q``, ``dv = p^T dO``
     with p rounded to q's dtype first, as :func:`xla_attention` rounds it
-    before the PV product (the kernel keeps p in f32)."""
+    before the PV product (the bf16 kernel also rounds ds to bf16 before
+    its products; the f32 kernel keeps both in f32)."""
     p = _probs(q, k, lse, scale, causal)
     dof = dout.float()
     dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), dof)

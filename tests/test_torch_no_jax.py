@@ -168,6 +168,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         "prng.bits": lambda: prng.bits(prng.PRNGKey(0), (2, 3)),
         "prng.bits(scalar)": lambda: prng.bits(prng.PRNGKey(0)),
         "prng.uniform": lambda: prng.uniform(prng.PRNGKey(0), (2, 3)),
+        "prng.normal": lambda: prng.normal(prng.PRNGKey(0), (2, 3)),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,7 +1,9 @@
 """The port's threefry PRNG (paddle_tpu_torch/framework/prng.py) and
 seeded streams (framework/random.py) against jax 0.9 and
-paddle_tpu.framework.random on the CPU: keys and bits bitwise equal,
-categorical indices equal."""
+paddle_tpu.framework.random on the CPU: keys, bits, uniforms and normals
+bitwise equal, categorical indices equal."""
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -92,6 +94,76 @@ def test_uniform_bitwise(minval, maxval):
                        "cpu").numpy()
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+
+
+@pytest.mark.parametrize("shape", [(), (3,), (5, 1001), (1 << 18,)])
+def test_normal_bitwise(shape):
+    for seed in (0, 7):
+        ref = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape,
+                                           jnp.float32))
+        got = prng.normal(prng.PRNGKey(seed), shape, device="cpu").numpy()
+        assert got.dtype == np.float32 and got.shape == shape
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      ref.view(np.uint32))
+
+
+def test_normal_cast_last():
+    key = prng.PRNGKey(4)
+    want = prng.normal(key, (7, 9), device="cpu").to(torch.bfloat16)
+    got = prng.normal(key, (7, 9), torch.bfloat16, device="cpu")
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def test_counter_offset_draws_a_slice():
+    key = prng.PRNGKey(11)
+    whole = {f: f(key, (6, 1000), device="cpu")
+             for f in (prng.bits, prng.uniform, prng.normal)}
+    for f, w in whole.items():
+        part = f(key, (3, 1000), device="cpu", offset=2000)
+        assert torch.equal(part, w[2:5]), f.__name__
+    # across the 2^32 boundary the counter's high word takes the carry
+    got = prng.bits(key, (4,), "cpu", offset=M - 1).tolist()
+    want = []
+    for i in range(M - 1, M + 3):
+        y0, y1 = prng.threefry2x32(key, i >> 32, i & M)
+        want.append(y0 ^ y1)
+    assert got == want
+    with pytest.raises(ValueError, match="offset"):
+        prng.bits(key, (2,), "cpu", offset=-1)
+
+
+def test_fma32_rounds_once():
+    """float32 a*b + c rounded once (XLA's contracted multiply-add),
+    against exact rational arithmetic: random triples and the case where
+    the float64 sum lands on a float32 midpoint that the exact value
+    passes."""
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal(4000).astype(np.float32)
+    b = rng.standard_normal(4000).astype(np.float32)
+    c = (rng.standard_normal(4000) * 10.0 ** rng.integers(-8, 3, 4000)
+         ).astype(np.float32)
+    one = np.float32(1 + 2.0 ** -12)   # one*one = 1 + 2^-11 + 2^-24
+    a, b, c = (np.append(v, w) for v, w in
+               ((a, [one, one, one]), (b, [one, one, one]),
+                (c, [2.0 ** -100, -(2.0 ** -100), 0.0])))
+    c = c.astype(np.float32)
+    got = prng._fma32(torch.from_numpy(a), torch.from_numpy(b),
+                      torch.from_numpy(c).double()).numpy()
+    for i in range(len(a)):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) \
+            + Fraction(float(c[i]))
+        lo = np.float32(float(exact))      # within one step of the answer
+        cands = [np.nextafter(lo, np.float32(-np.inf)), lo,
+                 np.nextafter(lo, np.float32(np.inf))]
+        errs = [abs(Fraction(float(x)) - exact) for x in cands]
+        best = min(errs)
+        ties = [x for x, e in zip(cands, errs) if e == best]
+        want = ties[0] if len(ties) == 1 else next(
+            x for x in ties if not int(x.view(np.uint32)) & 1)
+        assert got[i].view(np.uint32) == want.view(np.uint32), i
+    # the midpoint cases: above rounds up, below and exact to even
+    assert got[-3] == np.nextafter(np.float32(1 + 2.0 ** -11), np.float32(2))
+    assert got[-2] == got[-1] == np.float32(1 + 2.0 ** -11)
 
 
 @pytest.mark.parametrize("shape,axis", [((16, 1000), -1), ((3, 50304), -1),

@@ -117,6 +117,74 @@ def test_flash_bwd_bf16_plain_tracks_f32():
         assert err <= scale / 128, (err, scale)
 
 
+# chip_smoke.py's BWD_TOL["bf16"]: the card's bf16 backward kernels against
+# the plain versions, relative to max|grad|
+BWD_TOL_BF16 = 2 ** -6
+
+
+def _wgmma_kernel_model(q, k, v, dout, lse, di, scale, causal):
+    """The bf16 wgmma kernels' arithmetic in plain PyTorch: f32 s and dp
+    from the bf16 operands, p and ds rounded to bf16 before the three
+    products that consume them (ds k, ds^T q, p^T dO), f32 sums, bf16
+    outputs. (The plain versions keep p and ds in f32, but for p before
+    p^T dO.)"""
+    kf, qf, df = k.float(), q.float(), dout.float()
+    p = tfa._probs(q, k, lse, scale, causal)
+    dp = torch.matmul(df, v.float().transpose(-1, -2))
+    ds = p * (dp - di[..., None]) * scale
+    p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+    dq = torch.matmul(ds16, kf)
+    dk = torch.matmul(ds16.transpose(-1, -2), qf)
+    dv = torch.matmul(p16.transpose(-1, -2), df)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+def _rel(a, r):
+    """max|a - r| relative to max|r|."""
+    r = r.float() if torch.is_tensor(r) else torch.from_numpy(
+        np.array(r, np.float32))
+    return ((a.float() - r).abs().max() / r.abs().max()).item()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_kernel_rounding_points_stay_in_tolerance(causal):
+    """Why BWD_TOL["bf16"] holds for the wgmma kernels, stated on the CPU:
+    their rounding points (modelled above; the kernels themselves are held
+    on the card) stay within it of the plain versions, and both stay
+    within it of the reference's Pallas kernels run in interpret mode."""
+    rng = np.random.default_rng(21 + causal)
+    shape = (1, 2, 256, 64)
+    q, k, v, g = (_normal(rng, shape) for _ in range(4))
+    scale = 1.0 / np.sqrt(64)
+    tq, tk, tv, tg = (torch.from_numpy(a).bfloat16() for a in (q, k, v, g))
+    out, lse = tfa.flash_attention(tq, tk, tv, scale, causal, with_lse=True)
+    di = tfa.softmax_grad_rowsum(out, tg)
+    model = _wgmma_kernel_model(tq, tk, tv, tg, lse, di, scale, causal)
+    plain = (tfa.bwd_dq_ref(tq, tk, tv, tg, lse, di, scale, causal),
+             *tfa.bwd_dkv_ref(tq, tk, tv, tg, lse, di, scale, causal))
+    jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g))
+    jout, jlse = _interpret(jfa._flash_fwd, jq, jk, jv, scale, causal, 64,
+                            64, with_lse=True)
+    ref = _interpret(jfa._flash_bwd, jq, jk, jv, jout, jlse, jg, scale,
+                     causal, 64, 64)
+    for name, m, p, r in zip(("dq", "dk", "dv"), model, plain, ref):
+        assert m.dtype == p.dtype == torch.bfloat16
+        assert _rel(m, p) <= BWD_TOL_BF16, (name, _rel(m, p))
+        r = np.asarray(r.astype(jnp.float32))
+        assert _rel(m, r) <= BWD_TOL_BF16, (name, _rel(m, r))
+        assert _rel(p, r) <= BWD_TOL_BF16, (name, _rel(p, r))
+    # the rounding is visible (the model is not the plain version) yet
+    # well inside the tolerance
+    assert 0 < max(_rel(m, p) for m, p in zip(model, plain)) \
+        <= BWD_TOL_BF16 / 2
+
+
+def test_flash_bwd_routes_by_dtype():
+    assert tfa.BWD_ROUTES == {torch.bfloat16: "wgmma",
+                              torch.float32: "cuda-core f32"}
+    assert set(tfa.BWD_ROUTES) == set(tfa._DTYPES)
+
+
 def test_flash_bwd_masked_positions_are_exact_zero():
     """Masked pairs contribute an exact 0: keys 30.. are visible only to
     rows 30.., whose dO is zero, so any nonzero p leaking through the mask
