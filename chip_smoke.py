@@ -15,8 +15,10 @@ Phases, each fatal on failure:
 2. kernels  — call each kernel wrapper on the card at the main path's
               shapes and at edge shapes, hold it against its plain PyTorch
               version on the same inputs (stated tolerance; the flash
-              backward's route by dtype, wgmma for bf16, CUDA-core for
-              f32, with its TFLOP/s and share of the bound; the paged
+              forward's and backward's route by dtype, wgmma for bf16,
+              CUDA-core for f32, with TFLOP/s and share of the bound;
+              quant_matmul's route by shape, skinny, wgmma or wmma, printed
+              in every case; the paged
               decode kernels also bitwise against the dense ones over the
               gathered view; the fused bias-dropout-residual LayerNorm at
               [8192, 2048] and edge shapes; the Triton factories on ReLU,
@@ -180,7 +182,10 @@ def _kernel_label(line: str) -> str:
     mangled = line.split("'")[1] if "'" in line else line
     name = re.search(r"\d+([a-z_]+_kernel)I", mangled)
     args = re.findall(r"L([ib])(\d+)E", mangled)
-    dtype = ("bf16" if "bfloat16" in mangled
+    # a kernel fed by TMA takes tensor maps, and every map of the port's
+    # tensor-core kernels holds bf16 operands (quant_matmul's codes are
+    # converted to bf16 in shared memory)
+    dtype = ("bf16" if "bfloat16" in mangled or "CUtensorMap" in mangled
              else "f16" if "6__half" in mangled
              else "int8" if re.search(r"_kernelIa", mangled) else "f32")
     ints = [v for k, v in args if k == "i"]
@@ -329,7 +334,8 @@ class Smoke:
             raise AssertionError("flash_attention_fwd output not finite")
         case = dict(kernel="flash_attention_fwd", shape=[B, H, Sq, Skv, d],
                     dtype=tname, causal=causal, with_lse=with_lse,
-                    max_abs_err=err, tol=TOL[tname])
+                    route=fa.FWD_ROUTES[dtype], max_abs_err=err,
+                    tol=TOL[tname])
         log(f"[kernels] {json.dumps(case)}")
         if err > TOL[tname]:
             raise AssertionError(f"flash_attention_fwd disagrees with its "
@@ -347,6 +353,10 @@ class Smoke:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         case["ms"] = self.time_ms(
             lambda: fa.flash_attention(q, k, v, scale, causal, with_lse))
+        # the kernel alone, without the wrapper's host time (which the
+        # CUDA-event time holds at small shapes)
+        case["device_ms"] = self.device_ms(
+            lambda: fa.flash_attention(q, k, v, scale, causal, with_lse))
         case["plain_ms"] = self.time_ms(
             lambda: fa.xla_attention(q, k, v, scale, causal, with_lse),
             iters=10)
@@ -362,6 +372,8 @@ class Smoke:
         case["library_ms"] = self.time_ms(lib)
         case["bound_ms"] = max(t_ops, t_bytes)
         case["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        case["tflops"] = ops / (case["ms"] * 1e-3) / 1e12
+        case["bound_share"] = case["bound_ms"] / case["ms"]
         log(f"[kernels] {json.dumps(case)}")
         if main:
             self.rows["flash_attention_fwd"] = case
@@ -698,10 +710,12 @@ class Smoke:
         ref = qm.quant_matmul_ref(x, wq, step, bits)
         err = (out - ref).abs().max().item()
         rel = err / max(ref.abs().max().item(), 1e-30)
-        path = ("skinny" if dtype == torch.float32 or M <= 8 else "wmma")
+        route = qm.quant_matmul_route(
+            M, K, N, bits, dtype,
+            x.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0)
         case = dict(kernel="quant_matmul", M=M, K=K, N=N, bits=bits,
-                    x_dtype=tname, path=path, max_abs_err=err, rel_err=rel,
-                    tol_rel_to_max_out=QMM_TOL)
+                    x_dtype=tname, route=route, max_abs_err=err,
+                    rel_err=rel, tol_rel_to_max_out=QMM_TOL)
         log(f"[kernels] {json.dumps(case)}")
         if not bool(torch.isfinite(out).all()) or rel > QMM_TOL:
             raise AssertionError(f"quant_matmul disagrees with its plain "
@@ -714,6 +728,8 @@ class Smoke:
         case.update(self._bound(2 * M * K * N, nbytes, tname))
         case["ms"] = self.time_ms(lambda: qm.quant_matmul(x, wq, step, bits),
                                   iters=50)
+        case["device_ms"] = self.device_ms(
+            lambda: qm.quant_matmul(x, wq, step, bits))
         case["plain_ms"] = self.time_ms(
             lambda: qm.quant_matmul_ref(x, wq, step, bits), iters=10)
         w_deq = ((gq.unpack_int4(wq, axis=0) if bits == 4 else wq).float()
@@ -1107,9 +1123,10 @@ class Smoke:
     def phase_kernels(self):
         torch = self.torch
         bf16, f32 = torch.bfloat16, torch.float32
+        # the flash forward: generate()'s prefill shape (timed), ragged and
+        # offset-diagonal cases in both routes
         for dt in (bf16, f32):
-            self._flash_case(4, 16, 256, 256, 128, dt, True, False, True,
-                             main=dt is bf16)
+            self._flash_case(4, 16, 256, 256, 128, dt, True, False, True)
             self._flash_case(2, 16, 200, 200, 128, dt, True, False,
                              dt is bf16)
             for lse in (False, True):
@@ -1117,14 +1134,22 @@ class Smoke:
                                  dt is bf16 and not lse)
         self._flash_case(1, 2, 70, 70, 16, f32, False, True, False)
         self._flash_case(1, 2, 33, 97, 64, bf16, True, True, False)
+        # the wgmma route at every head dim, its offset diagonal at the
+        # model's d, and a ragged tile with the LSE
+        for d, causal in ((16, False), (16, True), (32, True), (64, False)):
+            self._flash_case(2, 4, 130, 200, d, bf16, causal, True, False)
+        self._flash_case(2, 16, 192, 320, 128, bf16, True, False, False)
+        self._flash_case(2, 16, 200, 200, 128, bf16, True, True, False)
         for dt in (bf16, f32):
             for Q in (1, 4):
                 self._decode_case(8, 16, 2048, 128, Q, dt, dt is bf16)
         # the server phase's decode shape: 8 slots, 512-position cache
         self._decode_case(8, 16, 512, 128, 1, bf16, True, main=True)
         self._decode_case(3, 4, 64, 16, 3, f32, False)
-        # the train phase's attention shape, forward and backward
-        self._flash_case(4, 16, 2048, 2048, 128, bf16, True, True, True)
+        # the train phase's attention shape, forward (the timed main row)
+        # and backward
+        self._flash_case(4, 16, 2048, 2048, 128, bf16, True, True, True,
+                         main=True)
         self._flash_bwd_case(4, 16, 2048, 2048, 128, bf16, True, True,
                              main=True)
         self._flash_bwd_case(2, 16, 200, 200, 128, bf16, True, False)
@@ -1141,8 +1166,12 @@ class Smoke:
                 for M in (4, 8, 1024):
                     self._qmm_case(M, K, N, bits, bf16, True,
                                    main=(bits, K, M) == (8, 2048, 8))
+            # ragged M on the wgmma route (one partial 128-row block)
+            for M in (37, 100):
+                self._qmm_case(M, 2048, 8192, bits, bf16, False)
             # ragged edges: the skinny kernel over several row blocks, the
-            # wmma tile's masks, f32 and bf16 x
+            # wmma route (N % 16 != 0: no tensor map) and its tile's masks,
+            # f32 and bf16 x
             for M, dt in ((3, f32), (20, f32), (37, bf16), (3, bf16)):
                 self._qmm_case(M, 48, 200, bits, dt, False)
         # decode_attention_q8: the server's decode shape (main), generate's,
@@ -1186,12 +1215,18 @@ class Smoke:
     def _zero_counts(self):
         for fn in self._counters().values():
             fn.launches = 0
+            if hasattr(fn, "routes"):
+                fn.routes = dict.fromkeys(fn.routes, 0)
 
     def _read_counts(self, path: str, need) -> dict:
         """Counts of one main-path run; every kernel in ``need`` must have
         launched, and the counts add to the kernels line."""
         counts = {n: fn.launches for n, fn in self._counters().items()}
         log(f"[{path}] kernel launches {json.dumps(counts)}")
+        from paddle_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+        if quant_matmul.launches:
+            log(f"[{path}] quant_matmul routes "
+                f"{json.dumps(quant_matmul.routes)}")
         for n in need:
             if counts[n] <= 0:
                 raise AssertionError(f"{path}: kernel {n} never launched")
@@ -1968,7 +2003,7 @@ class Smoke:
         # the attention kernels' device time (kernel names from csrc/)
         every = _device_rows(torch, prof, 1 << 30)[1]
         attn = {what: sum(ms for k, ms, _ in every if pat in k)
-                for what, pat in (("flash_fwd", "flash_fwd_kernel"),
+                for what, pat in (("flash_fwd", "fwd_kernel"),
                                   ("flash_bwd_dq", "bwd_dq_kernel"),
                                   ("flash_bwd_dkv", "bwd_dkv_kernel"))}
         log("[profile] " + json.dumps(dict(

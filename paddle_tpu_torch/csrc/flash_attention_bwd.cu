@@ -56,10 +56,11 @@
 //   256 threads, each owning 4 rows x 4 columns of the score tile and 4
 //   rows x D/16 columns of each accumulator; p and ds stay f32 in shared
 //   memory.
-#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_sm90.cuh"   // mbarriers, TMA, wgmma, tensor maps, prepare
 
 namespace cuda_core {
 
@@ -417,219 +418,7 @@ cudaError_t dispatch_dkv(const void* q, const void* k, const void* v,
 
 namespace wgmma_route {
 
-constexpr int TILE = 64;                    // rows of every tile = wgmma M
-constexpr int BOX_BYTES = TILE * 64 * 2;    // one [64][64] bf16 box, 8 KB
-constexpr int STAGES = 2;
-constexpr int WGS = 2;                      // consumer warpgroups
-constexpr int CONSUMERS = 128 * WGS;
-constexpr int THREADS = CONSUMERS + 128;    // and one producer warpgroup
-constexpr int BLOCK_ROWS = TILE * WGS;      // rows a block owns
-constexpr int CONSUMER_REGS = 232;
-constexpr int PRODUCER_REGS = 32;   // 24 spills the dk/dv producer
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// wait for the completion of the barrier's phase of this parity
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// one [64][64] box of a 3-D map at (column c0, row c1, head c2)
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout SW128.
-// K-major [rows][64] boxes: SBO = 8 rows = 1024 bytes, a k step of 16 adds
-// 32 bytes inside the swizzle atom (LBO unused). MN-major [k rows][64]
-// boxes: SBO = 8 k rows = 1024 bytes, LBO = the next 64 MN columns (the
-// next box), a k step of 16 adds 16 rows = 2048 bytes.
-// The volatile move keeps each descriptor where it is used: hoisted out of
-// the tile loop, the loop-invariant ones would hold 2 registers each.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  uint32_t a;
-  asm volatile("mov.b32 %0, %1;\n" : "=r"(a) : "r"(addr));
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from touching accumulators across an async wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// 2^x in one instruction (relative error 2^-22, results below 2^-126
-// flushed to 0): far inside the bf16 rounding p gets next
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// wgmma m64nNk16, f32 += bf16 x bf16. ss: A and B from shared memory, both
-// K-major. rs: A from registers (4 bf16x2 a thread), B MN-major (the
-// transpose bit). The accumulator of m64nN holds, in thread t of the
-// warpgroup (warp w, lane l), d[i] at row 16w + l/4 + 8*((i >> 1) & 1) and
-// column 8*(i/4) + 2*(l%4) + (i&1).
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// S (or S^T) = A_tile B_tile^T over depth D, both [64][D] K-major tiles
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[32], uint32_t a,
-                                       uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
-    wgmma_ss_n64(s, sw128_desc(a + off, 16, 1024),
-                 sw128_desc(b + off, 16, 1024), kk > 0);
-  }
-}
-
-// acc += A (64 x 64, bf16 fragments in registers) @ B, B a [64][D] tile
-// read MN-major (N = 64 per box; D = 128 spans two boxes)
-// one k step of 16: A is 4 registers, b the step's first row of B
-template <int NCH>
-__device__ __forceinline__ void accumulate_step(float (&acc)[32 * NCH],
-                                                const uint32_t* a,
-                                                uint32_t b) {
-  const uint64_t desc = sw128_desc(b, BOX_BYTES, 1024);
-  if constexpr (NCH == 2)
-    wgmma_rs_n128(acc, a, desc);
-  else
-    wgmma_rs_n64(acc, a, desc);
-}
-
-template <int NCH>
-__device__ __forceinline__ void accumulate(float (&acc)[32 * NCH],
-                                           const uint32_t (&a)[16],
-                                           uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    accumulate_step<NCH>(acc, a + 4 * kk, b + kk * 2048);
-}
-
-template <int D>
-__host__ __device__ constexpr int n_boxes() { return D == 128 ? 2 : 1; }
+using namespace sm90;
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
@@ -642,11 +431,6 @@ constexpr size_t dkv_smem_bytes() {
   return 1024 + (2 * WGS + 2 * STAGES) * n_boxes<D>() * BOX_BYTES +
          STAGES * 2 * TILE * sizeof(float) +
          (1 + 2 * STAGES) * sizeof(uint64_t);
-}
-
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
 }
 
 // grid (B*H, 128-row q blocks); the last q blocks (the longest causal
@@ -982,68 +766,6 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq,
       }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, without linking libcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a contiguous bf16 [B*H, S, D] as the 3-D map (D, S, B*H) of [64][64]
-// boxes, 128-byte swizzle; rows past S (and columns past D) read as zeros
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int D, int S,
-                     int BH) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
-    return cudaErrorMisalignedAddress;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(S) * D * 2};
-  const cuuint32_t box[3] = {64, TILE, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// setmaxnreg moves registers inside the block's launch allocation of R a
-// thread: the producer warpgroup gives (R - 32) x 128, the consumers take
-// (232 - R) x 256. A kernel built with too few registers would wait
-// forever in setmaxnreg.inc, so refuse to launch it.
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  if ((CONSUMER_REGS - attr.numRegs) * CONSUMERS >
-      (attr.numRegs - PRODUCER_REGS) * (THREADS - CONSUMERS))
-    return cudaErrorInvalidConfiguration;
-  return cudaSuccess;
 }
 
 struct Maps {

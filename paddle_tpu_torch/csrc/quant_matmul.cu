@@ -30,20 +30,42 @@
 //     once at the end (warp shuffles, then shared memory) and the step
 //     multiplies the total. f32 x (parity runs) takes this kernel at any
 //     M, 8 rows of x per block row.
-//   - qmm_wmma_kernel (bf16 x, M > 8): a 64 x 64 output tile per block of
-//     four warps, each warp a 32 x 32 quarter of 2 x 2 bf16 16x16x16
-//     nvcuda::wmma fragments with f32 accumulators. Per 32-deep K step the
-//     block stages the x tile and the code tile converted to bf16 (int4
-//     unpacked by the two shifts) in shared memory. The epilogue goes
-//     through shared memory, multiplies by step[n] and writes the f32
-//     tile with masks.
-// Deliberately simple: no cp.async or TMA pipelining, no wgmma, no split-K
-// across blocks. Those are the next designs (the decode kernel is below
-// the HBM rate while each block's loads are not overlapped with its math).
+//   - qmm_wgmma_kernel (bf16 x, M > 8, and shapes TMA can map: N % 16 == 0,
+//     K % 8 == 0, 16-byte aligned x and codes): a 128 x BN output tile per
+//     block of two consumer warpgroups (64 rows each, one m64nBN f32
+//     accumulator in registers) and one producer warpgroup. BN is 256
+//     where that still gives every SM a block (it halves how often each x
+//     tile is read from L2), else 128 (w_out's N = 2048 at M = 1024). The
+//     producer keeps a ring of 3 (BN 256) or 4 stages full: TMA brings the
+//     x tile [128 M][64 K] as two 128-byte-swizzled [64][64] boxes (K-major,
+//     operand A) and the raw code tile [64 K][BN] int8 (int4: [32 packed
+//     rows][BN]); then its 128 threads convert the codes to bf16 into BN/64
+//     MN-major [64 K][64 N] boxes in the same 128-byte swizzle that TMA
+//     would have written (the 16-byte chunk j of row k lands at chunk
+//     j ^ (k % 8)), which the consumers read as operand B through the
+//     transpose bit, LBO = the box stride. The conversion is exact: a
+//     code's biased byte (int8: c + 128, int4 nibble: c + 8) becomes the
+//     mantissa of 2^23, an f32 subtraction of 2^23 + bias leaves c, and a
+//     small integer rounds to bf16 exactly. The consumers only issue wgmma
+//     m64nBNk16 (4 a stage), keep one stage in flight, and release a stage
+//     once its products are done; the step multiplies each column once
+//     after the sum, as in the reference.
+//   - qmm_wmma_kernel (bf16 x, M > 8, shapes TMA cannot map, such as N % 16
+//     != 0): a 64 x 64 output tile per block of four warps, each warp a
+//     32 x 32 quarter of 2 x 2 bf16 16x16x16 nvcuda::wmma fragments with f32
+//     accumulators. Per 32-deep K step the block stages the x tile and the
+//     code tile converted to bf16 (int4 unpacked by the two shifts) in
+//     shared memory, synchronously. The epilogue goes through shared
+//     memory, multiplies by step[n] and writes the f32 tile with masks.
+// The route is chosen by shape before the launch (quant_matmul_route in
+// ops/kernels/quant_matmul.py) and passed in; a route that cannot take the
+// shape returns an error, never another route.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper_sm90.cuh"   // mbarriers, TMA, wgmma, tensor maps
 
 namespace {
 
@@ -279,14 +301,255 @@ cudaError_t dispatch_skinny(const void* x, const int8_t* w, const float* step,
   return launch_skinny<XT, BITS, 8>(x, w, step, out, M, K, N, vec, s);
 }
 
+}  // namespace
+
+namespace wgmma_route {
+
+using namespace sm90;
+
+constexpr int QW_BK = 64;       // K rows a stage holds
+
+// a block's output tile is 128 rows x BN columns (BN = 128 or 256: each
+// consumer warpgroup one m64nBN accumulator); the ring holds as many
+// stages as fit in shared memory
+template <int BN>
+__host__ __device__ constexpr int qw_stages() { return BN == 256 ? 3 : 4; }
+
+template <int BITS>
+__host__ __device__ constexpr int raw_rows() {
+  return BITS == 4 ? QW_BK / 2 : QW_BK;   // code rows of a K stage
+}
+
+template <int BITS, int BN>
+constexpr size_t qmm_smem_bytes() {
+  return 1024 + qw_stages<BN>() * (WGS + BN / 64) * BOX_BYTES +
+         qw_stages<BN>() * raw_rows<BITS>() * BN +
+         3 * qw_stages<BN>() * sizeof(uint64_t);
+}
+
+// byte j of w (a biased code, 0..255) in the mantissa of 2^23: 2^23 + byte
+__device__ __forceinline__ float biased(uint32_t w, int j) {
+  return __int_as_float(__byte_perm(w, 0x4B000000u, 0x7440 | j));
+}
+
+// 8 biased codes (the bytes of u0, then u1) minus `bias`, as 8 bf16
+__device__ __forceinline__ uint4 to_bf16x8(uint32_t u0, uint32_t u1,
+                                           float bias) {
+  uint4 r;
+  r.x = pack_bf16(biased(u0, 0) - bias, biased(u0, 1) - bias);
+  r.y = pack_bf16(biased(u0, 2) - bias, biased(u0, 3) - bias);
+  r.z = pack_bf16(biased(u1, 0) - bias, biased(u1, 1) - bias);
+  r.w = pack_bf16(biased(u1, 2) - bias, biased(u1, 3) - bias);
+  return r;
+}
+
+// 16-byte chunk `chunk` (8 columns) of row k of a 128-byte-swizzled box
+__device__ __forceinline__ void store_chunk(uint8_t* box, int k, int chunk,
+                                            uint4 v) {
+  *reinterpret_cast<uint4*>(box + k * 128 + ((chunk ^ (k & 7)) << 4)) = v;
+}
+
+// the producer's 128 threads: one raw code tile [raw_rows][BN] into the B
+// stage, BN/64 [64 K][64 N] bf16 boxes. Unit u is 8 columns of one raw row.
+template <int BITS, int BN>
+__device__ __forceinline__ void convert_tile(const uint8_t* raw, uint8_t* b,
+                                             int pt) {
+  constexpr int CHUNKS = BN / 8;   // units a raw row
+  constexpr int UNITS = raw_rows<BITS>() * CHUNKS;
+#pragma unroll
+  for (int j = 0; j < UNITS / 128; ++j) {
+    const int u = pt + 128 * j;
+    const int r = u / CHUNKS, c8 = u % CHUNKS;
+    const uint2 w = *reinterpret_cast<const uint2*>(raw + r * BN + 8 * c8);
+    uint8_t* box = b + (c8 / 8) * BOX_BYTES;
+    if constexpr (BITS == 8) {
+      store_chunk(box, r, c8 % 8,
+                  to_bf16x8(w.x ^ 0x80808080u, w.y ^ 0x80808080u, 8388736.f));
+    } else {
+      // packed row r holds K row 2r in its low nibbles, 2r + 1 in its high
+      const uint32_t m = 0x0F0F0F0Fu, flip = 0x08080808u;
+      store_chunk(box, 2 * r, c8 % 8,
+                  to_bf16x8((w.x & m) ^ flip, (w.y & m) ^ flip, 8388616.f));
+      store_chunk(box, 2 * r + 1, c8 % 8,
+                  to_bf16x8(((w.x >> 4) & m) ^ flip, ((w.y >> 4) & m) ^ flip,
+                            8388616.f));
+    }
+  }
+}
+
+template <int BN>
+__device__ __forceinline__ void mma_stage(float (&acc)[BN / 2], uint32_t a,
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t da = sw128_desc(a + 32 * kk, 16, 1024);
+    const uint64_t db = sw128_desc(b + 2048 * kk, BOX_BYTES, 1024);
+    if constexpr (BN == 256)
+      wgmma_ss_n256_tb(acc, da, db);
+    else
+      wgmma_ss_n128_tb(acc, da, db);
+  }
+}
+
+// grid (BN-column blocks, 128-row blocks). Consumer warpgroup w owns rows
+// m0 + 64w and all BN columns.
+template <int BITS, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+qmm_wgmma_kernel(const __grid_constant__ CUtensorMap mx,
+                 const __grid_constant__ CUtensorMap mw,
+                 const float* __restrict__ step, float* __restrict__ out,
+                 int M, int K, int N) {
+  constexpr int STAGES_ = qw_stages<BN>();
+  constexpr int RAW_ROWS = raw_rows<BITS>();
+  constexpr int RAW_BYTES = RAW_ROWS * BN;
+  constexpr int NB = BN / 64;                         // B boxes a stage
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* xs = align_1024(smem_raw);                 // [stage][WGS] boxes
+  uint8_t* bs = xs + STAGES_ * WGS * BOX_BYTES;       // [stage][NB] boxes
+  uint8_t* raw = bs + STAGES_ * NB * BOX_BYTES;       // [stage] code tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(raw + STAGES_ * RAW_BYTES);
+  uint64_t* loaded = bars;               // the raw code tile is in
+  uint64_t* full = loaded + STAGES_;     // x is in and the codes converted
+  uint64_t* empty = full + STAGES_;      // both warpgroups are done
+
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BLOCK_ROWS;
+  const int n_tiles = (K + QW_BK - 1) / QW_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES_; ++s) {
+      mbar_init(&loaded[s], 1);
+      mbar_init(&full[s], 1 + 128);   // the x loads' arrival + 128 converters
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    const int pt = threadIdx.x - CONSUMERS;
+    if (pt == 0)
+      for (int t = 0; t < min(STAGES_, n_tiles); ++t) {
+        mbar_expect_tx(&loaded[t], RAW_BYTES);
+        tma_load_2d(raw + t * RAW_BYTES, &mw, &loaded[t], n0, t * RAW_ROWS);
+      }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % STAGES_, n = t / STAGES_;
+      if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
+      if (pt == 0) {
+        mbar_expect_tx(&full[s], WGS * BOX_BYTES);
+        for (int w = 0; w < WGS; ++w)
+          tma_load_2d(xs + (s * WGS + w) * BOX_BYTES, &mx, &full[s],
+                      t * QW_BK, m0 + TILE * w);
+      }
+      mbar_wait(&loaded[s], n & 1);
+      convert_tile<BITS, BN>(raw + s * RAW_BYTES, bs + s * NB * BOX_BYTES, pt);
+      fence_proxy_async();   // the wgmma reads these stores (async proxy)
+      mbar_arrive(&full[s]);
+      // every converter has read raw[s]: refill it with tile t + STAGES_
+      named_sync(1, 128);
+      if (pt == 0 && t + STAGES_ < n_tiles) {
+        mbar_expect_tx(&loaded[s], RAW_BYTES);
+        tma_load_2d(raw + s * RAW_BYTES, &mw, &loaded[s], n0,
+                    (t + STAGES_) * RAW_ROWS);
+      }
+    }
+  } else {
+    const int wg = threadIdx.x / 128;
+    const int warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % STAGES_, n = t / STAGES_;
+      mbar_wait(&full[s], n & 1);
+      wgmma_fence();
+      mma_stage<BN>(acc, smem_u32(xs + (s * WGS + wg) * BOX_BYTES),
+                    smem_u32(bs + s * NB * BOX_BYTES));
+      wgmma_commit();
+      // the previous stage's products are done: release it
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (t > 0) mbar_arrive(&empty[(t - 1) % STAGES_]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    const int row0 = m0 + TILE * wg + 16 * warp + lane / 4;
+#pragma unroll
+    for (int i = 0; i < BN / 2; i += 2) {
+      const int row = row0 + 8 * ((i >> 1) & 1);
+      const int col = n0 + 8 * (i / 4) + 2 * (lane % 4);
+      if (row < M && col < N)   // N is even: col + 1 < N too
+        *reinterpret_cast<float2*>(out + static_cast<long long>(row) * N +
+                                   col) =
+            make_float2(acc[i] * step[col], acc[i + 1] * step[col + 1]);
+    }
+  }
+}
+
+template <int BITS, int BN>
+cudaError_t launch_qmm_tile(const void* x, const int8_t* w,
+                            const float* step, float* out, int M, int K,
+                            int N, cudaStream_t s) {
+  CUtensorMap mx, mw;
+  cudaError_t err = make_map_2d(&mx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                K, M, 64, TILE, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  err = make_map_2d(&mw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N,
+                    BITS == 4 ? K / 2 : K, BN, raw_rows<BITS>(),
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = qmm_smem_bytes<BITS, BN>();
+  err = cudaFuncSetAttribute(qmm_wgmma_kernel<BITS, BN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + BN - 1) / BN, (M + BLOCK_ROWS - 1) / BLOCK_ROWS);
+  qmm_wgmma_kernel<BITS, BN><<<grid, THREADS, smem, s>>>(mx, mw, step, out,
+                                                         M, K, N);
+  return cudaGetLastError();
+}
+
+// 256-column tiles halve how often each x tile is read, where they still
+// give every SM a block; otherwise 128-column tiles
+template <int BITS>
+cudaError_t launch_qmm(const void* x, const int8_t* w, const float* step,
+                       float* out, int M, int K, int N, cudaStream_t s) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const long long blocks256 = static_cast<long long>((N + 255) / 256) *
+                              ((M + BLOCK_ROWS - 1) / BLOCK_ROWS);
+  if (blocks256 >= sms)
+    return launch_qmm_tile<BITS, 256>(x, w, step, out, M, K, N, s);
+  return launch_qmm_tile<BITS, 128>(x, w, step, out, M, K, N, s);
+}
+
+}  // namespace wgmma_route
+
+namespace {
+
+enum Route { SKINNY = 0, WMMA = 1, WGMMA = 2 };
+
 template <int BITS>
 cudaError_t dispatch(const void* x, const int8_t* w, const float* step,
                      float* out, int M, int K, int N, int is_bf16, int vec,
-                     cudaStream_t s) {
-  if (!is_bf16)
-    return dispatch_skinny<float, BITS>(x, w, step, out, M, K, N, vec, s);
-  if (M <= 8)
-    return dispatch_skinny<__nv_bfloat16, BITS>(x, w, step, out, M, K, N, vec, s);
+                     int route, cudaStream_t s) {
+  if (route == SKINNY)
+    return is_bf16
+        ? dispatch_skinny<__nv_bfloat16, BITS>(x, w, step, out, M, K, N, vec, s)
+        : dispatch_skinny<float, BITS>(x, w, step, out, M, K, N, vec, s);
+  if (!is_bf16) return cudaErrorInvalidValue;
+  if (route == WGMMA) {
+    if (N % 16 != 0 || K % 8 != 0) return cudaErrorInvalidValue;
+    return wgmma_route::launch_qmm<BITS>(x, w, step, out, M, K, N, s);
+  }
+  if (route != WMMA) return cudaErrorInvalidValue;
   dim3 grid((N + WM_BN - 1) / WM_BN, (M + WM_BM - 1) / WM_BM);
   qmm_wmma_kernel<BITS><<<grid, WM_THREADS, 0, s>>>(
       static_cast<const __nv_bfloat16*>(x), w, step, out, M, K, N);
@@ -298,17 +561,21 @@ cudaError_t dispatch(const void* x, const int8_t* w, const float* step,
 // x: [M, K] bf16 (is_bf16 = 1) or f32; w: int8 codes [K, N] (bits 8) or
 // packed int4 [K/2, N] (bits 4, K even); step: [N] f32; out: [M, N] f32;
 // all contiguous. vec = 1 when N % 16 == 0 and w is 16-byte aligned.
-// Returns the cudaError_t of the launch (0 on success).
+// route: 0 the skinny kernel (any x dtype), 1 the wmma kernel, 2 the wgmma
+// kernel (both bf16 x; wgmma needs N % 16 == 0, K % 8 == 0 and 16-byte
+// aligned x and w). Returns the cudaError_t of the launch (0 on success;
+// 1 for a route that cannot take the shape, 500 when the driver has no
+// cuTensorMapEncodeTiled, 716 for a misaligned pointer on the wgmma route).
 extern "C" int quant_matmul(const void* x, const void* w, const void* step,
                             void* out, int M, int K, int N, int bits,
-                            int is_bf16, int vec, void* stream) {
+                            int is_bf16, int vec, int route, void* stream) {
   if (M < 1 || K < 1 || N < 1 || (bits == 4 && K % 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* wc = static_cast<const int8_t*>(w);
   const float* st = static_cast<const float*>(step);
   float* o = static_cast<float*>(out);
-  if (bits == 8) return (int)dispatch<8>(x, wc, st, o, M, K, N, is_bf16, vec, s);
-  if (bits == 4) return (int)dispatch<4>(x, wc, st, o, M, K, N, is_bf16, vec, s);
+  if (bits == 8) return (int)dispatch<8>(x, wc, st, o, M, K, N, is_bf16, vec, route, s);
+  if (bits == 4) return (int)dispatch<4>(x, wc, st, o, M, K, N, is_bf16, vec, route, s);
   return (int)cudaErrorInvalidValue;
 }

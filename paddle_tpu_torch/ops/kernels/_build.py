@@ -4,10 +4,11 @@ Every ``paddle_tpu_torch/csrc/<name>.cu`` compiles on its own with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds, not minutes), written to
 ``paddle_tpu_torch/_build/<name>-<hash>.so``. The hash covers the
-source and the flags, so an edited kernel rebuilds and an unchanged one
-is reused. Nothing builds at import time: the first wrapper call that
-needs a library builds it, and :func:`build` builds several at once,
-one ``nvcc`` process per source, all started together.
+source, every ``csrc/*.cuh`` header it includes and the flags, so an
+edited kernel or header rebuilds and an unchanged one is reused.
+Nothing builds at import time: the first wrapper call that needs a
+library builds it, and :func:`build` builds several at once, one
+``nvcc`` process per source, all started together.
 
 There is no fallback: without ``nvcc``, or when a build fails, the
 error is raised with the compiler's output.
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -51,9 +53,25 @@ def nvcc() -> str:
     return path
 
 
+def headers(name: str) -> list[str]:
+    """The csrc/ headers that csrc/<name>.cu includes (``#include "x.cuh"``),
+    directly or through another header, in the order first met."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        text = todo.pop(0).read_text()
+        for h in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, re.M):
+            if h not in found and (CSRC / h).exists():
+                found.append(h)
+                todo.append(CSRC / h)
+    return found
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in headers(name):
+        h.update(header.encode())
+        h.update((CSRC / header).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -5,6 +5,10 @@ Port of paddle_tpu/ops/pallas/flash_attention.py. Layout ``[B, H, S, d]``;
 the causal mask is aligned bottom-right (query i sees keys
 ``<= i + Skv - Sq``), which chunked prefill relies on when Sq < Skv.
 
+The forward's route depends on the dtype (:data:`FWD_ROUTES`): bf16 runs
+on the tensor cores (wgmma, tiles in by TMA, an online softmax on the
+accumulator fragment), f32 on the CUDA cores.
+
 The backward is the reference's FlashAttention-2 pair: the forward keeps
 the per-row log-sum-exp, and two kernels recompute each probability tile
 from it — one accumulates dq over k tiles, the other dk and dv over q
@@ -25,18 +29,20 @@ from .primitives import causal_mask
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
-# the backward kernels' route by dtype: bf16 products on the tensor cores
-# (wgmma, tiles in by TMA), f32 on the CUDA cores (a tensor-core f32
-# product would be TF32)
+# the forward and backward kernels' route by dtype: bf16 products on the
+# tensor cores (wgmma, tiles in by TMA), f32 on the CUDA cores (a
+# tensor-core f32 product would be TF32)
+FWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda-core f32"}
 BWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda-core f32"}
 
 
 def xla_attention(q, k, v, scale, causal, with_lse=False):
     """Plain attention, the port of ``_xla_attention``: f32 scores,
     ``-1e30`` causal mask, softmax, probabilities cast to q's dtype
-    before the PV product (the CUDA kernel keeps them in f32, so the two
-    differ by bf16 rounding in bf16). With ``with_lse`` also returns the
-    per-row log-sum-exp [B, H, Sq] in f32."""
+    before the PV product (the bf16 kernel rounds them against the running
+    max of each 64-key tile, so the two differ by bf16 rounding in bf16).
+    With ``with_lse`` also returns the per-row log-sum-exp [B, H, Sq] in
+    f32."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal:
         logits = causal_mask(logits, 0, 0, k.shape[-2] - q.shape[-2])

@@ -8,6 +8,13 @@ along K ``[K/2, N]`` (bits 4, ``gpt_quant.pack_int4`` layout) and ``step``
 the f32 ``[N]`` per-output-column steps. The codes multiply in x's dtype
 (int8 and int4 magnitudes are exact in bf16), the sum is f32, and the step
 multiplies the sum once.
+
+Three hand-written kernels, one chosen by shape before the launch
+(:func:`quant_matmul_route`): the decode form ``skinny`` (CUDA-core FMAs,
+M <= 8 or f32 x), the prefill form ``wgmma`` (bf16 x on the tensor cores,
+tiles in by TMA, codes converted to bf16 in shared memory) and, for the
+shapes TMA cannot map, ``wmma``. Each launch is counted in
+``quant_matmul.launches`` and in ``quant_matmul.routes``.
 """
 from __future__ import annotations
 
@@ -20,6 +27,24 @@ from . import _build
 from .primitives import f32_mm
 
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("skinny", "wmma", "wgmma")     # the C entry's route numbers
+
+
+def quant_matmul_route(M: int, K: int, N: int, bits: int, x_dtype,
+                       aligned: bool) -> str:
+    """The kernel a CUDA call of :func:`quant_matmul` launches: ``skinny``
+    for f32 x or M <= 8 (decode: bound by the code bytes), else ``wgmma``
+    where TMA can map x [M, K] bf16 and the codes [K or K/2, N] int8 (16-byte
+    row strides, N % 16 == 0 and K % 8 == 0; ``aligned``: both base
+    pointers 16-byte aligned), else ``wmma``. ``bits`` does not change the
+    rule: int4's packed rows keep the codes' N-byte stride and halve K's."""
+    if bits not in (4, 8):
+        raise ValueError(f"quant_matmul supports bits in (4, 8), got {bits}")
+    if x_dtype != torch.bfloat16 or M <= 8:
+        return "skinny"
+    if aligned and N % 16 == 0 and K % 8 == 0:
+        return "wgmma"
+    return "wmma"
 
 
 def quant_matmul_ref(x, wq, step, bits: int = 8):
@@ -34,7 +59,7 @@ def quant_matmul_ref(x, wq, step, bits: int = 8):
 def _lib():
     fn = _build.load("quant_matmul").quant_matmul
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -72,8 +97,9 @@ def _check_inputs(x, wq, step, bits):
 
 def quant_matmul(x, wq, step, bits: int = 8):
     """``x [M, K] @ dequant(wq) -> [M, N]`` f32. A CPU tensor runs the
-    plain version; a CUDA tensor launches the kernel (any M, K, N; int4
-    needs an even K) or raises."""
+    plain version; a CUDA tensor launches the kernel that
+    :func:`quant_matmul_route` picks (any M, K, N; int4 needs an even K) or
+    raises."""
     _check_inputs(x, wq, step, bits)
     if x.device.type == "cpu":
         return quant_matmul_ref(x, wq, step, bits)
@@ -83,12 +109,18 @@ def quant_matmul(x, wq, step, bits: int = 8):
     N = wq.shape[1]
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     vec = int(N % 16 == 0 and wq.data_ptr() % 16 == 0)
+    route = quant_matmul_route(
+        M, K, N, bits, x.dtype,
+        x.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0)
     err = _lib()(x.data_ptr(), wq.data_ptr(), step.data_ptr(),
                  out.data_ptr(), M, K, N, bits, _X_DTYPES[x.dtype], vec,
+                 ROUTES.index(route),
                  torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "quant_matmul")
+    _build.check(err, f"quant_matmul ({route})")
     quant_matmul.launches += 1
+    quant_matmul.routes[route] += 1
     return out
 
 
 quant_matmul.launches = 0
+quant_matmul.routes = dict.fromkeys(ROUTES, 0)

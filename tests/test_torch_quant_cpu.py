@@ -255,9 +255,10 @@ def test_quant_matmul_plain_matches_fallback_on_ragged_shapes(bits, dtype):
 
 def test_quant_matmul_wrapper_cpu_meta_and_checks():
     x, q, step = (torch.from_numpy(a) for a in _qmm_inputs(4, 3, 48, 200, 9))
-    before = quant_matmul.launches
+    before, routes = quant_matmul.launches, dict(quant_matmul.routes)
     out = quant_matmul(x, q, step, 4)
     assert quant_matmul.launches == before
+    assert quant_matmul.routes == routes
     assert torch.equal(out, quant_matmul_ref(x, q, step, 4))
     with pytest.raises(ValueError, match="no kernel"):
         quant_matmul(x.to("meta"), q.to("meta"), step.to("meta"), 4)
