@@ -17,11 +17,16 @@ Phases, each fatal on failure:
               version on the same inputs (stated tolerance; the flash
               forward's and backward's route by dtype, wgmma for bf16,
               CUDA-core for f32, with TFLOP/s and share of the bound;
-              quant_matmul's route by shape, skinny, wgmma or wmma, printed
-              in every case; the paged
+              quant_matmul's route by shape, gemv, skinny, wgmma or wmma,
+              printed in every case, each case also bitwise against a second
+              launch, the decode form timed with its weights cold in L2 as
+              well; the paged
               decode kernels also bitwise against the dense ones over the
               gathered view; the fused bias-dropout-residual LayerNorm at
-              [8192, 2048] and edge shapes; the Triton factories on ReLU,
+              [8192, 2048] and edge shapes, its route (warp or block)
+              printed, bitwise against a second launch; the decode
+              attention kernels' device time beside their CUDA-event time;
+              the Triton factories on ReLU,
               a*b+1, sum and max at 2^24 f32, ragged and empty), and time the
               kernel, the plain version and one PyTorch library call that
               computes the same function, beside the least time the card
@@ -45,16 +50,19 @@ Phases, each fatal on failure:
               server's 12-request replay (w8kv8 whole-prompt and
               prefill_chunk=128, w4kv8 whole-prompt). Launch counts are
               checked exactly: 48 quant_matmul a forward (prefill, suffix
-              chunk or decode tick), 24 flash forwards a whole-prompt
-              prefill, 24 decode_attention_q8 a decode tick, no fp decode
-              attention. Prints the quant byte accounting, a w8kv8 profile
+              chunk or decode tick; generate()'s prefills on the wgmma
+              route and its decode ticks on gemv, exactly; the replays' decode
+              ticks on gemv and none on skinny), 24 flash forwards a
+              whole-prompt prefill, 24 decode_attention_q8 a decode tick, no
+              fp decode attention. Prints the quant byte accounting, a w8kv8 profile
               of a prefill and 16 decode ticks and, as information, the top-1
               agreement and largest logit difference against the bf16
               model on one prefill.
 7. quant_parity — gpt3_1p3b(n_layers=2, f32) in w8kv8 and w4kv8: the CPU
               and the card quantize the same numpy weights to equal codes
               and agree on prefill and 4 decode steps' logits (1e-3) with
-              identical greedy tokens.
+              identical greedy tokens; every card launch of quant_matmul
+              (f32 x) on the skinny route.
 8. paged    — paged KV serving at full gpt3_1p3b width (bf16, page size =
               decode_block = 128, 8 slots x 512 positions): the server's
               12-request replay on a paged session (33 pages) and on a dense
@@ -278,16 +286,22 @@ class Smoke:
 
     def device_ms(self, fn, iters=20) -> float:
         """Device time of one call of ``fn``: the kernels' summed time over
-        ``iters`` calls under torch.profiler, without the host's time."""
+        ``iters`` calls under torch.profiler, without the host's time. A
+        session that recorded no kernel (the profiler now and then loses
+        one) is taken again, up to three times."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        return _device_rows(torch, prof, 0)[0] / iters
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            ms = _device_rows(torch, prof, 0)[0]
+            if ms > 0:
+                break
+        return ms / iters
 
     # ------------------------------------------------------------ build
     def phase_build(self):
@@ -426,6 +440,8 @@ class Smoke:
         t_ops = ops / PEAK_OPS["f32"] * 1e3
         case["ms"] = self.time_ms(
             lambda: da.decode_attention(q, kc, vc, pos, scale), iters=200)
+        case["device_ms"] = self.device_ms(
+            lambda: da.decode_attention(q, kc, vc, pos, scale))
         posl = pos.long()
         case["plain_ms"] = self.time_ms(
             lambda: da.bounded_decode_attention(q, kc, vc, posl, scale,
@@ -691,10 +707,23 @@ class Smoke:
         log(f"[kernels] {json.dumps(case)}")
         self.rows["fused_adamw"] = case
 
+    def device_ms_cold(self, calls, iters=None) -> float:
+        """Device time of one call with its operands cold in L2: ``calls``
+        each run on their own copy of the operands, in turn, so between two
+        calls on one copy all the others (>= 100 MB, twice the 50 MB L2)
+        pass through the cache, as the decode tick's 48 weight matrices
+        do."""
+        turn = iter(range(1 << 62))
+        return self.device_ms(lambda: calls[next(turn) % len(calls)](),
+                              iters=iters or 2 * len(calls))
+
     def _qmm_case(self, M, K, N, bits, dtype, time_it, main=False):
         """quant_matmul against its plain version (error relative to
-        max|out|), and with time_it its time beside the bound, the plain
-        version and torch.mm on the pre-dequantized weight."""
+        max|out|) and against itself (two launches, bitwise), and with
+        time_it its time beside the bound, the plain version and torch.mm on
+        the pre-dequantized weight; the decode form (M <= 8) is also timed
+        with its operands cold in L2, beside torch.mm under the same
+        rotation."""
         torch = self.torch
         from paddle_tpu_torch.ops.kernels import quant_matmul as qm
         from paddle_tpu_torch.quantization import gpt_quant as gq
@@ -713,13 +742,19 @@ class Smoke:
         route = qm.quant_matmul_route(
             M, K, N, bits, dtype,
             x.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0)
+        repeat = bool(torch.equal(qm.quant_matmul(x, wq, step, bits), out))
         case = dict(kernel="quant_matmul", M=M, K=K, N=N, bits=bits,
                     x_dtype=tname, route=route, max_abs_err=err,
-                    rel_err=rel, tol_rel_to_max_out=QMM_TOL)
+                    rel_err=rel, tol_rel_to_max_out=QMM_TOL,
+                    repeats_bitwise=repeat)
+        if route == "gemv":
+            case["split"] = qm.gemv_split(M, K, N, bits,
+                                          qm._sm_count(x.device))
         log(f"[kernels] {json.dumps(case)}")
-        if not bool(torch.isfinite(out).all()) or rel > QMM_TOL:
+        if not bool(torch.isfinite(out).all()) or rel > QMM_TOL \
+                or not repeat:
             raise AssertionError(f"quant_matmul disagrees with its plain "
-                                 f"version: {case}")
+                                 f"version or with itself: {case}")
         if not time_it:
             return case
         code_bytes = wq.numel()
@@ -742,6 +777,23 @@ class Smoke:
                            "PyTorch call multiplies the int8 codes")
         case["codes_GB_per_s"] = code_bytes / case["ms"] / 1e6
         case["TFLOP_per_s"] = 2 * M * K * N / case["ms"] / 1e9
+        if M <= 8:
+            # L2-cold: enough copies of the codes (and of the bf16 weight)
+            # that the rotation streams >= 100 MB
+            copies = [wq] + [wq.clone() for _ in range(
+                -(-100_000_000 // code_bytes))]
+            case["device_ms_cold"] = self.device_ms_cold(
+                [lambda c=c: qm.quant_matmul(x, c, step, bits)
+                 for c in copies])
+            del copies
+            w_copies = [w_deq] + [w_deq.clone() for _ in range(
+                -(-100_000_000 // (w_deq.numel() * w_deq.element_size())))]
+            case["library_device_ms_cold"] = self.device_ms_cold(
+                [lambda c=c: torch.mm(x, c, out_dtype=torch.float32)
+                 if dtype == torch.bfloat16 else x @ c for c in w_copies])
+            del w_copies
+            case["codes_GB_per_s_cold"] = code_bytes \
+                / case["device_ms_cold"] / 1e6
         log(f"[kernels] {json.dumps(case)}")
         if main:
             self.rows["quant_matmul"] = case
@@ -801,6 +853,8 @@ class Smoke:
         case.update(self._bound(ops, nbytes, "f32"))
         case["ms"] = self.time_ms(
             lambda: da.decode_attention_q8(q, kc, vc, pos, scale), iters=200)
+        case["device_ms"] = self.device_ms(
+            lambda: da.decode_attention_q8(q, kc, vc, pos, scale))
         posl = pos.long()
         case["plain_ms"] = self.time_ms(
             lambda: da.bounded_decode_attention(q, kc, vc, posl, scale,
@@ -903,6 +957,8 @@ class Smoke:
         case.update(self._bound(ops, nbytes, "f32"))
         case["ms"] = self.time_ms(lambda: kern(q, kp, vp, pos, ptab, scale),
                                   iters=200)
+        case["device_ms"] = self.device_ms(
+            lambda: kern(q, kp, vp, pos, ptab, scale))
         posl = pos.long()
         case["plain_ms"] = self.time_ms(
             lambda: da.bounded_decode_attention(q, kp, vp, posl, scale, ps,
@@ -973,17 +1029,24 @@ class Smoke:
         torch.cuda.synchronize()
         ref = fr.fused_bias_dropout_residual_ln_ref(*args, seed, p, 1e-5,
                                                     training)
-        tname = "bf16" if dtype == torch.bfloat16 else "f32"
+        tname = {torch.bfloat16: "bf16", torch.float16: "f16"}.get(dtype,
+                                                                  "f32")
+        # f16 has 3 more mantissa bits than bf16: bf16's step holds it
+        tol = FLN_TOL["f32" if tname == "f32" else "bf16"]
         # relative to max(|plain|, 1): a mask bit off is an O(1) error
         err = ((out.float() - ref.float()).abs()
                / ref.float().abs().clamp_min(1.0)).max().item()
+        repeat = bool(torch.equal(
+            fr.fused_bias_dropout_residual_ln(*args, **kw), out))
+        route = fr.fused_residual_ln_route(D, dtype, True)
         case = dict(kernel="fused_residual_ln", shape=[N, D], dtype=tname,
-                    training=training, p=p, max_abs_err=err,
-                    tol=FLN_TOL[tname])
+                    route=route, training=training, p=p, max_abs_err=err,
+                    tol=tol, repeats_bitwise=repeat)
         log(f"[kernels] {json.dumps(case)}")
-        if not bool(torch.isfinite(out.float()).all()) or err > FLN_TOL[tname]:
+        if not bool(torch.isfinite(out.float()).all()) or err > tol \
+                or not repeat:
             raise AssertionError(f"fused_residual_ln disagrees with its plain "
-                                 f"version: {case}")
+                                 f"version or with itself: {case}")
         if not time_it:
             return case
         case["ms"] = self.time_ms(
@@ -1011,18 +1074,23 @@ class Smoke:
     def _fused_ln_cases(self):
         torch = self.torch
         from paddle_tpu_torch.ops.kernels import fused_residual_ln as fr
-        bf16, f32 = torch.bfloat16, torch.float32
+        bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
         # the incubate phase's shape: gpt3_1p3b's d_model over the train
         # phase's B x S = 4 x 2048 tokens, training (p = 0.1) and eval
-        for dt in (bf16, f32):
+        for dt in (bf16, f32, f16):
             for training in (True, False):
                 self._fused_ln_case(4 * 2048, 2048, dt, training, 0.1,
                                     dt is bf16,
                                     main=dt is bf16 and training)
+        # the warp route (D = 2048, 96, 64, one row, 70000 rows: the hash's
+        # row wraps past 2^16) and the block route (D = 2050: rows not
+        # 16-byte aligned; D = 8192: too wide for a warp)
         for N, D in ((1, 2048), (1000, 2048), (1000, 96), (77, 2050),
                      (3, 8192), (70000, 64)):
-            for dt in (bf16, f32):
+            for dt in (bf16, f32, f16):
                 self._fused_ln_case(N, D, dt, True, 0.5, False)
+        for p in (1e-6, 0.9):
+            self._fused_ln_case(1000, 2048, bf16, True, p, False)
         wide = torch.zeros((2, fr.MAX_D + 1), device=self.dev)
         vec = torch.zeros(fr.MAX_D + 1, device=self.dev)
         try:
@@ -1159,21 +1227,27 @@ class Smoke:
         # the wgmma route's offset diagonal (Sq < Skv) at the model's d
         self._flash_bwd_case(2, 16, 192, 320, 128, bf16, True, False)
         self._adamw_cases()
-        # quant_matmul at the quant phase's FFN shapes: decode (M = 4, 8)
-        # and a B=4 x P=256 prefill (M = 1024), w_in and w_out
+        # quant_matmul at the quant phase's FFN shapes: decode (the gemv
+        # route at M = 1, 2, 4, 8; generate()'s B = 4 and the engine's 8
+        # slots timed, warm and L2-cold) and a B=4 x P=256 prefill
+        # (M = 1024), w_in and w_out
         for bits in (8, 4):
             for K, N in ((2048, 8192), (8192, 2048)):
-                for M in (4, 8, 1024):
-                    self._qmm_case(M, K, N, bits, bf16, True,
+                for M in (1, 2, 4, 8, 1024):
+                    self._qmm_case(M, K, N, bits, bf16, M in (4, 8, 1024),
                                    main=(bits, K, M) == (8, 2048, 8))
             # ragged M on the wgmma route (one partial 128-row block)
             for M in (37, 100):
                 self._qmm_case(M, 2048, 8192, bits, bf16, False)
-            # ragged edges: the skinny kernel over several row blocks, the
+            # ragged edges: the skinny kernel over several row blocks (f32
+            # x, and bf16 x at N % 16 != 0, which gemv cannot map), the
             # wmma route (N % 16 != 0: no tensor map) and its tile's masks,
-            # f32 and bf16 x
+            # and gemv with a ragged K and a part column tile
             for M, dt in ((3, f32), (20, f32), (37, bf16), (3, bf16)):
                 self._qmm_case(M, 48, 200, bits, dt, False)
+            for M in (1, 3, 8):
+                self._qmm_case(M, 48, 208, bits, bf16, False)
+            self._qmm_case(5, 1000, 400, bits, bf16, False)
         # decode_attention_q8: the server's decode shape (main), generate's,
         # a long cache, and an edge case
         self._decode_q8_case(8, 16, 512, 128, 1, True, main=True)
@@ -1480,6 +1554,22 @@ class Smoke:
         if counts != full:
             raise AssertionError(f"{path} launches {counts}, expected {full}")
 
+    def _expect_routes(self, path, want=None, decode=0):
+        """quant_matmul's launches by route in a counted window: exactly
+        ``want``, or (``decode``) no skinny launch and at least ``decode``
+        on gemv (a suffix chunk of 8 tokens or fewer takes gemv too)."""
+        from paddle_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+        routes = dict(quant_matmul.routes)
+        if want is not None:
+            full = {r: want.get(r, 0) for r in routes}
+            if routes != full:
+                raise AssertionError(f"{path} quant_matmul routes {routes}, "
+                                     f"expected {full}")
+        elif routes["skinny"] or routes["gemv"] < decode:
+            raise AssertionError(f"{path} quant_matmul routes {routes}: "
+                                 f"{decode} bf16 decode launches should "
+                                 f"take gemv, none skinny")
+
     def _server_trace(self, cfg):
         import numpy as np
         rng = np.random.default_rng(1)
@@ -1522,6 +1612,8 @@ class Smoke:
             "quant_matmul": 2 * L * (prefills + ticks),
             "flash_attention_fwd": L * prefills,
             "decode_attention_q8": L * ticks})
+        self._expect_routes(f"quant {tag} generate", {
+            "wgmma": 2 * L * prefills, "gemv": 2 * L * ticks})
         ms_tok = (t[1] - t[0]) / (N - 1) * 1e3
         log("[quant] " + json.dumps(dict(
             mode=tag, path="generate", batch=B, prompt=P, new_tokens=N,
@@ -1571,6 +1663,7 @@ class Smoke:
                 "quant_matmul": 2 * L * (met["prefill_chunks"]
                                          + met["decode_ticks"]),
                 "decode_attention_q8": L * met["decode_ticks"]})
+            self._expect_routes(path, decode=2 * L * met["decode_ticks"])
             toks = sum(len(r.output) for r in reqs)
             log("[quant] " + json.dumps(dict(
                 mode=tag, path="server", prefill_chunk=chunk,
@@ -1636,6 +1729,7 @@ class Smoke:
         for mode, bits in (("int8", 8), ("int4", 4)):
             cfg = gpt.gpt3_1p3b(n_layers=2, dtype=torch.float32,
                                 weight_quant=mode, kv_cache_dtype="int8")
+            self._zero_counts()
             sides = {}
             for dev in ("cpu", self.dev):
                 qp = quantize_gpt_params(weights[str(dev)], cfg, bits)
@@ -1657,6 +1751,9 @@ class Smoke:
                         side["kc"], side["vc"])
                     side["logits"].append(logits.cpu())
                 toks = cpu["logits"][-1].argmax(-1)
+            # f32 x: every launch on the card took the skinny kernel
+            self._expect_routes(f"quant_parity w{bits}kv8", {
+                "skinny": 2 * cfg.n_layers * 5})
             errs = [(c - g).abs().max().item()
                     for c, g in zip(cpu["logits"], card["logits"])]
             same_tokens = all(torch.equal(c.argmax(-1), g.argmax(-1))
@@ -1753,6 +1850,8 @@ class Smoke:
             want["quant_matmul"] = 2 * L * (line["suffix_prefills"]
                                             + line["decode_ticks"])
         self._expect_counts(tag, counts, want)
+        if quant:
+            self._expect_routes(tag, decode=2 * L * line["decode_ticks"])
 
     def _shared_prefix_trace(self, cfg, n=12, prefix=256):
         """``n`` requests sharing a ``prefix``-token prefix (two pages),
@@ -1922,6 +2021,7 @@ class Smoke:
                 n_layers=2, dtype=torch.float32, weight_quant="int8",
                 kv_cache_dtype="int8")
             logits = {}
+            self._zero_counts()
             for dev in ("cpu", self.dev):
                 params = weights[str(dev)] if tag == "fp" else \
                     quantize_gpt_params(weights[str(dev)], cfg, 8)
@@ -1934,6 +2034,14 @@ class Smoke:
                     sess.step()
                     seen.append(sess._logits.cpu())
                 logits[str(dev)] = seen
+            if tag == "w8kv8":   # f32 x: every launch on the skinny kernel
+                from paddle_tpu_torch.ops.kernels.quant_matmul import (
+                    quant_matmul)
+                if not quant_matmul.launches:
+                    raise AssertionError("paged_parity w8kv8: no quant_matmul "
+                                         "launch on the card")
+                self._expect_routes(f"paged_parity {tag}", {
+                    "skinny": quant_matmul.launches})
             cpu, card = logits["cpu"], logits[str(self.dev)]
             errs = [(c - g).abs().max().item() for c, g in zip(cpu, card)]
             same = all(torch.equal(c.argmax(-1), g.argmax(-1))

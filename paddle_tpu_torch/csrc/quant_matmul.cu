@@ -17,9 +17,45 @@
 //     is at most 16 operations a byte, far below the ~295 the tensor cores
 //     need, so the least time is the codes over 3.35 TB/s (w_in of
 //     gpt3_1p3b: 16.8 MB int8, 8.4 MB int4).
+//     At M = 8 on the CUDA cores the math is about level with the bytes
+//     (M*K*N = 134 M f32 FMAs at w_in, ~0.004 ms on 132 SMs x 128 lanes,
+//     plus a conversion a code); measured, such a kernel's time grew
+//     with every row of x, so the decode form does its products on the
+//     tensor cores.
 //   - prefill (M = B*P, hundreds to thousands): operations, 2*M*K*N at
 //     989 TFLOP/s bf16.
 // What the design does:
+//   - qmm_gemv_kernel (the decode form: bf16 x, M <= 8, N % 16 == 0,
+//     K % 8 == 0, 16-byte aligned x and codes): mma.sync m16n8k16 (bf16 in,
+//     f32 accumulate) with the 8 rows of x (rows past M zero) as the n = 8
+//     side and 16 output columns as the m = 16 side, so the time does not
+//     grow with M. A cluster of `split` blocks (at most 4) owns 128 output
+//     columns and splits K: rank q sums packed code rows
+//     [q * rows_per, (q + 1) * rows_per), rows_per whole stages of 128.
+//     The wrapper picks split (gemv_split in ops/kernels/quant_matmul.py):
+//     the largest power of two up to 4 that keeps all blocks at once, one
+//     an SM (w_in: 64 tiles x 2; w_out: 16 tiles x 4). A block of 16 warps
+//     streams its rank's rows through a ring of 4 stages of 128 rows x 128
+//     bytes (64 KB) in shared memory, filled by cp.async (3 stages, 48 KB,
+//     in flight, no registers held); every thread copies two 16-byte
+//     chunks a stage, neighbouring threads on neighbouring chunks of a row,
+//     so each row is read as one whole 128-byte segment. The K slice of x
+//     is copied once into shared memory as bf16 [8][k] (the B operand, 8
+//     bytes a thread a k step, as stored). Warp w takes 32 columns and a
+//     quarter of each stage's k steps; for a k step thread (gid, tig) loads
+//     one 4-byte word of 4 columns from each of its 4 K rows (int4: 2
+//     packed rows), byte-transposes them with prmt into K pairs of one
+//     column, and converts each pair to bf16x2 exactly: int8, the low 7
+//     bits under a bf16 exponent of 2^7 less 128 or 256 by the sign bit;
+//     int4, the nibble xor 8 under 2^7 less 136 (one prmt, one or two
+//     logic ops and one bf16x2 subtraction a pair). The mma's k order is
+//     permuted alike in both operands (its pairs 2 tig, 2 tig + 8 are K
+//     rows 4 tig .. 4 tig + 3), so no x value moves. The ring's 16-byte
+//     chunks are stored xor-swizzled by row, so a warp's word loads hit 32
+//     banks. The partial sums meet in a fixed order, so a result repeats
+//     bitwise: the column's 4 warps (shared memory), then the cluster's
+//     ranks in rank order through distributed shared memory; the step
+//     multiplies each total once. One launch, no atomics, no workspace.
 //   - qmm_skinny_kernel (M up to 8 per block, any x dtype): CUDA-core FMAs,
 //     no tensor cores (a 16-row MMA tile would be half empty or worse). A
 //     block owns 16 output columns, so even N = 2048 gives 128 blocks to
@@ -29,7 +65,8 @@
 //     an f32 accumulator per (row of x, column). The partial sums meet
 //     once at the end (warp shuffles, then shared memory) and the step
 //     multiplies the total. f32 x (parity runs) takes this kernel at any
-//     M, 8 rows of x per block row.
+//     M, 8 rows of x per block row, and so do the bf16 decode shapes the
+//     gemv kernel cannot map.
 //   - qmm_wgmma_kernel (bf16 x, M > 8, and shapes TMA can map: N % 16 == 0,
 //     K % 8 == 0, 16-byte aligned x and codes): a 128 x BN output tile per
 //     block of two consumer warpgroups (64 rows each, one m64nBN f32
@@ -532,19 +569,359 @@ cudaError_t launch_qmm(const void* x, const int8_t* w, const float* step,
 
 }  // namespace wgmma_route
 
+// ---------------------------------------------------------------- gemv route
+namespace gemv_route {
+
+using namespace sm90;
+
+constexpr int GV_THREADS = 512;
+constexpr int GV_WARPS = GV_THREADS / 32;
+constexpr int GV_BN = 128;              // columns a cluster owns
+constexpr int GV_WARP_COLS = 32;        // columns a warp owns: two mma tiles
+constexpr int GV_KQ = GV_WARPS / (GV_BN / GV_WARP_COLS);   // 4 warps a column
+constexpr int GV_STAGE_ROWS = 128;      // packed code rows of a ring stage
+constexpr int GV_STAGE_BYTES = GV_STAGE_ROWS * GV_BN;      // 16 KB
+constexpr int GV_STAGES = 4;            // ring stages (64 KB a block)
+constexpr int GV_MAX_SPLIT = 4;         // blocks a cluster
+constexpr int GV_MAX_SLICE_K = 4096;    // K rows of x a block stages
+constexpr int GV_XPAD = 16;             // bf16 between two staged rows of x
+// the warps' partial sums [kq][8][BN] f32 reuse the ring once it is drained
+static_assert(GV_KQ * 8 * GV_BN * 4 <= GV_STAGES * GV_STAGE_BYTES, "");
+
+// 16 bytes global -> shared without registers; src_bytes 0 writes zeros
+// and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// every thread of every block of the cluster; release/acquire order the
+// shared-memory stores before it against the remote loads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float at p's offset in the shared memory of cluster block `rank`
+__device__ __forceinline__ float ld_cluster(const float* p, int rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// the 16-byte chunk c of ring row r sits at chunk c ^ swizzle(r): the four
+// rows a warp's quads read at once (r / 4 or, int4, r / 2 apart by one)
+// land in four different pairs of chunks, so a warp's loads touch 32
+// different banks
+template <int BITS>
+__device__ __forceinline__ int swizzle(int r) {
+  return 2 * ((r >> (BITS == 8 ? 2 : 1)) & 3);
+}
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  return __byte_perm(a, b, sel);
+}
+__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// two int8 codes (bytes lo, hi of t at 2j, 2j + 1) as bf16x2, exactly:
+// with each byte in the low byte of a bf16 of exponent 2^7 (0x43..), the
+// low 7 bits give 128 + low7, and the sign bit picks 128 or 256 to take
+// away: low7 - 128 s = the code
+__device__ __forceinline__ uint32_t s8x2_bf16(uint32_t t, int j) {
+  const uint32_t h = prmt(t, 0x43434343u, j ? 0x4342u : 0x4140u);
+  return sub_bf16x2(h & 0xFF7FFF7Fu, (h & 0x00800080u) | 0x43004300u);
+}
+
+// the two nibbles of byte j of v as bf16x2 (low nibble in the low half),
+// exactly: s = v >> 4 holds the high nibble in its byte's low bits; each
+// biased nibble (n ^ 8) below 0x43 gives 128 + n ^ 8, less 136
+__device__ __forceinline__ uint32_t s4x2_bf16(uint32_t v, uint32_t s, int j) {
+  const uint32_t h = prmt(v, s, 0x0400u | ((4 + j) << 8) | j);
+  return sub_bf16x2((h & 0x000F000Fu) ^ 0x43084308u, 0x43084308u);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k step (16 K rows) of a warp's 32 columns: two m16n8k16 products,
+// D[n][m] += W[k][n] x[m][k], with rows of x as the n = 8 side. Thread
+// (group gid = lane / 4, tig = lane % 4) reads one 4-byte word of 4
+// columns (cb + 4 gid .. + 3) from each of its rows and the 4 x values
+// x[gid][k0 + 4 tig .. + 3]. The mma's k order is permuted alike in both
+// operands: its k pairs (2 tig, 2 tig + 1) and (2 tig + 8, 2 tig + 9) are
+// K rows k0 + 4 tig .. + 3. Its 16 rows (output columns) are the thread
+// group's columns: tile 0 row gid = column cb + 4 gid, row gid + 8 =
+// cb + 4 gid + 1; tile 1 the next two.
+template <int BITS>
+__device__ __forceinline__ void mma_kstep(float (&d)[2][4],
+                                          const uint8_t* slot, int s, int cb,
+                                          int gid, int tig,
+                                          const __nv_bfloat16* xk) {
+  const int chunk = cb / 16 + gid / 4, in = 4 * (gid % 4);
+  uint32_t a[2][4];
+  if constexpr (BITS == 8) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 16 * s + 4 * tig + i;
+      u[i] = *reinterpret_cast<const uint32_t*>(
+          slot + r * GV_BN + ((chunk ^ swizzle<8>(r)) << 4) + in);
+    }
+    // [k0 c0, k1 c0, k0 c1, k1 c1] and the same for columns 2, 3 / rows 2, 3
+    const uint32_t t01[2] = {prmt(u[0], u[1], 0x5140u),
+                             prmt(u[0], u[1], 0x7362u)};
+    const uint32_t t23[2] = {prmt(u[2], u[3], 0x5140u),
+                             prmt(u[2], u[3], 0x7362u)};
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      a[t][0] = s8x2_bf16(t01[t], 0);
+      a[t][1] = s8x2_bf16(t01[t], 1);
+      a[t][2] = s8x2_bf16(t23[t], 0);
+      a[t][3] = s8x2_bf16(t23[t], 1);
+    }
+  } else {
+    // packed rows 8 s + 2 tig (K rows 4 tig, 4 tig + 1) and + 1 (the next 2)
+    uint32_t v[2], sh[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 8 * s + 2 * tig + i;
+      v[i] = *reinterpret_cast<const uint32_t*>(
+          slot + r * GV_BN + ((chunk ^ swizzle<4>(r)) << 4) + in);
+      sh[i] = v[i] >> 4;
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      a[t][0] = s4x2_bf16(v[0], sh[0], 2 * t);
+      a[t][1] = s4x2_bf16(v[0], sh[0], 2 * t + 1);
+      a[t][2] = s4x2_bf16(v[1], sh[1], 2 * t);
+      a[t][3] = s4x2_bf16(v[1], sh[1], 2 * t + 1);
+    }
+  }
+  const uint2 b = *reinterpret_cast<const uint2*>(xk + 4 * tig);
+  mma_bf16(d[0], a[0], b.x, b.y);
+  mma_bf16(d[1], a[1], b.x, b.y);
+}
+
+// grid (split, column tiles), one cluster of `split` blocks a column tile:
+// cluster rank q sums packed code rows [q * rows_per, (q + 1) * rows_per)
+// (rows_per a multiple of 128) of columns [n0, n0 + 128). The rank's rows
+// stream through a ring of GV_STAGES stages of 128 rows x 128 bytes, every
+// thread copying two 16-byte chunks a stage with cp.async (neighbouring
+// threads on neighbouring chunks of a row); its K slice of x is staged
+// once, bf16 [8][k], rows past M zero. Warp w owns columns
+// n0 + 32 (w % 4) .. + 31 and the k steps of every stage's quarter w / 4.
+template <int BITS>
+__global__ void __launch_bounds__(GV_THREADS, 2)
+qmm_gemv_kernel(const __nv_bfloat16* __restrict__ x,
+                const int8_t* __restrict__ w, const float* __restrict__ step,
+                float* __restrict__ out, int M, int K, int N, int rows_per) {
+  constexpr int R_PER = BITS == 4 ? 2 : 1;   // K rows a packed row
+  constexpr int KSTEPS = GV_STAGE_ROWS * R_PER / 16;   // k steps a stage
+  constexpr int OUTS = 8 * GV_BN;                      // partial sums a block
+  extern __shared__ float4 gv_smem[];
+  // the code ring (then the warps' partials), the x slice, the block's
+  // partials [8][BN]
+  uint8_t* ring = reinterpret_cast<uint8_t*>(gv_smem);
+  float* red = reinterpret_cast<float*>(ring);
+  const int kpad = rows_per * R_PER, xstride = kpad + GV_XPAD;
+  __nv_bfloat16* xs =
+      reinterpret_cast<__nv_bfloat16*>(ring + GV_STAGES * GV_STAGE_BYTES);
+  float* part = reinterpret_cast<float*>(xs + 8 * xstride);
+
+  const int split = gridDim.x;   // the cluster spans the grid's x
+  const int rank = cluster_rank();
+  const int n0 = blockIdx.y * GV_BN;
+  const int R = K / R_PER;
+  const int r_lo = min(R, rank * rows_per);
+  const int rows = min(R, r_lo + rows_per) - r_lo;
+  const int n_stages = (rows + GV_STAGE_ROWS - 1) / GV_STAGE_ROWS;
+  const int tid = threadIdx.x;
+  const int8_t* wr = w + static_cast<long long>(r_lo) * N + n0;
+
+  // x [M][K] -> xs [8][kpad]: rows past M and K rows past the rank's end
+  // are 0 (K % 8 == 0: whole chunks)
+  const int kn = rows * R_PER, k_lo = r_lo * R_PER;
+  for (int c = tid; c < 8 * (kpad / 8); c += GV_THREADS) {
+    const int m = c / (kpad / 8), k = (c % (kpad / 8)) * 8;
+    const bool in = m < M && k < kn;
+    cp_async16(xs + m * xstride + k,
+               in ? x + static_cast<long long>(m) * K + k_lo + k : x,
+               in ? 16 : 0);
+  }
+  cp_async_commit();
+  // stage t of the rank's rows into ring slot t % GV_STAGES; rows past the
+  // rank's end and columns past N (N % 16 == 0: whole chunks) read as 0
+  auto issue = [&](int t) {
+    uint8_t* slot = ring + (t % GV_STAGES) * GV_STAGE_BYTES;
+#pragma unroll
+    for (int h = 0; h < GV_STAGE_BYTES / 16 / GV_THREADS; ++h) {
+      const int c = tid + h * GV_THREADS;
+      const int row = c / (GV_BN / 16), chunk = c % (GV_BN / 16);
+      const int rr = t * GV_STAGE_ROWS + row;
+      const bool in = rr < rows && n0 + 16 * chunk < N;
+      cp_async16(slot + row * GV_BN + ((chunk ^ swizzle<BITS>(row)) << 4),
+                 in ? wr + static_cast<long long>(rr) * N + 16 * chunk : w,
+                 in ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < GV_STAGES - 1; ++t) {
+    if (t < n_stages) issue(t);
+    cp_async_commit();
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int cb = GV_WARP_COLS * (warp % (GV_BN / GV_WARP_COLS));
+  const int kq = warp / (GV_BN / GV_WARP_COLS);
+  float d[2][4] = {};
+  for (int t = 0; t < n_stages; ++t) {
+    // x and stage t have landed for every thread, and slot
+    // (t - 1) % GV_STAGES has been read by every thread: refill it
+    cp_async_wait<GV_STAGES - 2>();
+    __syncthreads();
+    if (t + GV_STAGES - 1 < n_stages) issue(t + GV_STAGES - 1);
+    cp_async_commit();
+    const uint8_t* slot = ring + (t % GV_STAGES) * GV_STAGE_BYTES;
+#pragma unroll
+    for (int j = 0; j < KSTEPS / GV_KQ; ++j) {
+      const int s = kq * (KSTEPS / GV_KQ) + j;
+      mma_kstep<BITS>(d, slot, s, cb, gid, tig,
+                      xs + gid * xstride + t * GV_STAGE_ROWS * R_PER + 16 * s);
+    }
+  }
+
+  // the partial sums meet in a fixed order: the column's four warps
+  // kq = 0..3, then the cluster's ranks 0..split-1
+  cp_async_wait<0>();   // only empty groups are left
+  __syncthreads();      // every thread is done with the ring, which red reuses
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // d[t][i]: column cb + 4 gid + 2 t + i / 2, row of x 2 tig + i % 2
+      const int col = cb + 4 * gid + 2 * t + i / 2, m = 2 * tig + i % 2;
+      red[(kq * 8 + m) * GV_BN + col] = d[t][i];
+    }
+  __syncthreads();
+  for (int o = tid; o < OUTS; o += GV_THREADS) {
+    float sum = red[o];
+#pragma unroll
+    for (int q = 1; q < GV_KQ; ++q) sum += red[q * OUTS + o];
+    part[o] = sum;
+  }
+  cluster_sync();   // every rank's partials are in its shared memory
+  // rank q writes outputs [q * per, (q + 1) * per) of the tile
+  const int per = (OUTS + split - 1) / split;
+  for (int i = tid; i < per; i += GV_THREADS) {
+    const int o = rank * per + i;
+    const int m = o / GV_BN, col = n0 + o % GV_BN;
+    if (o < OUTS && m < M && col < N) {
+      float sum = ld_cluster(part + o, 0);
+      for (int q = 1; q < split; ++q) sum += ld_cluster(part + o, q);
+      out[static_cast<long long>(m) * N + col] = sum * step[col];
+    }
+  }
+  cluster_sync();   // no block leaves while another reads its partials
+}
+
+template <int BITS>
+cudaError_t launch_gemv(const void* x, const int8_t* w, const float* step,
+                        float* out, int M, int K, int N, int split,
+                        cudaStream_t s) {
+  if (M > 8 || N % 16 != 0 || K % 8 != 0 || split < 1 ||
+      split > GV_MAX_SPLIT || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const int R = BITS == 4 ? K / 2 : K;
+  // packed rows a rank, whole stages (gemv_rows_per in the wrapper)
+  const int rows_per = ((R + split - 1) / split + GV_STAGE_ROWS - 1) /
+                       GV_STAGE_ROWS * GV_STAGE_ROWS;
+  const int kpad = rows_per * (BITS == 4 ? 2 : 1);
+  if (kpad > GV_MAX_SLICE_K) return cudaErrorInvalidValue;
+  auto smem = [](int kp) {
+    return (size_t)GV_STAGES * GV_STAGE_BYTES +
+           (size_t)8 * (kp + GV_XPAD) * 2 + (size_t)8 * GV_BN * 4;
+  };
+  auto kernel = qmm_gemv_kernel<BITS>;
+  static bool ready = false;   // attributes set once a template instance
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem(GV_MAX_SLICE_K));
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, (N + GV_BN - 1) / GV_BN);
+  cfg.blockDim = dim3(GV_THREADS);
+  cfg.dynamicSmemBytes = smem(kpad);
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(x), w, step, out, M, K,
+      N, rows_per);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace gemv_route
+
 namespace {
 
-enum Route { SKINNY = 0, WMMA = 1, WGMMA = 2 };
+enum Route { SKINNY = 0, WMMA = 1, WGMMA = 2, GEMV = 3 };
 
 template <int BITS>
 cudaError_t dispatch(const void* x, const int8_t* w, const float* step,
                      float* out, int M, int K, int N, int is_bf16, int vec,
-                     int route, cudaStream_t s) {
+                     int route, int split, cudaStream_t s) {
   if (route == SKINNY)
     return is_bf16
         ? dispatch_skinny<__nv_bfloat16, BITS>(x, w, step, out, M, K, N, vec, s)
         : dispatch_skinny<float, BITS>(x, w, step, out, M, K, N, vec, s);
   if (!is_bf16) return cudaErrorInvalidValue;
+  if (route == GEMV)
+    return gemv_route::launch_gemv<BITS>(x, w, step, out, M, K, N, split, s);
   if (route == WGMMA) {
     if (N % 16 != 0 || K % 8 != 0) return cudaErrorInvalidValue;
     return wgmma_route::launch_qmm<BITS>(x, w, step, out, M, K, N, s);
@@ -562,20 +939,23 @@ cudaError_t dispatch(const void* x, const int8_t* w, const float* step,
 // packed int4 [K/2, N] (bits 4, K even); step: [N] f32; out: [M, N] f32;
 // all contiguous. vec = 1 when N % 16 == 0 and w is 16-byte aligned.
 // route: 0 the skinny kernel (any x dtype), 1 the wmma kernel, 2 the wgmma
-// kernel (both bf16 x; wgmma needs N % 16 == 0, K % 8 == 0 and 16-byte
-// aligned x and w). Returns the cudaError_t of the launch (0 on success;
+// kernel, 3 the gemv kernel (all three bf16 x; wgmma needs N % 16 == 0,
+// K % 8 == 0 and 16-byte aligned x and w; gemv M <= 8, N % 16 == 0,
+// K % 8 == 0, 16-byte aligned x and w and split, the blocks of a cluster,
+// in 1..16, with a K slice of x that fits its 64 KB). Returns the cudaError_t of the launch (0 on success;
 // 1 for a route that cannot take the shape, 500 when the driver has no
 // cuTensorMapEncodeTiled, 716 for a misaligned pointer on the wgmma route).
 extern "C" int quant_matmul(const void* x, const void* w, const void* step,
                             void* out, int M, int K, int N, int bits,
-                            int is_bf16, int vec, int route, void* stream) {
+                            int is_bf16, int vec, int route, int split,
+                            void* stream) {
   if (M < 1 || K < 1 || N < 1 || (bits == 4 && K % 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* wc = static_cast<const int8_t*>(w);
   const float* st = static_cast<const float*>(step);
   float* o = static_cast<float*>(out);
-  if (bits == 8) return (int)dispatch<8>(x, wc, st, o, M, K, N, is_bf16, vec, route, s);
-  if (bits == 4) return (int)dispatch<4>(x, wc, st, o, M, K, N, is_bf16, vec, route, s);
+  if (bits == 8) return (int)dispatch<8>(x, wc, st, o, M, K, N, is_bf16, vec, route, split, s);
+  if (bits == 4) return (int)dispatch<4>(x, wc, st, o, M, K, N, is_bf16, vec, route, split, s);
   return (int)cudaErrorInvalidValue;
 }

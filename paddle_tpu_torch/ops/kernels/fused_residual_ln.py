@@ -11,12 +11,18 @@ reference, has no kernel: backward runs autograd through the plain
 version with the same mask.
 
 The reference took its kernel only for ``D % 128 == 0`` and ``N >= 8``;
-the kernel here takes any N >= 1 and any D up to :data:`MAX_D`, and a
-wider row raises.
+the kernels here take any N >= 1 and any D up to :data:`MAX_D`, and a
+wider row raises. Two routes, chosen by shape before the launch
+(:func:`fused_residual_ln_route`): ``warp`` (one warp a row, 16-byte
+vectors, shuffle reductions; the keep test ``hash >= keep_threshold(p)``)
+for rows of whole 16-byte chunks up to :data:`WARP_MAX_D` wide, ``block``
+(one 256-thread block a row, scalar loads, the f32 keep test) for every
+other width. Each launch is counted in ``.launches`` and ``.routes``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -24,8 +30,45 @@ import torch
 from . import _build
 
 MASK = 0xFFFFFFFF
-MAX_D = 256 * 32      # csrc/fused_residual_ln.cu: NT * MAX_VPT
+BLOCK_THREADS = 256   # csrc/fused_residual_ln.cu: NT, the block route
+MAX_D = BLOCK_THREADS * 32      # NT * MAX_VPT
+WARP_ELEMS = 64       # WARP_MAX_ELEMS: f32 a lane holds on the warp route
+WARP_MAX_D = 32 * WARP_ELEMS
+ROUTES = ("block", "warp")      # the C entry's route numbers
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def fused_residual_ln_route(d: int, dtype, aligned: bool) -> str:
+    """The kernel a CUDA call launches: ``warp`` where a row is whole
+    16-byte chunks (D a multiple of 16 / itemsize), at most
+    :data:`WARP_MAX_D` wide, and every operand 16-byte aligned
+    (``aligned``), else ``block``."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    return ("warp" if aligned and d % vec == 0 and d <= WARP_MAX_D
+            else "block")
+
+
+@functools.lru_cache(maxsize=64)
+def keep_threshold(p: float) -> int:
+    """The least uint32 ``t`` with ``rn_f32(t) * 2^-32 >= f32(p)``, or 2^32
+    when none is. The map from a hash to its f32 uniform is monotone, so
+    ``hash >= t`` keeps exactly the elements the reference's ``u >= p``
+    keeps."""
+    pf = np.float32(p)
+
+    def kept(u):
+        return np.float32(u) * np.float32(2.0 ** -32) >= pf
+
+    if not kept(MASK):
+        return MASK + 1
+    lo, hi = 0, MASK      # kept(hi); t in [lo, hi]
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if kept(mid):
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
 
 
 def hash_uniform(seed: int, rows: torch.Tensor, n_cols: int) -> torch.Tensor:
@@ -41,6 +84,14 @@ def hash_uniform(seed: int, rows: torch.Tensor, n_cols: int) -> torch.Tensor:
     x = ((x ^ (x >> 15)) * 0x846CA68B) & MASK
     x = x ^ (x >> 16)
     return x.to(torch.float32) / 2.0 ** 32
+
+
+def _dropped(p: float) -> float:
+    """f32 ``0 / f32(1 - p)``: +0, -0 (p > 1) or NaN (p = 1). The warp
+    kernel multiplies a dropped element by it, which gives the reference's
+    ``(h * 0) / (1 - p)`` bit for bit without a division."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return float(np.float32(0.0) / np.float32(1.0 - p))
 
 
 def _f32(value: float, device) -> torch.Tensor:
@@ -76,7 +127,8 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 6
                        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
-                          ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                          ctypes.c_float, ctypes.c_ulonglong, ctypes.c_float,
+                          ctypes.c_float, ctypes.c_float, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -104,14 +156,19 @@ def _kernel(x, bias, residual, gamma, beta, seed, p, eps, training):
     if n == 0:
         return out
     dropout = bool(training) and p > 0.0
+    route = fused_residual_ln_route(d, x.dtype, all(
+        t.data_ptr() % 16 == 0 for t in (x, residual, out, *params)))
     err = _lib()(x.data_ptr(), params[0].data_ptr(), residual.data_ptr(),
                  params[1].data_ptr(), params[2].data_ptr(), out.data_ptr(),
                  n, d, int(seed) & MASK, float(np.float32(p)),
-                 float(np.float32(1.0 - p)), float(eps), int(dropout),
-                 _DTYPES[x.dtype],
+                 keep_threshold(float(p)) if dropout else 0,
+                 float(np.float32(1.0 - p)), _dropped(float(p)), float(eps),
+                 int(dropout),
+                 _DTYPES[x.dtype], ROUTES.index(route),
                  torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "fused_residual_ln")
+    _build.check(err, f"fused_residual_ln ({route})")
     fused_bias_dropout_residual_ln.launches += 1
+    fused_bias_dropout_residual_ln.routes[route] += 1
     return out
 
 
@@ -165,3 +222,4 @@ def fused_bias_dropout_residual_ln(x, bias, residual, gamma, beta, p=0.0,
 
 
 fused_bias_dropout_residual_ln.launches = 0
+fused_bias_dropout_residual_ln.routes = dict.fromkeys(ROUTES, 0)

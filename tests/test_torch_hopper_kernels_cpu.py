@@ -255,8 +255,23 @@ def test_sw128_is_a_permutation_of_16_byte_chunks():
 
 # ------------------------------------------------ quant_matmul's route
 @pytest.mark.parametrize("M,K,N,bits,dtype,aligned,want", [
-    (4, 2048, 8192, 8, torch.bfloat16, True, "skinny"),
-    (8, 2048, 8192, 4, torch.bfloat16, True, "skinny"),
+    (4, 2048, 8192, 8, torch.bfloat16, True, "gemv"),
+    (8, 2048, 8192, 4, torch.bfloat16, True, "gemv"),
+    # the decode form: bf16 x at M <= 8 on gemv where its 16-byte code rows
+    # map and the x slice fits, else skinny; f32 x always skinny
+    (1, 2048, 8192, 8, torch.bfloat16, True, "gemv"),
+    (8, 2048, 8192, 8, torch.bfloat16, True, "gemv"),
+    (4, 8192, 2048, 4, torch.bfloat16, True, "gemv"),
+    (8, 8192, 2048, 8, torch.bfloat16, True, "gemv"),
+    (3, 48, 208, 4, torch.bfloat16, True, "gemv"),      # ragged K, part tile
+    (1, 16384, 2048, 8, torch.bfloat16, True, "gemv"),  # 4096-row x slice
+    (8, 16392, 2048, 8, torch.bfloat16, True, "skinny"),   # 4224: too many
+    (8, 2048, 8192, 8, torch.float32, True, "skinny"),
+    (1, 2048, 8192, 4, torch.float32, True, "skinny"),
+    (3, 48, 200, 8, torch.bfloat16, True, "skinny"),    # chip_smoke's N=200
+    (3, 48, 200, 4, torch.bfloat16, True, "skinny"),
+    (8, 2048, 8192, 8, torch.bfloat16, False, "skinny"),   # unaligned
+    (4, 2048, 8200, 4, torch.bfloat16, True, "skinny"),
     (1024, 2048, 8192, 8, torch.float32, True, "skinny"),
     (1024, 2048, 8192, 8, torch.bfloat16, True, "wgmma"),
     (1024, 2048, 8192, 4, torch.bfloat16, True, "wgmma"),
@@ -276,7 +291,7 @@ def test_quant_matmul_route(M, K, N, bits, dtype, aligned, want):
 def test_quant_matmul_route_checks_bits_and_names_the_c_routes():
     with pytest.raises(ValueError, match="bits"):
         tqm.quant_matmul_route(64, 64, 64, 3, torch.bfloat16, True)
-    assert tqm.ROUTES == ("skinny", "wmma", "wgmma")
+    assert tqm.ROUTES == ("skinny", "wmma", "wgmma", "gemv")
     assert set(tqm.quant_matmul.routes) == set(tqm.ROUTES)
 
 
