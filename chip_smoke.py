@@ -22,10 +22,13 @@ Phases, each fatal on failure:
               launch, the decode form timed with its weights cold in L2 as
               well; the paged
               decode kernels also bitwise against the dense ones over the
-              gathered view; the fused bias-dropout-residual LayerNorm at
+              gathered view, and every decode kernel bitwise against a
+              second launch, the bf16/f32 ones printing their split (nsplit,
+              chunk); the fused bias-dropout-residual LayerNorm at
               [8192, 2048] and edge shapes, its route (warp or block)
               printed, bitwise against a second launch; the decode
-              attention kernels' device time beside their CUDA-event time;
+              attention kernels' device time beside their CUDA-event time
+              and SDPA's device time;
               the Triton factories on ReLU,
               a*b+1, sum and max at 2^24 f32, ragged and empty), and time the
               kernel, the plain version and one PyTorch library call that
@@ -127,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -178,6 +182,13 @@ QUANT_PARITY_TOL = 1e-3
 FLN_TOL = {"bf16": 2 ** -7, "f32": 1e-5}
 
 
+# the bool template parameters of the kernels that have them, in order,
+# as _kernel_label names them
+KERNEL_FLAGS = {"decode_kernel": ("scaled", "paged"),
+                "split_decode_kernel": ("paged",),
+                "fused_residual_ln_warp_kernel": ("dropout",)}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -198,9 +209,11 @@ def _kernel_label(line: str) -> str:
              else "int8" if re.search(r"_kernelIa", mangled) else "f32")
     ints = [v for k, v in args if k == "i"]
     flags = [v == "1" for k, v in args if k == "b"]
+    kernel = name.group(1) if name else mangled[:40]
     extra = "".join(f", {v}" for v in ints) + "".join(
-        f", {word}" for word, on in zip(("scaled", "paged"), flags) if on)
-    return f"{name.group(1) if name else mangled[:40]}<{dtype}{extra}>"
+        f", {word}" for word, on in zip(KERNEL_FLAGS.get(kernel, ()), flags)
+        if on)
+    return f"{kernel}<{dtype}{extra}>"
 
 
 def _named_leaves(tree, prefix=""):
@@ -408,9 +421,13 @@ class Smoke:
         tname = "bf16" if dtype == torch.bfloat16 else "f32"
         out = da.decode_attention(q, kc, vc, pos, scale)
         torch.cuda.synchronize()
+        # the plain loop's blocks must divide S (S = 200: blocks of 8)
+        block = math.gcd(S, 128)
         ref = da.bounded_decode_attention(q, kc, vc, pos.long(), scale,
-                                          min(128, S))
+                                          block)
         err = (out - ref).abs().max().item()
+        repeat = bool(torch.equal(da.decode_attention(q, kc, vc, pos, scale),
+                                  out))
         # garbage past the live length must change nothing
         kg, vg = kc.clone(), vc.clone()
         idx = torch.arange(S, device=self.dev)
@@ -420,15 +437,16 @@ class Smoke:
         out_g = da.decode_attention(q, kg, vg, pos, scale)
         torch.cuda.synchronize()
         err_g = (out_g - out).abs().max().item()
+        nsplit, chunk = da.decode_split(B, H, S, Q)
         case = dict(kernel="decode_attention", shape=[B, H, S, d], Q=Q,
-                    dtype=tname, pos=[int(p) for p in pos],
-                    max_abs_err=err, garbage_delta=err_g,
-                    tol=DECODE_TOL[tname])
+                    dtype=tname, pos=[int(p) for p in pos], nsplit=nsplit,
+                    chunk=chunk, max_abs_err=err, garbage_delta=err_g,
+                    tol=DECODE_TOL[tname], repeats_bitwise=repeat)
         log(f"[kernels] {json.dumps(case)}")
         if not bool(torch.isfinite(out).all()) or err > DECODE_TOL[tname] \
-                or err_g != 0.0:
+                or err_g != 0.0 or not repeat:
             raise AssertionError(f"decode_attention disagrees with its "
-                                 f"plain version: {case}")
+                                 f"plain version or with itself: {case}")
         if not time_it:
             return case
         live = sum(min(int(p) + Q, S) for p in pos)
@@ -445,13 +463,14 @@ class Smoke:
         posl = pos.long()
         case["plain_ms"] = self.time_ms(
             lambda: da.bounded_decode_attention(q, kc, vc, posl, scale,
-                                               min(128, S)),
+                                               block),
             iters=20)
         qpos = pos.long()[:, None] + torch.arange(Q, device=self.dev)[None]
         mask = (idx[None, None, :] <= qpos[:, :, None])[:, None]  # B,1,Q,S
-        case["library_ms"] = self.time_ms(
-            lambda: F.scaled_dot_product_attention(
-                q, kc, vc, attn_mask=mask, scale=scale), iters=200)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q, kc, vc, attn_mask=mask, scale=scale)
+        case["library_ms"] = self.time_ms(sdpa, iters=200)
+        case["library_device_ms"] = self.device_ms(sdpa)
         case["bound_ms"] = max(t_ops, t_bytes)
         case["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         log(f"[kernels] {json.dumps(case)}")
@@ -823,6 +842,8 @@ class Smoke:
         ref = da.bounded_decode_attention(q, kc, vc, pos.long(), scale,
                                           min(128, S))
         err = (out - ref).abs().max().item()
+        repeat = bool(torch.equal(
+            da.decode_attention_q8(q, kc, vc, pos, scale), out))
         idx = torch.arange(S, device=self.dev)
         dead = idx[None, :] > (pos[:, None] + Q - 1)       # [B, S]
         kg = tuple(t.clone() for t in kc)
@@ -837,12 +858,13 @@ class Smoke:
         case = dict(kernel="decode_attention_q8", shape=[B, H, S, d], Q=Q,
                     cache="int8 codes + f32 steps",
                     pos=[int(p) for p in pos], max_abs_err=err,
-                    garbage_delta=err_g, tol=DECODE_TOL["f32"])
+                    garbage_delta=err_g, tol=DECODE_TOL["f32"],
+                    repeats_bitwise=repeat)
         log(f"[kernels] {json.dumps(case)}")
         if not bool(torch.isfinite(out).all()) or err > DECODE_TOL["f32"] \
-                or err_g != 0.0:
+                or err_g != 0.0 or not repeat:
             raise AssertionError(f"decode_attention_q8 disagrees with its "
-                                 f"plain version: {case}")
+                                 f"plain version or with itself: {case}")
         if not time_it:
             return case
         live = sum(min(int(p) + Q, S) for p in pos)
@@ -863,9 +885,10 @@ class Smoke:
         vf = (vc[0].float() * vc[1][..., None]).to(torch.bfloat16)
         qpos = posl[:, None] + torch.arange(Q, device=self.dev)[None]
         mask = (idx[None, None, :] <= qpos[:, :, None])[:, None]  # B,1,Q,S
-        case["library_ms"] = self.time_ms(
-            lambda: F.scaled_dot_product_attention(
-                q, kf, vf, attn_mask=mask, scale=scale), iters=200)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q, kf, vf, attn_mask=mask, scale=scale)
+        case["library_ms"] = self.time_ms(sdpa, iters=200)
+        case["library_device_ms"] = self.device_ms(sdpa)
         case["library"] = "sdpa, explicit mask, pre-dequantized bf16 cache"
         log(f"[kernels] {json.dumps(case)}")
         if main:
@@ -935,16 +958,20 @@ class Smoke:
         torch.cuda.synchronize()
         del kg, vg
         bitwise = bool(torch.equal(out, dense))
+        repeat = bool(torch.equal(kern(q, kp, vp, pos, ptab, scale), out))
         err_g = (out_g - out).abs().max().item()
         tol = DECODE_TOL["f32"]
         case = dict(kernel=name, B=B, H=H, page_size=ps, pages_per_row=nb,
                     pool_pages=P, d=d, Q=Q, pos=[int(p) for p in pos],
                     dead_entries=int(dead.sum()), max_abs_err=err, tol=tol,
                     bitwise_equal_dense_kernel_on_view=bitwise,
-                    garbage_delta=err_g)
+                    repeats_bitwise=repeat, garbage_delta=err_g)
+        if not quant:
+            case["nsplit"], case["chunk"] = da.decode_split(B, H, nb * ps,
+                                                              Q)
         log(f"[kernels] {json.dumps(case)}")
         if not bool(torch.isfinite(out).all()) or err > tol or not bitwise \
-                or err_g != 0.0:
+                or not repeat or err_g != 0.0:
             raise AssertionError(f"{name} disagrees: {case}")
         if not time_it:
             return case
@@ -976,9 +1003,10 @@ class Smoke:
                     if quant else g_)
 
         k16, v16 = view16(kp), view16(vp)
-        case["library_ms"] = self.time_ms(
-            lambda: F.scaled_dot_product_attention(
-                q, k16, v16, attn_mask=mask, scale=scale), iters=200)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q, k16, v16, attn_mask=mask, scale=scale)
+        case["library_ms"] = self.time_ms(sdpa, iters=200)
+        case["library_device_ms"] = self.device_ms(sdpa)
         case["library"] = ("sdpa, explicit mask, on the pre-gathered "
                            + ("dequantized " if quant else "")
                            + "bf16 view")
@@ -993,8 +1021,10 @@ class Smoke:
 
     def _paged_cases(self):
         """The paged kernels at the server's shape (main), generate's, a
-        long cache (Q = 1 and 4) and an edge case (small heads, a 3-row
-        window, 8- and 16-key pages, dead table entries)."""
+        long cache (Q = 1 and 4) and edge cases (small heads, a 3-row
+        window, 8- and 16-key pages, dead table entries; with several
+        ranks, a table entry a key at 8-key pages and d = 16, two a key
+        group at 16-key pages and d = 128)."""
         for quant in (False, True):
             self._paged_case(8, 16, 128, 4, 128, 1, quant,
                              [round(511 * i / 7) for i in range(8)], True,
@@ -1008,6 +1038,9 @@ class Smoke:
             for ps in (8, 16):
                 self._paged_case(3, 4, ps, 64 // ps, 16, 3, quant,
                                  [60, 9, 33], False, spare=3)
+            self._paged_case(3, 4, 8, 32, 16, 3, quant, [250, 9, 100],
+                             False, spare=3)
+            self._paged_case(2, 16, 16, 16, 128, 1, quant, [255, 70], False)
 
     # ------------------------------------------- fused LN and factories
     def _fused_ln_case(self, N, D, dtype, training, p, time_it, main=False):
@@ -1213,7 +1246,16 @@ class Smoke:
                 self._decode_case(8, 16, 2048, 128, Q, dt, dt is bf16)
         # the server phase's decode shape: 8 slots, 512-position cache
         self._decode_case(8, 16, 512, 128, 1, bf16, True, main=True)
+        # generate()'s decode shape (B=4, cache padded to 384: 6 ranks), and
+        # edges: small heads, a 3-row window (one rank, and 4 at S = 256),
+        # and 3 ranks whose last chunk holds 8 keys (S = 200) at d = 32 and
+        # 64 in both dtypes
+        self._decode_case(4, 16, 384, 128, 1, bf16, True)
         self._decode_case(3, 4, 64, 16, 3, f32, False)
+        self._decode_case(3, 4, 256, 16, 3, f32, False)
+        for dt in (bf16, f32):
+            self._decode_case(2, 4, 200, 64, 2, dt, False)
+            self._decode_case(2, 4, 200, 32, 1, dt, False)
         # the train phase's attention shape, forward (the timed main row)
         # and backward
         self._flash_case(4, 16, 2048, 2048, 128, bf16, True, True, True,

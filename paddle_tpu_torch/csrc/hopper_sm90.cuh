@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma + TMA kernels
-// (csrc/flash_attention_bwd.cu, csrc/flash_attention_fwd.cu,
-// csrc/quant_matmul.cu): mbarriers, TMA tile loads, 128-byte-swizzle
-// wgmma descriptors, the wgmma forms the kernels issue, the tensor-map
-// encoder fetched from the driver at run time (no -lcuda), and the launch
-// guard for setmaxnreg. Each source that includes it compiles on its own
+// Hopper (sm_90a) building blocks shared by the port's kernels
+// (csrc/decode_attention.cu, csrc/flash_attention_bwd.cu,
+// csrc/flash_attention_fwd.cu, csrc/quant_matmul.cu): mbarriers, TMA tile
+// loads, 128-byte-swizzle wgmma descriptors, the wgmma forms the kernels
+// issue, the tensor-map encoder fetched from the driver at run time (no
+// -lcuda), the launch guard for setmaxnreg, and the thread-block-cluster
+// rank, barrier and remote shared-memory load. Each source that includes it compiles on its own
 // into its own library; _build.library_path hashes this file with it.
 #pragma once
 
@@ -426,6 +427,35 @@ inline cudaError_t make_map_2d(CUtensorMap* map, const void* ptr,
       CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------------ clusters
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// every thread of every block of the cluster; release/acquire order the
+// shared-memory stores before it against the remote loads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float at p's offset in the shared memory of cluster block `rank`
+__device__ __forceinline__ float ld_cluster(const float* p, int rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 }  // namespace sm90

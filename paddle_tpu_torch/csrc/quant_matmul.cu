@@ -605,34 +605,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return (int)r;
-}
-
-// every thread of every block of the cluster; release/acquire order the
-// shared-memory stores before it against the remote loads after it
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// the float at p's offset in the shared memory of cluster block `rank`
-__device__ __forceinline__ float ld_cluster(const float* p, int rank) {
-  uint32_t remote;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(smem_u32(p)), "r"(rank));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
-               : "=f"(v)
-               : "r"(remote)
-               : "memory");
-  return v;
-}
-
 // the 16-byte chunk c of ring row r sits at chunk c ^ swizzle(r): the four
 // rows a warp's quads read at once (r / 4 or, int4, r / 2 apart by one)
 // land in four different pairs of chunks, so a warp's loads touch 32

@@ -22,6 +22,10 @@ cast back.
 Masked keys contribute exactly 0 (``exp(-1e30 - m)`` underflows to +0.0
 in f32), so a row's result does not depend on how many dead blocks the
 batch-wide trip count of the plain bounded loop makes it scan.
+
+On the card the bf16/f32 forms split each row's keys across a cluster of
+blocks (:func:`decode_split`) and merge the partial softmaxes in rank
+order; the int8 forms run one block per (b, h).
 """
 from __future__ import annotations
 
@@ -37,6 +41,52 @@ from .primitives import NEG_INF, online_softmax_update
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 MAX_Q = 8
+# csrc/decode_attention.cu, split_route: the most blocks a cluster holds
+DECODE_MAX_SPLIT = 8
+# the SMs of an H100, and the bf16/f32 kernel's blocks one SM holds at once
+# for a window of Q rows (csrc/decode_attention.cu, the launch bounds of
+# split_decode_kernel: 72 registers a thread at Q = 1). A rank waits at the
+# cluster barrier for its slowest sibling, so a grid past B*H*nsplit
+# resident blocks runs in two waves.
+DECODE_SMS = 132
+
+
+def decode_blocks_per_sm(Q: int) -> int:
+    return 6 if Q == 1 else 3 if Q <= 4 else 2
+
+
+# a rank's chunk of keys is a multiple of DECODE_CHUNK_KEYS, and nsplit
+# leaves it DECODE_MIN_CHUNK keys or more
+DECODE_CHUNK_KEYS = 32
+DECODE_MIN_CHUNK = 64
+
+
+def split_keys(S: int, nsplit: int) -> tuple[int, int]:
+    """``(nsplit, chunk)`` for about ``nsplit`` ranks over S keys: chunk
+    is ``ceil(S / nsplit)`` rounded up to a multiple of
+    :data:`DECODE_CHUNK_KEYS`, and the ranks are the ``ceil(S / chunk)``
+    that cover S."""
+    chunk = -(-S // nsplit)
+    chunk = -(-chunk // DECODE_CHUNK_KEYS) * DECODE_CHUNK_KEYS
+    return -(-S // chunk), chunk
+
+
+def decode_split(B: int, H: int, S: int, Q: int) -> tuple[int, int]:
+    """``(nsplit, chunk)`` of a bf16/f32 kernel launch over S logical keys
+    and a window of Q rows: each (b, h) is a cluster of nsplit blocks, rank
+    r taking keys ``[r * chunk, (r + 1) * chunk)``. nsplit is the most ranks
+    that keep the grid ``B * H * nsplit`` resident
+    (:func:`decode_blocks_per_sm` on each of :data:`DECODE_SMS`), at most
+    :data:`DECODE_MAX_SPLIT` and at least 1, with :data:`DECODE_MIN_CHUNK`
+    keys a rank (:func:`split_keys` then fixes the chunk): 6 ranks at the
+    engine's 8 x 16 rows over 512 positions, 6 at generate()'s 4 x 16 over
+    384. A function of (B, H, S, Q) alone, never of the positions, the page
+    size or a device value: a dense call over a paged pool's gathered view
+    (S = nb * ps) splits as the paged call does, which keeps the two
+    bitwise equal."""
+    resident = decode_blocks_per_sm(Q) * DECODE_SMS
+    nsplit = min(DECODE_MAX_SPLIT, resident // (B * H), S // DECODE_MIN_CHUNK)
+    return split_keys(S, max(1, nsplit))
 
 
 def _kv_parts(cache):
@@ -131,12 +181,15 @@ def bounded_decode_attention(q, k_cache, v_cache, pos, scale, block,
     return acc / torch.where(l == 0.0, torch.ones_like(l), l)
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# argument types of the library's C entries: pointers, ints, scale, stream
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# argument types of the library's C entries before scale and stream: the
+# bf16/f32 ones take q (pointer, bf16 flag, three strides), the caches (and
+# table), pos (pointer, int64 flag, stride), out, the sizes and the split
+_Q_ARGS = [_P, _I, _L, _L, _L]
 _ARGTYPES = {
-    "decode_attention": [_P] * 5 + [_I] * 6,
+    "decode_attention": _Q_ARGS + [_P] * 3 + [_I, _L, _P] + [_I] * 8,
     "decode_attention_q8": [_P] * 7 + [_I] * 5,
-    "decode_attention_paged": [_P] * 6 + [_I] * 8,
+    "decode_attention_paged": _Q_ARGS + [_P] * 4 + [_I, _L, _P] + [_I] * 10,
     "decode_attention_paged_q8": [_P] * 8 + [_I] * 7,
 }
 
@@ -180,6 +233,9 @@ def _check_inputs(q, k_cache, v_cache, pos, paged=False):
         raise ValueError("q, caches and pos must lie on one device")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("decode_attention kernel needs contiguous caches")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("decode_attention kernel loads 16 bytes at a time: "
+                         "the caches must start 16-byte aligned")
 
 
 def _check_q8_inputs(q, k_cache, v_cache, pos, paged=False):
@@ -258,6 +314,33 @@ def _stream(q):
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _launch(q, k, v, pos, out, scale, ptab=None, split=None):
+    """Launch the bf16/f32 kernel on checked operands, dense or (``ptab``)
+    paged, split as ``split`` = (nsplit, chunk), by default
+    :func:`decode_split` of the logical length. The kernel reads q in f32
+    or bf16 through its strides and pos in int32 or int64 through its
+    stride, so neither is copied for it."""
+    if q.dtype not in _DTYPES or q.stride(-1) != 1:
+        q = q.float().contiguous()
+    if pos.dtype not in (torch.int32, torch.int64):
+        pos = pos.to(torch.int32)
+    B, H, Q, d = q.shape
+    S = k.shape[2] if ptab is None else ptab.shape[1] * k.shape[2]
+    split = split or decode_split(B, H, S, Q)
+    head = (q.data_ptr(), int(q.dtype == torch.bfloat16), *q.stride()[:3],
+            k.data_ptr(), v.data_ptr())
+    tail = (pos.data_ptr(), int(pos.dtype == torch.int64), pos.stride(0),
+            out.data_ptr())
+    if ptab is None:
+        name, sizes = "decode_attention", (B, H, k.shape[2])
+    else:
+        name, head = "decode_attention_paged", head + (ptab.data_ptr(),)
+        sizes = (B, H, k.shape[0], k.shape[2], ptab.shape[1])
+    err = _lib(name)(*head, *tail, *sizes, Q, d, _DTYPES[k.dtype], *split,
+                     float(scale), _stream(q))
+    _build.check(err, name)
+
+
 def decode_attention(q, k_cache, v_cache, pos, scale=None, block=128,
                      page_table=None):
     """q: [B, H, Q, d]; k/v_cache: [B, H, S, d], or scaled-int8
@@ -288,13 +371,8 @@ def decode_attention(q, k_cache, v_cache, pos, scale=None, block=128,
         raise ValueError(f"decode_attention: no kernel for {q.device}")
     _check_inputs(q, k_cache, v_cache, pos)
     B, H, Q, d = q.shape
-    qf = q.float().contiguous()
-    p32 = pos.to(torch.int32).contiguous()
     out = torch.empty((B, H, Q, d), dtype=torch.float32, device=q.device)
-    err = _lib()(qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 p32.data_ptr(), out.data_ptr(), B, H, k_cache.shape[2], Q, d,
-                 _DTYPES[k_cache.dtype], float(scale), _stream(q))
-    _build.check(err, "decode_attention")
+    _launch(q, k_cache, v_cache, pos, out, scale)
     decode_attention.launches += 1
     return out
 
@@ -340,15 +418,8 @@ def decode_attention_paged(q, k_pool, v_pool, pos, page_table, scale=None):
     _check_inputs(q, k_pool, v_pool, pos, paged=True)
     pt = _table(page_table, q)
     B, H, Q, d = q.shape
-    P, _, ps, _ = k_pool.shape
-    qf = q.float().contiguous()
-    p32 = pos.to(torch.int32).contiguous()
     out = torch.empty((B, H, Q, d), dtype=torch.float32, device=q.device)
-    err = _lib("decode_attention_paged")(
-        qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pt.data_ptr(),
-        p32.data_ptr(), out.data_ptr(), B, H, P, ps, pt.shape[1], Q, d,
-        _DTYPES[k_pool.dtype], float(scale), _stream(q))
-    _build.check(err, "decode_attention_paged")
+    _launch(q, k_pool, v_pool, pos, out, scale, ptab=pt)
     decode_attention_paged.launches += 1
     return out
 

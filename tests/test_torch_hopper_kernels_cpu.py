@@ -320,8 +320,8 @@ def test_library_path_hashes_included_headers(monkeypatch, tmp_path):
 
 
 def test_wgmma_sources_share_the_hopper_header():
-    for name in ("flash_attention_bwd", "flash_attention_fwd",
-                 "quant_matmul"):
+    for name in ("decode_attention", "flash_attention_bwd",
+                 "flash_attention_fwd", "quant_matmul"):
         assert _build.headers(name) == ["hopper_sm90.cuh"], name
-    for name in ("decode_attention", "fused_adamw", "fused_residual_ln"):
+    for name in ("fused_adamw", "fused_residual_ln"):
         assert _build.headers(name) == [], name

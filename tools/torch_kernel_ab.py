@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time quant_matmul's decode form and the fused bias-dropout-residual
-LayerNorm of the PyTorch port on one NVIDIA card, for one or more trees of
-the repository in turn, so that two versions are compared inside one run.
+"""Time quant_matmul's decode form, the fused bias-dropout-residual
+LayerNorm and the bf16 decode attention (dense and paged) of the PyTorch
+port on one NVIDIA card, for one or more trees of the repository in turn,
+so that two versions are compared inside one run.
 
     python3 tools/torch_kernel_ab.py OLD NEW NEW OLD    # trees, in turns
     python3 tools/torch_kernel_ab.py --splits           # this tree's gemv
+    python3 tools/torch_kernel_ab.py --decode-splits    # its decode split
 
 Each tree runs in its own process (the trees' packages share a name), with
 its kernels built from its own sources. A run prints one line
@@ -12,10 +14,18 @@ its kernels built from its own sources. A run prints one line
 calls) of ``quant_matmul`` at M = 4 and 8 on gpt3_1p3b's FFN shapes (w_in
 K=2048, N=8192; w_out K=8192, N=2048; int8 and int4), warm and with its
 codes cold in L2 (the calls rotate over >= 100 MB of copies), and of the
-fused LayerNorm at bf16 [8192, 2048], p = 0.1, training and eval.
-``--splits`` times this tree's gemv route at every cluster size (the
-``split`` the C entry takes) beside the skinny route on the same inputs.
-The first line is the card's name and power limit.
+fused LayerNorm at bf16 [8192, 2048], p = 0.1, training and eval, and of
+``decode_attention`` and ``decode_attention_paged`` (pages of 128) at
+B=8, H=16, Q=1, d=128 bf16 over 512 and 2048 positions, the rows' live
+lengths spread over the cache. ``--splits`` times this tree's gemv route
+at every cluster size (the ``split`` the C entry takes) beside the skinny
+route on the same inputs; ``--decode-splits`` times this tree's bf16
+decode kernels, dense and paged, at every key split (nsplit 1..8) at the
+engine's shape (B=8, S=512), generate()'s (B=4, S=384, every row at
+position 271) and S=2048 with one query row, and at S=512 and 2048 with a
+4-row window, each checked against the plain version and paged against
+dense bitwise. The first line is the card's name and power
+limit.
 """
 from __future__ import annotations
 
@@ -55,6 +65,31 @@ def _weights(torch, gq, K, N, bits, dev):
     return (gq.pack_int4(codes, axis=0) if bits == 4 else codes), step, g
 
 
+def _decode_inputs(torch, da, B, S, dev, pos=None, Q=1, H=16, d=128,
+                   ps=128):
+    """q, a dense bf16 cache pair, positions (spread over the cache unless
+    given), and the same keys as a shuffled page pool with its table
+    (entries past each row's live pages name the scratch page 0)."""
+    g = torch.Generator(device=dev).manual_seed(B * 7 + S)
+    q = torch.randn((B, H, Q, d), generator=g, device=dev).bfloat16()
+    nb = S // ps
+    P = 1 + B * nb
+    mk = lambda: torch.randn((P, H, ps, d), generator=g,
+                             device=dev).bfloat16()
+    kp, vp = mk(), mk()
+    perm = torch.randperm(P - 1, generator=g, device=dev) + 1
+    ptab = perm[:B * nb].reshape(B, nb).to(torch.int32)
+    if pos is None:
+        pos = torch.linspace(0, S - Q, B, device=dev).round()
+    pos = torch.as_tensor(pos, device=dev).to(torch.int32).expand(B)
+    dead = torch.arange(nb, device=dev)[None] >= ((pos.long() + Q + ps - 1)
+                                                  // ps)[:, None]
+    ptab = torch.where(dead, torch.zeros_like(ptab), ptab).contiguous()
+    kc = da.paged_view(kp, ptab).contiguous()
+    vc = da.paged_view(vp, ptab).contiguous()
+    return q, kc, vc, pos.contiguous(), kp, vp, ptab
+
+
 def run_tree(root: str) -> dict:
     sys.path.insert(0, root)
     import torch
@@ -92,6 +127,14 @@ def run_tree(root: str) -> dict:
         res[f"ln_train{int(training)}"] = device_ms(
             torch, lambda: fr.fused_bias_dropout_residual_ln(
                 x, b, r, ga, be, p=0.1, training=training, seed=7))
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    for S in (512, 2048):
+        q, kc, vc, pos, kp, vp, ptab = _decode_inputs(torch, da, 8, S, dev)
+        res[f"decode_S{S}"] = device_ms(
+            torch, lambda: da.decode_attention(q, kc, vc, pos, 128 ** -0.5))
+        res[f"paged_S{S}"] = device_ms(
+            torch, lambda: da.decode_attention_paged(q, kp, vp, pos, ptab,
+                                                     128 ** -0.5))
     return res
 
 
@@ -142,6 +185,42 @@ def run_splits() -> list[dict]:
     return rows
 
 
+def run_decode_splits() -> list[dict]:
+    """This tree's bf16 decode kernels, dense and paged, at every key split
+    (``da.split_keys(S, n)``, n = 1..8) on three shapes; each split checked
+    against the plain version (2e-4) and paged against dense bitwise."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import torch
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    dev = torch.device("cuda")
+    scale = 128 ** -0.5
+    rows = []
+    for B, S, pos, Q in ((8, 512, None, 1), (4, 384, 271, 1),
+                         (8, 2048, None, 1), (8, 512, None, 4),
+                         (8, 2048, None, 4)):
+        q, kc, vc, pos, kp, vp, ptab = _decode_inputs(torch, da, B, S, dev,
+                                                      pos, Q)
+        ref = da.bounded_decode_attention(q, kc, vc, pos.long(), scale, 128)
+        out = torch.empty((B, 16, Q, 128), dtype=torch.float32, device=dev)
+        row = dict(B=B, H=16, S=S, Q=Q, picked=da.decode_split(B, 16, S, Q))
+        for split in sorted({da.split_keys(S, n) for n in range(1, 9)}):
+            dense = lambda: da._launch(q, kc, vc, pos, out, scale,
+                                       split=split)
+            paged = lambda: da._launch(q, kp, vp, pos, out, scale,
+                                       ptab=ptab, split=split)
+            dense()
+            got = out.clone()
+            paged()
+            err = (got - ref).abs().max().item()
+            if err > 2e-4 or not torch.equal(got, out):
+                raise AssertionError(f"split {split}: err {err}, paged "
+                                     f"bitwise {torch.equal(got, out)}")
+            row[f"dense{split}"] = device_ms(torch, dense)
+            row[f"paged{split}"] = device_ms(torch, paged)
+        rows.append(row)
+    return rows
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--one"]:
         print("AB " + json.dumps(run_tree(argv[1])), flush=True)
@@ -153,6 +232,10 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--splits"]:
         for row in run_splits():
             print("SPLIT " + json.dumps(row), flush=True)
+        return 0
+    if argv[:1] == ["--decode-splits"]:
+        for row in run_decode_splits():
+            print("DSPLIT " + json.dumps(row), flush=True)
         return 0
     for root in argv:
         root = str(Path(root).resolve())
