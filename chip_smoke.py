@@ -23,8 +23,8 @@ Phases, each fatal on failure:
               well; the paged
               decode kernels also bitwise against the dense ones over the
               gathered view, and every decode kernel bitwise against a
-              second launch, the bf16/f32 ones printing their split (nsplit,
-              chunk); the fused bias-dropout-residual LayerNorm at
+              second launch, each printing its split (nsplit, chunk);
+              the fused bias-dropout-residual LayerNorm at
               [8192, 2048] and edge shapes, its route (warp or block)
               printed, bitwise against a second launch; the decode
               attention kernels' device time beside their CUDA-event time
@@ -184,8 +184,7 @@ FLN_TOL = {"bf16": 2 ** -7, "f32": 1e-5}
 
 # the bool template parameters of the kernels that have them, in order,
 # as _kernel_label names them
-KERNEL_FLAGS = {"decode_kernel": ("scaled", "paged"),
-                "split_decode_kernel": ("paged",),
+KERNEL_FLAGS = {"split_decode_kernel": ("paged",),
                 "fused_residual_ln_warp_kernel": ("dropout",)}
 
 
@@ -839,8 +838,10 @@ class Smoke:
         scale = 1.0 / d ** 0.5
         out = da.decode_attention_q8(q, kc, vc, pos, scale)
         torch.cuda.synchronize()
+        # the plain loop's blocks must divide S (S = 200: blocks of 8)
+        block = math.gcd(S, 128)
         ref = da.bounded_decode_attention(q, kc, vc, pos.long(), scale,
-                                          min(128, S))
+                                          block)
         err = (out - ref).abs().max().item()
         repeat = bool(torch.equal(
             da.decode_attention_q8(q, kc, vc, pos, scale), out))
@@ -855,9 +856,11 @@ class Smoke:
         torch.cuda.synchronize()
         err_g = (out_g - out).abs().max().item()
         del kg, vg
+        nsplit, chunk = da.decode_split_q8(B, H, S, Q)
         case = dict(kernel="decode_attention_q8", shape=[B, H, S, d], Q=Q,
                     cache="int8 codes + f32 steps",
-                    pos=[int(p) for p in pos], max_abs_err=err,
+                    pos=[int(p) for p in pos], nsplit=nsplit, chunk=chunk,
+                    max_abs_err=err,
                     garbage_delta=err_g, tol=DECODE_TOL["f32"],
                     repeats_bitwise=repeat)
         log(f"[kernels] {json.dumps(case)}")
@@ -880,7 +883,7 @@ class Smoke:
         posl = pos.long()
         case["plain_ms"] = self.time_ms(
             lambda: da.bounded_decode_attention(q, kc, vc, posl, scale,
-                                               min(128, S)), iters=20)
+                                               block), iters=20)
         kf = (kc[0].float() * kc[1][..., None]).to(torch.bfloat16)
         vf = (vc[0].float() * vc[1][..., None]).to(torch.bfloat16)
         qpos = posl[:, None] + torch.arange(Q, device=self.dev)[None]
@@ -966,9 +969,8 @@ class Smoke:
                     dead_entries=int(dead.sum()), max_abs_err=err, tol=tol,
                     bitwise_equal_dense_kernel_on_view=bitwise,
                     repeats_bitwise=repeat, garbage_delta=err_g)
-        if not quant:
-            case["nsplit"], case["chunk"] = da.decode_split(B, H, nb * ps,
-                                                              Q)
+        split = da.decode_split_q8 if quant else da.decode_split
+        case["nsplit"], case["chunk"] = split(B, H, nb * ps, Q)
         log(f"[kernels] {json.dumps(case)}")
         if not bool(torch.isfinite(out).all()) or err > tol or not bitwise \
                 or not repeat or err_g != 0.0:
@@ -1291,12 +1293,14 @@ class Smoke:
                 self._qmm_case(M, 48, 208, bits, bf16, False)
             self._qmm_case(5, 1000, 400, bits, bf16, False)
         # decode_attention_q8: the server's decode shape (main), generate's,
-        # a long cache, and an edge case
+        # a long cache, and edge cases (small heads, a 3-row window; S = 200
+        # with 3 ranks of 96 keys, two of them dead for the row at pos 0)
         self._decode_q8_case(8, 16, 512, 128, 1, True, main=True)
         self._decode_q8_case(4, 16, 384, 128, 1, True)
         for Q in (1, 4):
             self._decode_q8_case(8, 16, 2048, 128, Q, True)
         self._decode_q8_case(3, 4, 64, 16, 3, False)
+        self._decode_q8_case(3, 4, 200, 16, 3, False)
         self._paged_cases()
         self._fused_ln_cases()
         self._factory_cases()

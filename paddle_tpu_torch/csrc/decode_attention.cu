@@ -14,8 +14,8 @@
 //   - _decode_kernel_q8 and _decode_kernel_paged_q8 (C entries
 //     decode_attention_q8 and decode_attention_paged_q8): the two forms over
 //     int8 codes and one f32 step per position and head ([B, H, S] or
-//     [P, H, ps]), each key's and value's codes multiplied by their step in
-//     registers as they are loaded.
+//     [P, H, ps]), the codes made floats in registers as they are loaded
+//     and each key's and value's step applied once a key.
 // Per-row positions pos [B]: query row j of batch row b attends keys
 // 0 .. pos[b] + j. Scores, softmax and accumulation run in f32 and the
 // output [B, H, Q, D] is f32.
@@ -24,8 +24,9 @@
 // per key per query row and reads 2*D cache elements per key, far below
 // the card's ~295 operations per byte, so the least time is the live K and
 // V bytes, 2*B*H*(pos+Q)*D*elem (plus 8 step bytes per position in the
-// int8 form, and 4 table bytes per live page in the paged form), over
-// 3.35 TB/s. The bf16/f32 forms (split_decode_kernel) are built for that:
+// int8 forms, and 4 table bytes per live page in the paged forms), over
+// 3.35 TB/s. The four forms are one template, split_decode_kernel, built
+// for that:
 //   - split-K (flash-decoding): each (b, h) is a cluster of nsplit blocks,
 //     and rank r takes keys [r * chunk, (r + 1) * chunk) of the logical
 //     range [0, S), cut at the row's live length pos[b] + Q. The TPU walked
@@ -40,28 +41,36 @@
 //   - the ranks' states meet in rank order through distributed shared
 //     memory, after the block's warps met in warp order: one launch, no
 //     workspace, no atomics, the same bits every run;
-//   - every load is 16 bytes: a key row spans D * elem / 16 lanes (16 at
-//     D = 128 bf16), so one warp-wide load covers 32 / that many keys, and
-//     a key's score is reduced over that many lanes only (4 shuffles at
-//     D = 128 bf16). A lane issues two loads each of K and V per key group
-//     (4 keys a warp at D = 128 bf16) and the next group's loads are in
-//     flight while the current one is reduced (two register buffers);
+//   - wide loads: a lane loads 16 bytes of a key row (8 bf16, 4 f32, or 16
+//     int8 codes; 8 codes in a window wider than one row, which keeps the
+//     bf16 register layout), so a key row spans D * elem / that many lanes
+//     (16 at D = 128 bf16, 8 in int8) and a key's score is reduced over
+//     those lanes only. A lane issues two loads each of K and V per key
+//     group (4 keys a warp at D = 128 bf16, 8 in int8), and the next
+//     group's loads (with the int8 keys' steps, one broadcast load a key)
+//     are in flight while the current one is reduced (two register
+//     buffers);
+//   - int8 codes become floats exactly and off the conversion pipe: the
+//     code with its sign bit flipped is a biased byte, one prmt puts it in
+//     the mantissa of 2^23 and one FADD takes 2^23 + 128 away. The key's
+//     and the value's steps are factored out of their codes: a score is
+//     (q . codes) * k_step * scale and a probability weighs the codes as
+//     p * v_step, one product a key instead of one an element;
 //   - the register arrays are sized for the window: one instance for
-//     Q = 1 (72 registers, six blocks an SM), one for 2 <= Q <= 4, one for
+//     Q = 1 (six blocks an SM, five in int8), one for 2 <= Q <= 4, one for
 //     5 <= Q <= 8;
-//   - the paged form changes only where a key row is loaded from: one
+//   - the paged forms change only where a key row is loaded from: one
 //     table entry for the block when its live keys lie on one page, else
 //     two a key group (ps >= the group) or one a key (smaller pages), never
-//     one per element. Every float operation after the load is the dense
+//     one per element; the int8 steps [P, H, ps] are read through the same
+//     row as the codes. Every float operation after the load is the dense
 //     form's, in the same order, so over the gathered view the two give
 //     bitwise equal results.
-// The int8 forms (decode_kernel) are still one block per (head, batch row):
-// four warps split the row's live keys in interleaved groups of 8, each
-// lane holding D/32 elements of a key row, and merge their online-softmax
-// states through shared memory at the end.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper_sm90.cuh"   // cluster rank, barrier and remote loads
 
@@ -82,6 +91,8 @@ struct Args {
   long long q_sb, q_sh, q_sj;   // its element strides; the last dim is dense
   const void* k;                // [B, H, S, D] dense, [P, H, ps, D] paged
   const void* v;
+  const float* ks;              // int8 forms: the steps, [B, H, S] or
+  const float* vs;              // [P, H, ps], one a row of k and of v
   const int* ptab;              // [B, nb] when paged
   const void* pos;              // [B] int32, or int64 (pos64)
   long long pos_s;              // its element stride (0: one for all rows)
@@ -92,7 +103,18 @@ struct Args {
   float scale;
 };
 
-// 16 loaded bytes as the floats they hold: 8 bf16 or 4 f32 (exact)
+// Bytes a lane loads of a key row: 16, except for int8 codes in a window
+// wider than one row (8, so that the window's q and acc arrays stay 8
+// floats a row, as in bf16) and at D = 16 (a row spans two lanes at least).
+template <typename T, int D, int QN>
+__host__ __device__ constexpr int lane_bytes() {
+  return sizeof(T) != 1 || (QN == 1 && D >= 32) ? 16 : 8;
+}
+
+// Loaded bytes as the floats they hold, exactly: 16 bytes of 8 bf16 or 4
+// f32, or 16 (8) bytes of int8 codes, each code with its sign bit flipped
+// (a biased byte, 0..255) put by one prmt in the mantissa of 2^23 and
+// taken back by one FADD of 2^23 + 128: no conversion instruction
 __device__ __forceinline__ void unpack(const uint4& r, float (&f)[8]) {
   const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
@@ -107,6 +129,27 @@ __device__ __forceinline__ void unpack(const uint4& r, float (&f)[4]) {
   f[2] = __uint_as_float(r.z);
   f[3] = __uint_as_float(r.w);
 }
+template <int N>
+__device__ __forceinline__ void codes(const uint32_t (&w)[N / 4],
+                                      float (&f)[N]) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const uint32_t biased = w[i] ^ 0x80808080u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * i + j] = __fsub_rn(
+          __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7440 | j)),
+          8388736.f);
+  }
+}
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[16]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+  codes<16>(w, f);
+}
+__device__ __forceinline__ void unpack(const uint2& r, float (&f)[8]) {
+  const uint32_t w[2] = {r.x, r.y};
+  codes<8>(w, f);
+}
 
 // the pool page of table entry i; an entry outside the pool reads the
 // scratch page 0, not memory past the pool
@@ -116,12 +159,14 @@ __device__ __forceinline__ int page(const int* tab, int i, int P) {
 }
 
 // The K and V slices a lane loads for the key group [g, g + U * KPL): key
-// g + u * KPL + sub, elements col .. col + 16 / elem - 1 of its row. Keys at
+// g + u * KPL + sub, elements col .. col + EPL - 1 of its row, and in the
+// int8 forms the key's K and V steps, read through the same row. Keys at
 // or past `end` read as zeros and load nothing. PAGED: the block's one page
 // (one_pg >= 0, its first key one_base), else two table entries a group
 // when ps covers the group, else one a key.
-template <typename T, int D, int U, int KPL, bool PAGED>
-__device__ __forceinline__ void load_group(uint4 (&kr)[U], uint4 (&vr)[U],
+template <typename T, int D, int U, int KPL, bool PAGED, typename V>
+__device__ __forceinline__ void load_group(V (&kr)[U], V (&vr)[U],
+                                           float (&ksr)[U], float (&vsr)[U],
                                            const Args& a, long long bh, int h,
                                            const int* tab, int one_pg,
                                            int one_base, int sub, int col,
@@ -158,23 +203,41 @@ __device__ __forceinline__ void load_group(uint4 (&kr)[U], uint4 (&vr)[U],
       }
       row = ((long long)pg * a.H + h) * a.ps + off;
     }
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    kr[u] = live ? __ldg(reinterpret_cast<const uint4*>(kc + row * D + col))
+    const V zero{};
+    kr[u] = live ? __ldg(reinterpret_cast<const V*>(kc + row * D + col))
                  : zero;
-    vr[u] = live ? __ldg(reinterpret_cast<const uint4*>(vc + row * D + col))
+    vr[u] = live ? __ldg(reinterpret_cast<const V*>(vc + row * D + col))
                  : zero;
+    if constexpr (sizeof(T) == 1) {
+      ksr[u] = live ? __ldg(a.ks + row) : 0.f;
+      vsr[u] = live ? __ldg(a.vs + row) : 0.f;
+    } else {
+      ksr[u] = vsr[u] = 0.f;   // no step
+    }
   }
 }
 
-// grid (nsplit, H, B), one cluster of nsplit blocks a (b, h); QN: the
-// register arrays' window (1, 4 for 2 <= Q <= 4, QMAX above). PAGED: k, v
-// are page pools read through ptab. The launch bounds cap the registers so
-// that an SM holds at least 6 blocks at QN = 1 (72 registers a thread, no
-// spill; a cap of 64 spilled and ran slower), 3 at QN = 4, 2 at QN = 8.
+// The blocks an SM holds at least, by the launch bounds: at QN = 1 six for
+// bf16 and f32 (80 registers a thread; bf16 takes 72 without spilling, and
+// a cap of 64 spilled and ran slower), five for int8 (96: its 16 codes a
+// load double the q and acc arrays, and a cap of 80 left one load a lane
+// per group in flight and ran slower); 3 at QN = 4, 2 at QN = 8.
+template <typename T, int QN>
+__host__ __device__ constexpr int min_blocks() {
+  return QN == 1 ? (sizeof(T) == 1 ? 5 : 6) : QN <= 4 ? 3 : 2;
+}
+
+// grid (nsplit, H, B), one cluster of nsplit blocks a (b, h); T: bf16, f32
+// or signed char (int8 codes, with the steps a.ks, a.vs); QN: the register
+// arrays' window (1, 4 for 2 <= Q <= 4, QMAX above). PAGED: k, v (and the
+// steps) are page pools read through ptab.
 template <typename T, int D, int QN, bool PAGED>
-__global__ void __launch_bounds__(ST, QN == 1 ? 6 : QN <= 4 ? 3 : 2)
+__global__ void __launch_bounds__(ST, min_blocks<T, QN>())
     split_decode_kernel(const Args a) {
-  constexpr int EPL = 16 / sizeof(T);   // elements in a lane's 16 bytes
+  constexpr bool Q8 = sizeof(T) == 1;    // int8 codes with steps
+  constexpr int LB = lane_bytes<T, D, QN>();
+  using V = std::conditional_t<LB == 16, uint4, uint2>;
+  constexpr int EPL = LB / sizeof(T);   // elements in a lane's bytes
   constexpr int LPK = D / EPL;          // lanes across one key row
   constexpr int KPL = 32 / LPK;         // keys one warp-wide load covers
   constexpr int U = 2;                  // loads a lane issues per K (and V)
@@ -225,19 +288,21 @@ __global__ void __launch_bounds__(ST, QN == 1 ? 6 : QN <= 4 ? 3 : 2)
 
   // warp w takes groups c0 + (w + SW i) KW; group i + 1 loads into one
   // buffer while group i, in the other, is reduced
-  uint4 kb[2][U], vb[2][U];
+  V kb[2][U], vb[2][U];
+  float ksb[2][U], vsb[2][U];   // the int8 keys' steps
   int g = c0 + w * KW;
   if (g < end)
-    load_group<T, D, U, KPL, PAGED>(kb[0], vb[0], a, bh, h, tab, one_pg,
-                                    one_base, sub, col, g, end);
+    load_group<T, D, U, KPL, PAGED>(kb[0], vb[0], ksb[0], vsb[0], a, bh, h,
+                                    tab, one_pg, one_base, sub, col, g, end);
   while (g < end) {
 #pragma unroll
     for (int cur = 0; cur < 2; ++cur) {
       if (g < end) {
         const int next = g + SW * KW;
         if (next < end)
-          load_group<T, D, U, KPL, PAGED>(kb[cur ^ 1], vb[cur ^ 1], a, bh, h,
-                                          tab, one_pg, one_base, sub, col,
+          load_group<T, D, U, KPL, PAGED>(kb[cur ^ 1], vb[cur ^ 1],
+                                          ksb[cur ^ 1], vsb[cur ^ 1], a, bh,
+                                          h, tab, one_pg, one_base, sub, col,
                                           next, end);
         float kf[U][EPL], vf[U][EPL];
 #pragma unroll
@@ -260,7 +325,9 @@ __global__ void __launch_bounds__(ST, QN == 1 ? 6 : QN <= 4 ? 3 : 2)
 #pragma unroll
             for (int off = LPK / 2; off > 0; off >>= 1)
               part += __shfl_xor_sync(FULL, part, off);
-            s[u] = __fmul_rn(part, a.scale);
+            // int8: the key's step factored out of its codes' sum
+            s[u] = __fmul_rn(Q8 ? __fmul_rn(part, ksb[cur][u]) : part,
+                             a.scale);
             const int key = g + u * KPL + sub;
             ok[u] = key < end && key <= p0 + j;
             if (ok[u]) mx = fmaxf(mx, s[u]);
@@ -279,6 +346,10 @@ __global__ void __launch_bounds__(ST, QN == 1 ? 6 : QN <= 4 ? 3 : 2)
           }
           l[j] = fmaf(l[j], alpha, rs);
           m[j] = m_new;
+          // int8: the value's step factored out of its codes
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            if (Q8) pk[u] = __fmul_rn(pk[u], vsb[cur][u]);
 #pragma unroll
           for (int t = 0; t < EPL; ++t) {
             float x = __fmul_rn(acc[j][t], alpha);
@@ -400,8 +471,11 @@ cudaError_t pick_d(const Args& a, int D, int nsplit, cudaStream_t s) {
   }
 }
 
+// the cache's element type
+enum Kind { F32 = 0, BF16 = 1, INT8 = 2 };
+
 template <bool PAGED>
-cudaError_t dispatch(const Args& a, int D, int is_bf16, int nsplit,
+cudaError_t dispatch(const Args& a, int D, int kind, int nsplit,
                      cudaStream_t s) {
   if (a.Q < 1 || a.Q > QMAX || nsplit < 1 || nsplit > MAX_SPLIT ||
       a.chunk < 1 || (long long)nsplit * a.chunk < a.S)
@@ -411,219 +485,17 @@ cudaError_t dispatch(const Args& a, int D, int is_bf16, int nsplit,
   if (reinterpret_cast<uintptr_t>(a.k) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(a.v) % 16 != 0)
     return cudaErrorMisalignedAddress;
-  return is_bf16 ? pick_d<__nv_bfloat16, PAGED>(a, D, nsplit, s)
-                 : pick_d<float, PAGED>(a, D, nsplit, s);
-}
-
-}  // namespace split_route
-
-// ------------------------------------------------ the int8 forms
-namespace {
-
-constexpr int NW = 4;           // warps per block
-constexpr int NT = NW * 32;
-constexpr int KG = 8;           // keys a warp loads per step
-constexpr int QMAX = 8;         // widest query window
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(signed char x) { return (float)x; }
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Lane `lane` owns elements lane*E .. lane*E + E - 1 of a D-wide row
-// (lanes past D / E own none when D < 32). SCALED: T is int8 and ks / vs
-// hold the per-position steps. PAGED: kc, vc (and ks, vs) are page pools
-// [P, H, ps, D] read through ptab [B, nb]; S = nb * ps is the row's
-// logical length. Dense: caches [B, H, S, D], ptab unused.
-template <typename T, int D, bool SCALED, bool PAGED>
-__global__ void __launch_bounds__(NT)
-decode_kernel(const float* __restrict__ q, const T* __restrict__ kc,
-              const T* __restrict__ vc, const float* __restrict__ ks,
-              const float* __restrict__ vs, const int* __restrict__ ptab,
-              const int* __restrict__ pos, float* __restrict__ out, int H,
-              int S, int Q, int P, int ps, int nb, float scale) {
-  constexpr int E = D >= 32 ? D / 32 : 1;
-  __shared__ float sm_m[NW][QMAX];
-  __shared__ float sm_l[NW][QMAX];
-  __shared__ float sm_acc[NW][QMAX][D];
-
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int b = blockIdx.y;
-  const int h = blockIdx.x;
-  const long long bh = (long long)b * H + h;
-  const int p0 = pos[b];
-  const int n_live = min(p0 + Q, S);
-  const int* row_tab = PAGED ? ptab + (long long)b * nb : nullptr;
-
-  float qr[QMAX][E], m[QMAX], l[QMAX], acc[QMAX][E];
-#pragma unroll
-  for (int j = 0; j < QMAX; ++j) {
-    m[j] = NEG_INF;
-    l[j] = 0.f;
-#pragma unroll
-    for (int t = 0; t < E; ++t) {
-      const int e = lane * E + t;
-      qr[j][t] = (j < Q && e < D) ? q[(bh * Q + j) * D + e] : 0.f;
-      acc[j][t] = 0.f;
-    }
-  }
-
-  for (int g0 = w * KG; g0 < n_live; g0 += NW * KG) {
-    // PAGED, ps >= KG: the group's keys lie on logical pages i_lo and
-    // i_lo + 1 at most, so two table reads serve all 8
-    int i_lo = 0, pg_lo = 0, pg_hi = 0;
-    if constexpr (PAGED) {
-      if (ps >= KG) {
-        i_lo = g0 / ps;
-        pg_lo = row_tab[i_lo];
-        pg_hi = row_tab[min(i_lo + 1, nb - 1)];
-      }
-    }
-    float kr[KG][E], vr[KG][E];
-#pragma unroll
-    for (int kk = 0; kk < KG; ++kk) {
-      const int key = g0 + kk;
-      const bool live = key < n_live;
-      // the key's row of the cache (and its index in the step planes)
-      long long row = bh * S + key;
-      if constexpr (PAGED) {
-        const int li = key / ps;
-        int pg = ps >= KG ? (li == i_lo ? pg_lo : pg_hi)
-                          : (live ? row_tab[li] : 0);
-        // an entry outside the pool reads the scratch page, not memory
-        // past the pool
-        if ((unsigned)pg >= (unsigned)P) pg = 0;
-        row = ((long long)pg * H + h) * ps + (key - li * ps);
-      }
-      float k_step = 1.f, v_step = 1.f;
-      if constexpr (SCALED) {
-        if (live) {
-          k_step = ks[row];
-          v_step = vs[row];
-        }
-      }
-      const T* kp = kc + row * D;
-      const T* vp = vc + row * D;
-#pragma unroll
-      for (int t = 0; t < E; ++t) {
-        const int e = lane * E + t;
-        const bool in = live && e < D;
-        kr[kk][t] = in ? to_f32(kp[e]) : 0.f;
-        vr[kk][t] = in ? to_f32(vp[e]) : 0.f;
-        if constexpr (SCALED) {   // dequantize in registers
-          kr[kk][t] *= k_step;
-          vr[kk][t] *= v_step;
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < QMAX; ++j) {
-      if (j >= Q) break;
-      float s[KG];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int kk = 0; kk < KG; ++kk) {
-        float part = 0.f;
-#pragma unroll
-        for (int t = 0; t < E; ++t) part = fmaf(qr[j][t], kr[kk][t], part);
-        s[kk] = warp_sum(part) * scale;
-        const int key = g0 + kk;
-        if (key < n_live && key <= p0 + j) mx = fmaxf(mx, s[kk]);
-      }
-      const float m_new = fmaxf(m[j], mx);
-      const float alpha = expf(m[j] - m_new);
-      float rs = 0.f;
-      float pk[KG];
-#pragma unroll
-      for (int kk = 0; kk < KG; ++kk) {
-        const int key = g0 + kk;
-        // masked keys contribute exactly 0, whatever the running max is
-        pk[kk] = (key < n_live && key <= p0 + j) ? expf(s[kk] - m_new) : 0.f;
-        rs += pk[kk];
-      }
-      l[j] = l[j] * alpha + rs;
-      m[j] = m_new;
-#pragma unroll
-      for (int t = 0; t < E; ++t) {
-        float a = acc[j][t] * alpha;
-#pragma unroll
-        for (int kk = 0; kk < KG; ++kk) a = fmaf(pk[kk], vr[kk][t], a);
-        acc[j][t] = a;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < QMAX; ++j) {
-    if (j >= Q) break;
-    if (lane == 0) {
-      sm_m[w][j] = m[j];
-      sm_l[w][j] = l[j];
-    }
-#pragma unroll
-    for (int t = 0; t < E; ++t) {
-      const int e = lane * E + t;
-      if (e < D) sm_acc[w][j][e] = acc[j][t];
-    }
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < Q * D; idx += NT) {
-    const int j = idx / D, e = idx % D;
-    float mt = NEG_INF;
-#pragma unroll
-    for (int ww = 0; ww < NW; ++ww) mt = fmaxf(mt, sm_m[ww][j]);
-    float lt = 0.f, at = 0.f;
-#pragma unroll
-    for (int ww = 0; ww < NW; ++ww) {
-      const float f = expf(sm_m[ww][j] - mt);
-      lt += sm_l[ww][j] * f;
-      at += sm_acc[ww][j][e] * f;
-    }
-    out[(bh * Q + j) * D + e] = at / (lt == 0.f ? 1.f : lt);
-  }
-}
-
-// The geometry of one call: dense caches use S; paged pools use P, ps, nb
-// and ptab (S = nb * ps).
-struct Geom {
-  int B, H, S, Q, P, ps, nb;
-};
-
-template <typename T, int D, bool SCALED, bool PAGED>
-cudaError_t launch(const float* q, const void* k, const void* v,
-                   const float* ks, const float* vs, const int* ptab,
-                   const int* pos, float* out, Geom g, float scale,
-                   cudaStream_t stream) {
-  dim3 grid(g.H, g.B);
-  decode_kernel<T, D, SCALED, PAGED><<<grid, NT, 0, stream>>>(
-      q, static_cast<const T*>(k), static_cast<const T*>(v), ks, vs, ptab,
-      pos, out, g.H, g.S, g.Q, g.P, g.ps, g.nb, scale);
-  return cudaGetLastError();
-}
-
-template <typename T, bool SCALED, bool PAGED>
-cudaError_t dispatch_d(const float* q, const void* k, const void* v,
-                       const float* ks, const float* vs, const int* ptab,
-                       const int* pos, float* out, Geom g, int D,
-                       float scale, cudaStream_t stream) {
-  if (g.Q < 1 || g.Q > QMAX) return cudaErrorInvalidValue;
-  if (PAGED && (g.ps < 1 || g.nb < 1 || g.P < 1)) return cudaErrorInvalidValue;
-  switch (D) {
-    case 16: return launch<T, 16, SCALED, PAGED>(q, k, v, ks, vs, ptab, pos, out, g, scale, stream);
-    case 32: return launch<T, 32, SCALED, PAGED>(q, k, v, ks, vs, ptab, pos, out, g, scale, stream);
-    case 64: return launch<T, 64, SCALED, PAGED>(q, k, v, ks, vs, ptab, pos, out, g, scale, stream);
-    case 128: return launch<T, 128, SCALED, PAGED>(q, k, v, ks, vs, ptab, pos, out, g, scale, stream);
+  switch (kind) {
+    case F32: return pick_d<float, PAGED>(a, D, nsplit, s);
+    case BF16: return pick_d<__nv_bfloat16, PAGED>(a, D, nsplit, s);
+    case INT8:
+      if (a.ks == nullptr || a.vs == nullptr) return cudaErrorInvalidValue;
+      return pick_d<signed char, PAGED>(a, D, nsplit, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
+}  // namespace split_route
 
 // q: [B, H, Q, D] f32 (q_bf16 = 0) or bf16, element strides q_sb, q_sh,
 // q_sj, last dim dense; k, v: [B, H, S, D] bf16 (is_bf16 = 1) or f32,
@@ -639,26 +511,32 @@ extern "C" int decode_attention(const void* q, int q_bf16, long long q_sb,
                                 int H, int S, int Q, int D, int is_bf16,
                                 int nsplit, int chunk, float scale,
                                 void* stream) {
-  const split_route::Args a{q, q_sb, q_sh, q_sj, k, v, nullptr, pos, pos_s,
-                            static_cast<float*>(out), q_bf16, pos64, B, H,
-                            S, Q, 0, 1, 1, chunk, scale};
+  const split_route::Args a{q, q_sb, q_sh, q_sj, k, v, nullptr, nullptr,
+                            nullptr, pos, pos_s, static_cast<float*>(out),
+                            q_bf16, pos64, B, H, S, Q, 0, 1, 1, chunk,
+                            scale};
   return (int)split_route::dispatch<false>(a, D, is_bf16, nsplit,
                                            static_cast<cudaStream_t>(stream));
 }
 
-// The scaled-int8 cache: k, v int8 codes [B, H, S, D]; ks, vs f32 steps
-// [B, H, S]; the rest as decode_attention.
-extern "C" int decode_attention_q8(const void* q, const void* k,
-                                   const void* v, const void* ks,
-                                   const void* vs, const void* pos, void* out,
-                                   int B, int H, int S, int Q, int D,
+// The scaled-int8 cache: k, v int8 codes [B, H, S, D], contiguous and
+// 16-byte aligned; ks, vs f32 steps [B, H, S], contiguous; the rest as
+// decode_attention.
+extern "C" int decode_attention_q8(const void* q, int q_bf16, long long q_sb,
+                                   long long q_sh, long long q_sj,
+                                   const void* k, const void* v,
+                                   const void* ks, const void* vs,
+                                   const void* pos, int pos64,
+                                   long long pos_s, void* out, int B, int H,
+                                   int S, int Q, int D, int nsplit, int chunk,
                                    float scale, void* stream) {
-  const Geom g{B, H, S, Q, 0, 1, 1};
-  return (int)dispatch_d<signed char, true, false>(
-      static_cast<const float*>(q), k, v, static_cast<const float*>(ks),
-      static_cast<const float*>(vs), nullptr, static_cast<const int*>(pos),
-      static_cast<float*>(out), g, D, scale,
-      static_cast<cudaStream_t>(stream));
+  const split_route::Args a{q, q_sb, q_sh, q_sj, k, v,
+                            static_cast<const float*>(ks),
+                            static_cast<const float*>(vs), nullptr, pos,
+                            pos_s, static_cast<float*>(out), q_bf16, pos64,
+                            B, H, S, Q, 0, 1, 1, chunk, scale};
+  return (int)split_route::dispatch<false>(a, D, split_route::INT8, nsplit,
+                                           static_cast<cudaStream_t>(stream));
 }
 
 // The paged pool: k, v [P, H, ps, D] bf16 (is_bf16 = 1) or f32; ptab
@@ -674,7 +552,7 @@ extern "C" int decode_attention_paged(const void* q, int q_bf16,
                                       int H, int P, int ps, int nb, int Q,
                                       int D, int is_bf16, int nsplit,
                                       int chunk, float scale, void* stream) {
-  const split_route::Args a{q, q_sb, q_sh, q_sj, k, v,
+  const split_route::Args a{q, q_sb, q_sh, q_sj, k, v, nullptr, nullptr,
                             static_cast<const int*>(ptab), pos, pos_s,
                             static_cast<float*>(out), q_bf16, pos64, B, H,
                             nb * ps, Q, P, ps, nb, chunk, scale};
@@ -682,18 +560,20 @@ extern "C" int decode_attention_paged(const void* q, int q_bf16,
                                           static_cast<cudaStream_t>(stream));
 }
 
-// The paged scaled-int8 pool: k, v int8 codes [P, H, ps, D]; ks, vs f32
-// steps [P, H, ps]; the rest as decode_attention_paged.
-extern "C" int decode_attention_paged_q8(const void* q, const void* k,
-                                         const void* v, const void* ks,
-                                         const void* vs, const void* ptab,
-                                         const void* pos, void* out, int B,
-                                         int H, int P, int ps, int nb, int Q,
-                                         int D, float scale, void* stream) {
-  const Geom g{B, H, nb * ps, Q, P, ps, nb};
-  return (int)dispatch_d<signed char, true, true>(
-      static_cast<const float*>(q), k, v, static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(ptab),
-      static_cast<const int*>(pos), static_cast<float*>(out), g, D, scale,
-      static_cast<cudaStream_t>(stream));
+// The paged scaled-int8 pool: k, v int8 codes [P, H, ps, D], 16-byte
+// aligned; ks, vs f32 steps [P, H, ps]; the rest as decode_attention_paged.
+extern "C" int decode_attention_paged_q8(
+    const void* q, int q_bf16, long long q_sb, long long q_sh,
+    long long q_sj, const void* k, const void* v, const void* ks,
+    const void* vs, const void* ptab, const void* pos, int pos64,
+    long long pos_s, void* out, int B, int H, int P, int ps, int nb, int Q,
+    int D, int nsplit, int chunk, float scale, void* stream) {
+  const split_route::Args a{q, q_sb, q_sh, q_sj, k, v,
+                            static_cast<const float*>(ks),
+                            static_cast<const float*>(vs),
+                            static_cast<const int*>(ptab), pos, pos_s,
+                            static_cast<float*>(out), q_bf16, pos64, B, H,
+                            nb * ps, Q, P, ps, nb, chunk, scale};
+  return (int)split_route::dispatch<true>(a, D, split_route::INT8, nsplit,
+                                          static_cast<cudaStream_t>(stream));
 }

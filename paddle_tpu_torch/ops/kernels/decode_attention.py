@@ -23,9 +23,11 @@ Masked keys contribute exactly 0 (``exp(-1e30 - m)`` underflows to +0.0
 in f32), so a row's result does not depend on how many dead blocks the
 batch-wide trip count of the plain bounded loop makes it scan.
 
-On the card the bf16/f32 forms split each row's keys across a cluster of
-blocks (:func:`decode_split`) and merge the partial softmaxes in rank
-order; the int8 forms run one block per (b, h).
+On the card every form, bf16/f32 or scaled-int8, dense or paged, splits
+each row's keys across a cluster of blocks (:func:`decode_split`,
+:func:`decode_split_q8`) and merges the partial softmaxes in rank order;
+the int8 forms turn the loaded codes into floats in registers and apply
+each key's and value's step once a key.
 """
 from __future__ import annotations
 
@@ -55,6 +57,15 @@ def decode_blocks_per_sm(Q: int) -> int:
     return 6 if Q == 1 else 3 if Q <= 4 else 2
 
 
+def decode_blocks_per_sm_q8(Q: int) -> int:
+    """The int8 forms' blocks an SM for :func:`decode_split_q8`: at Q = 1
+    four, which the split scan on the card (``tools/torch_kernel_ab.py
+    --decode-splits``) found fastest at the engine's 8 x 16 rows over 512
+    and over 2048 positions (the kernel's launch bounds hold five: 96
+    registers a thread); wider windows as :func:`decode_blocks_per_sm`."""
+    return 4 if Q == 1 else decode_blocks_per_sm(Q)
+
+
 # a rank's chunk of keys is a multiple of DECODE_CHUNK_KEYS, and nsplit
 # leaves it DECODE_MIN_CHUNK keys or more
 DECODE_CHUNK_KEYS = 32
@@ -71,6 +82,12 @@ def split_keys(S: int, nsplit: int) -> tuple[int, int]:
     return -(-S // chunk), chunk
 
 
+def _split(B, H, S, per_sm):
+    nsplit = min(DECODE_MAX_SPLIT, per_sm * DECODE_SMS // (B * H),
+                 S // DECODE_MIN_CHUNK)
+    return split_keys(S, max(1, nsplit))
+
+
 def decode_split(B: int, H: int, S: int, Q: int) -> tuple[int, int]:
     """``(nsplit, chunk)`` of a bf16/f32 kernel launch over S logical keys
     and a window of Q rows: each (b, h) is a cluster of nsplit blocks, rank
@@ -84,9 +101,15 @@ def decode_split(B: int, H: int, S: int, Q: int) -> tuple[int, int]:
     size or a device value: a dense call over a paged pool's gathered view
     (S = nb * ps) splits as the paged call does, which keeps the two
     bitwise equal."""
-    resident = decode_blocks_per_sm(Q) * DECODE_SMS
-    nsplit = min(DECODE_MAX_SPLIT, resident // (B * H), S // DECODE_MIN_CHUNK)
-    return split_keys(S, max(1, nsplit))
+    return _split(B, H, S, decode_blocks_per_sm(Q))
+
+
+def decode_split_q8(B: int, H: int, S: int, Q: int) -> tuple[int, int]:
+    """:func:`decode_split` of the scaled-int8 forms, dense and paged alike,
+    on :func:`decode_blocks_per_sm_q8`: 4 ranks of 128 keys at the engine's
+    8 x 16 rows over 512 positions (a rank's keys then lie on one page of
+    128), 4 of 512 over 2048, 6 of 64 at generate()'s 4 x 16 over 384."""
+    return _split(B, H, S, decode_blocks_per_sm_q8(Q))
 
 
 def _kv_parts(cache):
@@ -182,15 +205,17 @@ def bounded_decode_attention(q, k_cache, v_cache, pos, scale, block,
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# argument types of the library's C entries before scale and stream: the
-# bf16/f32 ones take q (pointer, bf16 flag, three strides), the caches (and
-# table), pos (pointer, int64 flag, stride), out, the sizes and the split
+# argument types of the library's C entries before scale and stream: q
+# (pointer, bf16 flag, three strides), the caches (the int8 forms: codes,
+# then steps; the paged forms: then the table), pos (pointer, int64 flag,
+# stride), out, the sizes, the bf16/f32 forms' dtype flag and the split
 _Q_ARGS = [_P, _I, _L, _L, _L]
+_POS_OUT = [_I, _L, _P]
 _ARGTYPES = {
-    "decode_attention": _Q_ARGS + [_P] * 3 + [_I, _L, _P] + [_I] * 8,
-    "decode_attention_q8": [_P] * 7 + [_I] * 5,
-    "decode_attention_paged": _Q_ARGS + [_P] * 4 + [_I, _L, _P] + [_I] * 10,
-    "decode_attention_paged_q8": [_P] * 8 + [_I] * 7,
+    "decode_attention": _Q_ARGS + [_P] * 3 + _POS_OUT + [_I] * 8,
+    "decode_attention_q8": _Q_ARGS + [_P] * 5 + _POS_OUT + [_I] * 7,
+    "decode_attention_paged": _Q_ARGS + [_P] * 4 + _POS_OUT + [_I] * 10,
+    "decode_attention_paged_q8": _Q_ARGS + [_P] * 6 + _POS_OUT + [_I] * 9,
 }
 
 
@@ -257,6 +282,9 @@ def _check_q8_inputs(q, k_cache, v_cache, pos, paged=False):
     if not all(t.is_contiguous() for t in (kd, vd, ks, vs)):
         raise ValueError("decode_attention_q8 kernel needs contiguous "
                          "codes and steps")
+    if kd.data_ptr() % 16 or vd.data_ptr() % 16:
+        raise ValueError("decode_attention_q8 kernel loads 16 bytes at a "
+                         "time: the codes must start 16-byte aligned")
 
 
 def _table(page_table, q):
@@ -314,30 +342,38 @@ def _stream(q):
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
-def _launch(q, k, v, pos, out, scale, ptab=None, split=None):
-    """Launch the bf16/f32 kernel on checked operands, dense or (``ptab``)
-    paged, split as ``split`` = (nsplit, chunk), by default
-    :func:`decode_split` of the logical length. The kernel reads q in f32
-    or bf16 through its strides and pos in int32 or int64 through its
-    stride, so neither is copied for it."""
+def _launch(q, k_cache, v_cache, pos, out, scale, ptab=None, split=None):
+    """Launch the kernel on checked operands: a bf16/f32 cache or a
+    scaled-int8 ``(codes, steps)`` pair, dense or (``ptab``) paged, split as
+    ``split`` = (nsplit, chunk), by default :func:`decode_split` (int8:
+    :func:`decode_split_q8`) of the logical length. The kernel reads q in
+    f32 or bf16 through its strides and pos in int32 or int64 through its
+    stride, so neither is copied for it: a call is one launch."""
+    (k, ks), (v, vs) = _kv_parts(k_cache), _kv_parts(v_cache)
     if q.dtype not in _DTYPES or q.stride(-1) != 1:
         q = q.float().contiguous()
     if pos.dtype not in (torch.int32, torch.int64):
         pos = pos.to(torch.int32)
     B, H, Q, d = q.shape
     S = k.shape[2] if ptab is None else ptab.shape[1] * k.shape[2]
-    split = split or decode_split(B, H, S, Q)
+    split = split or (decode_split if ks is None else decode_split_q8)(
+        B, H, S, Q)
     head = (q.data_ptr(), int(q.dtype == torch.bfloat16), *q.stride()[:3],
             k.data_ptr(), v.data_ptr())
+    if ks is not None:
+        head += (ks.data_ptr(), vs.data_ptr())
     tail = (pos.data_ptr(), int(pos.dtype == torch.int64), pos.stride(0),
             out.data_ptr())
     if ptab is None:
-        name, sizes = "decode_attention", (B, H, k.shape[2])
+        name, sizes = "decode_attention", (B, H, k.shape[2], Q, d)
     else:
         name, head = "decode_attention_paged", head + (ptab.data_ptr(),)
-        sizes = (B, H, k.shape[0], k.shape[2], ptab.shape[1])
-    err = _lib(name)(*head, *tail, *sizes, Q, d, _DTYPES[k.dtype], *split,
-                     float(scale), _stream(q))
+        sizes = (B, H, k.shape[0], k.shape[2], ptab.shape[1], Q, d)
+    if ks is None:
+        sizes += (_DTYPES[k.dtype],)
+    else:
+        name += "_q8"
+    err = _lib(name)(*head, *tail, *sizes, *split, float(scale), _stream(q))
     _build.check(err, name)
 
 
@@ -381,24 +417,18 @@ def decode_attention_q8(q, k_cache, v_cache, pos, scale=None, block=128):
     """:func:`decode_attention` over the scaled-int8 cache: k/v_cache are
     ``(codes int8 [B, H, S, d], steps f32 [B, H, S])`` pairs. CPU tensors
     run the plain versions (dequantized whole for ``full``, block by block
-    for ``bounded``); CUDA tensors launch the int8 kernel, which
-    dequantizes each live key and value in registers, or raise."""
+    for ``bounded``); CUDA tensors launch the int8 kernel, split as
+    :func:`decode_split_q8`, which reads each live key's and value's codes
+    and step and dequantizes them in registers, or raise."""
     pos, scale, mode = _prepare(q, pos, scale)
     if q.device.type == "cpu":
         return _plain(q, k_cache, v_cache, pos, scale, block, mode)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_q8: no kernel for {q.device}")
     _check_q8_inputs(q, k_cache, v_cache, pos)
-    (kd, ks), (vd, vs) = k_cache, v_cache
     B, H, Q, d = q.shape
-    qf = q.float().contiguous()
-    p32 = pos.to(torch.int32).contiguous()
     out = torch.empty((B, H, Q, d), dtype=torch.float32, device=q.device)
-    err = _lib("decode_attention_q8")(
-        qf.data_ptr(), kd.data_ptr(), vd.data_ptr(), ks.data_ptr(),
-        vs.data_ptr(), p32.data_ptr(), out.data_ptr(), B, H, kd.shape[2], Q,
-        d, float(scale), _stream(q))
-    _build.check(err, "decode_attention_q8")
+    _launch(q, k_cache, v_cache, pos, out, scale)
     decode_attention_q8.launches += 1
     return out
 
@@ -437,17 +467,9 @@ def decode_attention_paged_q8(q, k_pool, v_pool, pos, page_table,
                          f"{q.device}")
     _check_q8_inputs(q, k_pool, v_pool, pos, paged=True)
     pt = _table(page_table, q)
-    (kd, ks), (vd, vs) = k_pool, v_pool
     B, H, Q, d = q.shape
-    P, _, ps, _ = kd.shape
-    qf = q.float().contiguous()
-    p32 = pos.to(torch.int32).contiguous()
     out = torch.empty((B, H, Q, d), dtype=torch.float32, device=q.device)
-    err = _lib("decode_attention_paged_q8")(
-        qf.data_ptr(), kd.data_ptr(), vd.data_ptr(), ks.data_ptr(),
-        vs.data_ptr(), pt.data_ptr(), p32.data_ptr(), out.data_ptr(), B, H,
-        P, ps, pt.shape[1], Q, d, float(scale), _stream(q))
-    _build.check(err, "decode_attention_paged_q8")
+    _launch(q, k_pool, v_pool, pos, out, scale, ptab=pt)
     decode_attention_paged_q8.launches += 1
     return out
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time quant_matmul's decode form, the fused bias-dropout-residual
-LayerNorm and the bf16 decode attention (dense and paged) of the PyTorch
-port on one NVIDIA card, for one or more trees of the repository in turn,
-so that two versions are compared inside one run.
+LayerNorm and the decode attention (bf16 and scaled-int8, dense and paged)
+of the PyTorch port on one NVIDIA card, for one or more trees of the
+repository in turn, so that two versions are compared inside one run.
 
     python3 tools/torch_kernel_ab.py OLD NEW NEW OLD    # trees, in turns
     python3 tools/torch_kernel_ab.py --splits           # this tree's gemv
@@ -15,20 +15,23 @@ calls) of ``quant_matmul`` at M = 4 and 8 on gpt3_1p3b's FFN shapes (w_in
 K=2048, N=8192; w_out K=8192, N=2048; int8 and int4), warm and with its
 codes cold in L2 (the calls rotate over >= 100 MB of copies), and of the
 fused LayerNorm at bf16 [8192, 2048], p = 0.1, training and eval, and of
-``decode_attention`` and ``decode_attention_paged`` (pages of 128) at
-B=8, H=16, Q=1, d=128 bf16 over 512 and 2048 positions, the rows' live
-lengths spread over the cache. ``--splits`` times this tree's gemv route
-at every cluster size (the ``split`` the C entry takes) beside the skinny
-route on the same inputs; ``--decode-splits`` times this tree's bf16
-decode kernels, dense and paged, at every key split (nsplit 1..8) at the
-engine's shape (B=8, S=512), generate()'s (B=4, S=384, every row at
-position 271) and S=2048 with one query row, and at S=512 and 2048 with a
-4-row window, each checked against the plain version and paged against
-dense bitwise. The first line is the card's name and power
-limit.
+``decode_attention``, ``decode_attention_paged`` (pages of 128) and their
+scaled-int8 forms ``decode_attention_q8`` and ``decode_attention_paged_q8``
+at B=8, H=16, d=128 over 512 and 2048 positions (Q=1; int8 also Q=4), the
+rows' live lengths spread over the cache. A tree that differs from another
+by one constant (a register variant) is timed against it this way.
+``--splits`` times this tree's gemv route at every cluster size (the
+``split`` the C entry takes) beside the skinny route on the same inputs;
+``--decode-splits`` times this tree's decode kernels, bf16 and int8, dense
+and paged, at every key split (nsplit 1..8) at the engine's shape (B=8,
+S=512), generate()'s (B=4, S=384, every row at position 271) and S=2048
+with one query row, and at S=512 and 2048 with a 4-row window, each
+checked against the plain version and paged against dense bitwise. The
+first line is the card's name and power limit.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -66,16 +69,19 @@ def _weights(torch, gq, K, N, bits, dev):
 
 
 def _decode_inputs(torch, da, B, S, dev, pos=None, Q=1, H=16, d=128,
-                   ps=128):
-    """q, a dense bf16 cache pair, positions (spread over the cache unless
-    given), and the same keys as a shuffled page pool with its table
-    (entries past each row's live pages name the scratch page 0)."""
+                   ps=128, quant=False):
+    """q, a dense cache pair (bf16, or with ``quant`` scaled-int8 (codes,
+    steps) pairs), positions (spread over the cache unless given), and the
+    same keys as a shuffled page pool with its table (entries past each
+    row's live pages name the scratch page 0)."""
+    from paddle_tpu_torch.quantization.gpt_quant import quantize_rows
     g = torch.Generator(device=dev).manual_seed(B * 7 + S)
     q = torch.randn((B, H, Q, d), generator=g, device=dev).bfloat16()
     nb = S // ps
     P = 1 + B * nb
-    mk = lambda: torch.randn((P, H, ps, d), generator=g,
-                             device=dev).bfloat16()
+    draw = lambda: torch.randn((P, H, ps, d), generator=g, device=dev)
+    mk = (lambda: quantize_rows(draw())) if quant else \
+        (lambda: draw().bfloat16())
     kp, vp = mk(), mk()
     perm = torch.randperm(P - 1, generator=g, device=dev) + 1
     ptab = perm[:B * nb].reshape(B, nb).to(torch.int32)
@@ -85,9 +91,10 @@ def _decode_inputs(torch, da, B, S, dev, pos=None, Q=1, H=16, d=128,
     dead = torch.arange(nb, device=dev)[None] >= ((pos.long() + Q + ps - 1)
                                                   // ps)[:, None]
     ptab = torch.where(dead, torch.zeros_like(ptab), ptab).contiguous()
-    kc = da.paged_view(kp, ptab).contiguous()
-    vc = da.paged_view(vp, ptab).contiguous()
-    return q, kc, vc, pos.contiguous(), kp, vp, ptab
+    dense = lambda pool: (
+        tuple(t.contiguous() for t in da.paged_view(pool, ptab)) if quant
+        else da.paged_view(pool, ptab).contiguous())
+    return q, dense(kp), dense(vp), pos.contiguous(), kp, vp, ptab
 
 
 def run_tree(root: str) -> dict:
@@ -135,6 +142,15 @@ def run_tree(root: str) -> dict:
         res[f"paged_S{S}"] = device_ms(
             torch, lambda: da.decode_attention_paged(q, kp, vp, pos, ptab,
                                                      128 ** -0.5))
+        for Q in (1, 4):
+            q, kc, vc, pos, kp, vp, ptab = _decode_inputs(
+                torch, da, 8, S, dev, Q=Q, quant=True)
+            res[f"decode_q8_S{S}_Q{Q}"] = device_ms(
+                torch, lambda: da.decode_attention_q8(q, kc, vc, pos,
+                                                      128 ** -0.5))
+            res[f"paged_q8_S{S}_Q{Q}"] = device_ms(
+                torch, lambda: da.decode_attention_paged_q8(
+                    q, kp, vp, pos, ptab, 128 ** -0.5))
     return res
 
 
@@ -186,23 +202,26 @@ def run_splits() -> list[dict]:
 
 
 def run_decode_splits() -> list[dict]:
-    """This tree's bf16 decode kernels, dense and paged, at every key split
-    (``da.split_keys(S, n)``, n = 1..8) on three shapes; each split checked
-    against the plain version (2e-4) and paged against dense bitwise."""
+    """This tree's decode kernels, bf16 and int8, dense and paged, at every
+    key split (``da.split_keys(S, n)``, n = 1..8) on five shapes; each
+    split checked against the plain version (2e-4) and paged against dense
+    bitwise."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import torch
     from paddle_tpu_torch.ops.kernels import decode_attention as da
     dev = torch.device("cuda")
     scale = 128 ** -0.5
     rows = []
-    for B, S, pos, Q in ((8, 512, None, 1), (4, 384, 271, 1),
-                         (8, 2048, None, 1), (8, 512, None, 4),
-                         (8, 2048, None, 4)):
+    for (B, S, pos, Q), quant in itertools.product(
+            ((8, 512, None, 1), (4, 384, 271, 1), (8, 2048, None, 1),
+             (8, 512, None, 4), (8, 2048, None, 4)), (False, True)):
         q, kc, vc, pos, kp, vp, ptab = _decode_inputs(torch, da, B, S, dev,
-                                                      pos, Q)
+                                                      pos, Q, quant=quant)
         ref = da.bounded_decode_attention(q, kc, vc, pos.long(), scale, 128)
         out = torch.empty((B, 16, Q, 128), dtype=torch.float32, device=dev)
-        row = dict(B=B, H=16, S=S, Q=Q, picked=da.decode_split(B, 16, S, Q))
+        row = dict(B=B, H=16, S=S, Q=Q, cache="int8" if quant else "bf16",
+                   picked=(da.decode_split_q8 if quant
+                           else da.decode_split)(B, 16, S, Q))
         for split in sorted({da.split_keys(S, n) for n in range(1, 9)}):
             dense = lambda: da._launch(q, kc, vc, pos, out, scale,
                                        split=split)
