@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,kernels,train,train_parity
     python3 chip_smoke.py --phases build,kernels,paged,paged_parity
     python3 chip_smoke.py --phases build,incubate,sampling
+    python3 chip_smoke.py --phases build,spec
 
 Phases, each fatal on failure:
 
@@ -115,6 +116,35 @@ Phases, each fatal on failure:
               50, seed 0), ms a token each, exact launch counts; the 12-request
               replay sampled; 2-layer f32 sampled streams equal on the CPU and
               the card.
+14. spec    — speculative decoding (spec_decode=4). Full width, bf16, on
+              a fresh init_params draw from seed 0 (the train phase trains
+              the shared weights in place): a
+              session with the early-exit draft (the first 12 layers) over
+              B=4 x P=256 (+32) beside spec off: ms a token each, the
+              acceptance rate and tokens a row a tick, exact decode-attention
+              launches by window width a tick (3 x 12 at Q=1 and 24 at Q=4),
+              the margin rule (spec-on greedy streams equal spec-off ones, or
+              the first differing token's spec-off top-two logit gap is no
+              larger than d, the largest difference between the two logits
+              rows that produced it; d over every shared token and e, each
+              kernel-path row against the same forward through the plain
+              decode attention, stay within their limits), and profiles of
+              16 ticks each, spec off and spec on, the latter with the
+              verify's Q=4 device time. The kernels phase holds the decode
+              kernels and quant_matmul at this phase's shapes (a guard
+              fails if a session's cache length moves). The 12-request
+              replay through
+              ServingEngine(prefill_chunk=128): dense bf16 with a separate
+              draft (the first 4 layers as a model of their own) and half the
+              requests sampled at temperature 0.8 with their own seeds; w8kv8
+              on a paged pool with the early-exit draft, then 16 of its spec
+              ticks profiled at B=8; every request DONE, launches and
+              quant_matmul routes exact (the draft's steps on gemv, the
+              verify and the chunks on wgmma). 2 layers f32 on the
+              CPU and the card: greedy spec streams (early-exit and separate
+              draft, dense and paged) equal spec off and equal across the
+              two; sampled spec streams and the lane's per-row key draws over
+              [4, 50304] equal bitwise across the two.
 
 The CPU/card parity gates (parity, quant_parity, paged_parity,
 train_parity, sampling's 2-layer streams) run on the numpy N(0, 0.02)
@@ -139,7 +169,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "generate", "server", "parity", "quant",
           "quant_parity", "paged", "paged_parity", "train", "train_parity",
-          "incubate", "sampling")
+          "incubate", "sampling", "spec")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -171,6 +201,15 @@ ADAMW_CANCEL_FLOOR = 1e-5
 # products are exact in f32 (integer codes times bf16 or f32 x), so only
 # the summation order differs
 QMM_TOL = 1e-4
+# the spec phase's margin rule at full width, bf16, in logit units: d, a
+# spec-on verify row against the spec-off row of the same position (both
+# kernel paths), and e, a kernel-path logits row against the same forward
+# through the plain decode attention. Readings on an H100 (PERF.md §6):
+# d <= 0.0601 and e <= 0.0606 (about two bf16 ulps of logits near 4);
+# a verify window attending one key short gives e 0.103-0.164 in every
+# row and d 0.107-0.150 in three of four
+SPEC_D_LIMIT = 0.09
+SPEC_E_LIMIT = 0.09
 # quantized logits, CPU against the card: K/V codes come from activations
 # that differ by summation-order ulps, which can move a code across a
 # rounding tie by one step
@@ -1026,7 +1065,8 @@ class Smoke:
         long cache (Q = 1 and 4) and edge cases (small heads, a 3-row
         window, 8- and 16-key pages, dead table entries; with several
         ranks, a table entry a key at 8-key pages and d = 16, two a key
-        group at 16-key pages and d = 128)."""
+        group at 16-key pages and d = 128), and the spec replay's
+        windows."""
         for quant in (False, True):
             self._paged_case(8, 16, 128, 4, 128, 1, quant,
                              [round(511 * i / 7) for i in range(8)], True,
@@ -1043,6 +1083,12 @@ class Smoke:
             self._paged_case(3, 4, 8, 32, 16, 3, quant, [250, 9, 100],
                              False, spare=3)
             self._paged_case(2, 16, 16, 16, 128, 1, quant, [255, 70], False)
+        # the spec w8kv8 replay's draft and verify: 8 slots of 5 pages (512
+        # positions and the window's headroom), the verify at Q = 4 timed
+        for Q in (1, 4):
+            self._paged_case(8, 16, 128, 5, 128, Q, True,
+                             [round((639 - Q) * i / 7) for i in range(8)],
+                             Q == 4)
 
     # ------------------------------------------- fused LN and factories
     def _fused_ln_case(self, N, D, dtype, training, p, time_it, main=False):
@@ -1258,6 +1304,12 @@ class Smoke:
         for dt in (bf16, f32):
             self._decode_case(2, 4, 200, 64, 2, dt, False)
             self._decode_case(2, 4, 200, 32, 1, dt, False)
+        # the spec phase's windows: its generate-shaped session (B=4, cache
+        # padded to 512 with the window's headroom; the verify at Q = 4
+        # timed) and the replay's separate draft and verify (8 slots, 640)
+        for Q in (1, 4):
+            self._decode_case(4, 16, 512, 128, Q, bf16, Q == 4)
+            self._decode_case(8, 16, 640, 128, Q, bf16, False)
         # the train phase's attention shape, forward (the timed main row)
         # and backward
         self._flash_case(4, 16, 2048, 2048, 128, bf16, True, True, True,
@@ -1283,6 +1335,12 @@ class Smoke:
             # ragged M on the wgmma route (one partial 128-row block)
             for M in (37, 100):
                 self._qmm_case(M, 2048, 8192, bits, bf16, False)
+        # the spec w8kv8 replay's verify (8 slots x a 4-token window, timed)
+        # and its 128-token prefill chunks, both on the wgmma route
+        for K, N in ((2048, 8192), (8192, 2048)):
+            for M in (32, 128):
+                self._qmm_case(M, K, N, 8, bf16, M == 32)
+        for bits in (8, 4):
             # ragged edges: the skinny kernel over several row blocks (f32
             # x, and bf16 x at N % 16 != 0, which gemv cannot map), the
             # wmma route (N % 16 != 0: no tensor map) and its tile's masks,
@@ -2609,6 +2667,476 @@ class Smoke:
         if not same:
             raise AssertionError("sampled streams differ between the CPU "
                                  "and the card")
+
+    # ------------------------------------------------------------- spec
+    def _spec_instruments(self):
+        """Counters this script lays over the model for the spec phase:
+        decode-attention launches by window width (a wrapper of the name
+        ``models/gpt.py`` calls, counting what the kernels' own counters
+        count, split by Q) and, while ``self._capture`` names a lane
+        ("on": the verify, "off": the plain tick), each such forward's
+        logits beside the same forward on copies of the caches through
+        the plain decode attention. Returns (by_q, captured, undo)."""
+        import collections
+        torch = self.torch
+        from paddle_tpu_torch.inference import generation
+        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.ops.kernels import decode_attention as da
+        by_q, captured = collections.Counter(), []
+        attend = gpt.decode_attention
+        verify, one = generation.verify_tokens, generation.decode_one_token
+
+        def counted(q, *a, **kw):
+            by_q[int(q.shape[2])] += 1
+            return attend(q, *a, **kw)
+
+        def plain(q, kc, vc, pos, block=128, page_table=None):
+            # the dense bf16 session of the margin rule only
+            S = kc.shape[2]
+            block = block if S % block == 0 else S
+            return da.bounded_decode_attention(
+                q, kc, vc, pos.long(), 1.0 / q.shape[-1] ** 0.5, block)
+
+        def twin(fn, lane):
+            def run(params, cfg, tokens, pos, kc, vc, *a, **kw):
+                ref = None
+                if self._capture == lane:
+                    gpt.decode_attention = plain
+                    ref = fn(params, cfg, tokens, pos, kc.clone(),
+                             vc.clone(), *a, **kw)[0]
+                    gpt.decode_attention = counted
+                out = fn(params, cfg, tokens, pos, kc, vc, *a, **kw)
+                if self._capture == lane:
+                    captured.append((out[0], ref))
+                return out
+            return run
+
+        gpt.decode_attention = counted
+        generation.verify_tokens = twin(verify, "on")
+        generation.decode_one_token = twin(one, "off")
+        self._capture = None
+
+        def undo():
+            gpt.decode_attention = attend
+            generation.verify_tokens, generation.decode_one_token = verify, one
+        return by_q, captured, undo
+
+    def _spec_streams(self, sess, prompt, N, captured):
+        """Drive a session (spec on or off) over ``prompt`` until every row
+        has N tokens; returns (streams [B][N], for each token the logits
+        row that produced it and that row through the plain decode
+        attention [B][N] as (kernel row, plain row) pairs; the first
+        token's, the prefill's, has no plain row)."""
+        torch = self.torch
+        spec = bool(sess.spec_k)
+        self._capture = "on" if spec else "off"
+        slots = sess.admit(prompt)
+        out = {s: [] for s in slots}
+        src = {s: [] for s in slots}
+        prev = {s: (sess._logits[s].clone(), None) for s in slots}
+        while any(len(out[s]) < N for s in slots):
+            del captured[:]
+            em = sess.spec_step() if spec else sess.step()
+            lk, lp = captured[-1]
+            for s, toks in em.items():
+                toks = toks if isinstance(toks, list) else [toks]
+                for j, t in enumerate(toks):
+                    out[s].append(int(t))
+                    src[s].append(prev[s] if j == 0
+                                  else (lk[s, j - 1], lp[s, j - 1]))
+                # the row the next tick's first token comes from: the
+                # verify's after the last accepted token, or the tick's
+                prev[s] = ((lk[s, len(toks) - 1], lp[s, len(toks) - 1])
+                           if spec else (lk[s], lp[s]))
+        self._capture = None
+        sess.freeze(slots)
+        for s in slots:
+            sess.evict(s)
+        torch.cuda.synchronize()
+        return ([out[s][:N] for s in slots], [src[s][:N] for s in slots])
+
+    def _margin_rule(self, off, on):
+        """Spec-on greedy streams against spec-off ones at bf16. Over every
+        token both streams share, and at the first one they do not: d, the
+        largest difference between the spec-off logits row and the spec-on
+        verify row that produced the position, and e, the largest
+        difference between a kernel-path row and the same forward through
+        the plain decode attention. A divergence is explained by rounding
+        when the spec-off logits' top-two gap there is no larger than d;
+        and every d stays within SPEC_D_LIMIT and every e within
+        SPEC_E_LIMIT (PERF.md §5 has the readings these limits come from),
+        so a verify that computes the wrong window fails even where the
+        near-flat logits of random weights would explain any divergence.
+        Returns one dict a row."""
+        torch = self.torch
+        diff = lambda a, b: float((a.float() - b.float()).abs().max())
+        rows = []
+        for b, ((s_off, l_off), (s_on, l_on)) in enumerate(zip(
+                zip(*off), zip(*on))):
+            i = next((i for i, (x, y) in enumerate(zip(s_off, s_on))
+                      if x != y), None)
+            n = len(s_off) if i is None else i + 1
+            d = [diff(l_off[j][0], l_on[j][0]) for j in range(n)]
+            e = [diff(r[0], r[1]) for r in l_off + l_on if r[1] is not None]
+            row = dict(row=b, equal=i is None, d_max=max(d), e_max=max(e),
+                       logits_abs_max=max(float(r[0].float().abs().max())
+                                          for r in l_off[:n]))
+            if i is not None:
+                top = torch.topk(l_off[i][0].float(), 2).values
+                row.update(first_diff=i, top2_gap=float(top[0] - top[1]),
+                           max_logit_diff=d[i],
+                           plain_diff=diff(l_off[i][1], l_on[i][1])
+                           if l_on[i][1] is not None else None,
+                           d_before=max(d[:i], default=0.0))
+                row["explained"] = row["top2_gap"] <= d[i]
+            row["within_limits"] = (row["d_max"] <= SPEC_D_LIMIT
+                                    and row["e_max"] <= SPEC_E_LIMIT)
+            rows.append(row)
+        return rows
+
+    def _spec_tick_profile(self, sess, prompt):
+        """16 ticks of ``sess`` (B rows admitted; spec ticks, or plain ones
+        with spec off) under torch.profiler: wall with and without the
+        profiler, device busy time and idle share, and the split decode
+        kernel's device time by window width (the verify's Q = k launches
+        apart from the draft's Q = 1). Device activity only: reading the
+        host's op events of 16 spec ticks took 30-36 s a profile."""
+        import re
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        tick = sess.spec_step if sess.spec_k else sess.step
+        slots = sess.admit(prompt)
+        for _ in range(2):
+            tick()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(16):
+            tick()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(16):
+                tick()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        for s in slots:
+            sess.evict(s)
+        t0 = time.perf_counter()
+        busy_ms, top = _device_rows(torch, prof, 8)
+        dev_us = lambda e: getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0))
+        by_q = {}
+        for e in prof.key_averages():
+            m = re.search(r"split_decode_kernel<[^,]+, *\d+, *(\d+)", e.key)
+            if m and dev_us(e) > 0:
+                ms, n = by_q.get(int(m.group(1)), (0.0, 0))
+                by_q[int(m.group(1))] = (ms + dev_us(e) / 1e3, n + e.count)
+        line = dict(
+            region=f"spec {'on' if sess.spec_k else 'off'} session, 16 "
+                   "ticks", batch=len(slots),
+            prompt=int(prompt.shape[1]), spec_k=sess.spec_k,
+            wall_ms_unprofiled=round(plain_ms, 3),
+            wall_ms_profiled=round(wall_ms, 3),
+            trace_read_s=round(time.perf_counter() - t0, 1),
+            device_busy_ms=round(busy_ms, 3),
+            device_idle_share=round(1 - busy_ms / plain_ms, 4)
+            if busy_ms else None,
+            decode_kernel_by_q={str(q): dict(device_ms=round(ms, 4),
+                                             launches=n,
+                                             ms_per_launch=round(ms / n, 5))
+                                for q, (ms, n) in sorted(by_q.items())},
+            top=[dict(name=k[:60], ms=round(ms, 3), calls=c)
+                 for k, ms, c in top])
+        log("[profile] " + json.dumps(line))
+        if (sess.spec_k or 1) not in by_q:
+            raise AssertionError("the profile found no decode kernel of the "
+                                 "tick's window width")
+        return line
+
+    def _spec_replay(self, tag, sess, sampled):
+        """The server's 12-request trace through ServingEngine(
+        prefill_chunk=128) on a spec session, counted: a warm-up request,
+        then the trace with the counters zeroed just before and read just
+        after. ``sampled``: every other request at temperature 0.8 with its
+        own seed. Every request must end DONE with its budget."""
+        torch = self.torch
+        from paddle_tpu_torch.serving import RequestState, ServingEngine
+        trace = self._server_trace(sess.cfg)
+        eng = ServingEngine(sess, max_queue=64, prefill_chunk=128,
+                            device=self.dev)
+        warm = eng.submit(trace[0][0][:64], max_new_tokens=2)
+        eng.run()
+        if warm.state is not RequestState.DONE:
+            raise AssertionError(f"{tag}: warm-up request did not finish")
+        sess.reset_metrics()
+        self._zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=m,
+                           **(dict(temperature=0.8, seed=1000 + i)
+                              if sampled and i % 2 == 0 else {}))
+                for i, (p, m) in enumerate(trace)]
+        eng.run(deadline=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for r, (_, m) in zip(reqs, trace):
+            if r.state is not RequestState.DONE or len(r.output) != m:
+                raise AssertionError(f"{tag} {r.request_id}: {r.state} with "
+                                     f"{len(r.output)} of {m} tokens")
+        counts = self._read_counts(tag, ())
+        met = eng.metrics()
+        toks = sum(len(r.output) for r in reqs)
+        line = dict(run=tag, requests=len(reqs),
+                    sampled_requests=sum(r.temperature > 0 for r in reqs),
+                    spec_ticks=met["spec_ticks"],
+                    suffix_prefills=met["prefill_chunks"], new_tokens=toks,
+                    wall_s=round(wall, 3), tokens_per_s=round(toks / wall, 1),
+                    spec_accept_rate=met["spec_accept_rate"],
+                    spec_tokens_per_row_tick=met["spec_tokens_per_row_tick"],
+                    spec_resample_total=met["spec_resample_total"],
+                    ttft_ms_p50=met["ttft_ms_p50"],
+                    decode_ms_per_token_p50=met["decode_ms_per_token_p50"])
+        log("[spec] " + json.dumps(line))
+        eng.close()
+        return counts, line
+
+    @staticmethod
+    def _spec_cache_shape(sess, S):
+        """The kernels phase holds the decode kernels at the spec phase's
+        cache lengths; a session whose physical cache moved would leave
+        them unchecked."""
+        if sess._phys_len != S:
+            raise AssertionError(f"spec session cache length "
+                                 f"{sess._phys_len}, the kernels phase "
+                                 f"checks {S}")
+
+    def phase_spec(self):
+        """Speculative decoding at full gpt3_1p3b width and at 2 layers f32
+        on the CPU and the card (see the module doc)."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.inference import GenerationSession
+        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.quantization import quantize_gpt_params
+        # a draw of its own: the train phase updates the shared weights in
+        # place, and the draft's acceptance depends on the weights
+        cfg = gpt.gpt3_1p3b()
+        t_start = time.perf_counter()
+        params = gpt.init_params(cfg, seed=0, device=self.dev)
+        L, k, cut = cfg.n_layers, 4, cfg.n_layers // 2
+        by_q, captured, undo = self._spec_instruments()
+        marks = [("start", t_start), ("weights", time.perf_counter())]
+        try:
+            self._spec_full_width(cfg, params, L, k, cut, by_q, captured)
+            marks.append(("generate", time.perf_counter()))
+            # the replays: a separate draft (the first 4 layers as a model
+            # of their own, with its own cache) serving half the requests
+            # sampled, dense bf16; then w8kv8 on a paged pool with the
+            # early-exit draft
+            d4 = gpt.early_exit_draft(params, cfg, 4)
+            sess = GenerationSession(params, cfg, max_slots=8,
+                                     max_prompt_len=384, max_len=512,
+                                     spec_decode=k, spec_draft=d4,
+                                     spec_sample=True, device=self.dev)
+            self._spec_cache_shape(sess, 640)
+            tag = "spec bf16 separate draft (4 layers) chunk=128 sampled"
+            counts, line = self._spec_replay(tag, sess, sampled=True)
+            self._expect_counts(tag, counts, {
+                "decode_attention": (k * 4 + L) * line["spec_ticks"]})
+            marks.append(("replay bf16", time.perf_counter()))
+            del sess, d4
+            torch.cuda.empty_cache()
+            qcfg = gpt.gpt3_1p3b(weight_quant="int8", kv_cache_dtype="int8")
+            qp = quantize_gpt_params(params, qcfg, 8)
+            sess = GenerationSession(qp, qcfg, max_slots=8,
+                                     max_prompt_len=384, max_len=512,
+                                     spec_decode=k, kv_paged=True,
+                                     device=self.dev)
+            self._spec_cache_shape(sess, 640)       # 5 pages of 128
+            marks.append(("w8kv8 session", time.perf_counter()))
+            tag = "spec w8kv8 paged early-exit chunk=128"
+            counts, line = self._spec_replay(tag, sess, sampled=False)
+            ticks, chunks = line["spec_ticks"], line["suffix_prefills"]
+            self._expect_counts(tag, counts, {
+                "decode_attention_paged_q8": ((k - 1) * cut + L) * ticks,
+                "quant_matmul": 2 * ((k - 1) * cut + L) * ticks
+                + 2 * L * chunks})
+            # the draft's steps (M = 8 rows) on gemv, the verify (M = 8 x k)
+            # and the chunks on the prefill form
+            self._expect_routes(tag, {"gemv": 2 * (k - 1) * cut * ticks,
+                                      "wgmma": 2 * L * (ticks + chunks)})
+            marks.append(("replay w8kv8", time.perf_counter()))
+            self._spec_tick_profile(sess, np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (8, 256)))
+            marks.append(("profile w8kv8", time.perf_counter()))
+            del sess, qp
+            torch.cuda.empty_cache()
+        finally:
+            undo()
+        self._spec_parity()
+        marks.append(("parity", time.perf_counter()))
+        log("[spec] seconds by part " + json.dumps({
+            name: round(t - t0, 1)
+            for (_, t0), (name, t) in zip(marks, marks[1:])}))
+
+    def _spec_full_width(self, cfg, params, L, k, cut, by_q, captured):
+        """generate-shaped runs at B=4 x P=256 (+32) through a session with
+        the early-exit draft at its default cut, beside spec off: ms/token,
+        acceptance, exact launches by Q a tick, the margin rule, and a
+        profile of 16 spec ticks."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.inference import GenerationSession
+        prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                   (4, 256))
+        B, P = prompt.shape
+        N = 32
+        mk = lambda **kw: GenerationSession(
+            params, cfg, max_slots=B, max_prompt_len=P, max_len=P + 192,
+            device=self.dev, **kw)
+        sessions = {"off": mk(), "on": mk(spec_decode=k)}
+        if sessions["on"]._spec_cut != cut:
+            raise AssertionError("the early-exit draft's default cut moved")
+        self._spec_cache_shape(sessions["on"], 512)
+        t_rule = time.perf_counter()
+        # streams and the logits that produced every token
+        streams = {t: self._spec_streams(s, prompt[:, :16], 2, captured)
+                   for t, s in sessions.items()}          # warm-up
+        streams = {t: self._spec_streams(s, prompt, N, captured)
+                   for t, s in sessions.items()}
+        rows = self._margin_rule(streams["off"], streams["on"])
+        log("[spec] " + json.dumps(dict(
+            margin_rule="spec-on greedy against spec-off, bf16, B=4 x P=256 "
+                        "+ 32", d_limit=SPEC_D_LIMIT, e_limit=SPEC_E_LIMIT,
+            rows=rows)))
+        if not all((r["equal"] or r["explained"]) and r["within_limits"]
+                   for r in rows):
+            raise AssertionError(f"spec-on divergence unexplained or past "
+                                 f"its limits: {rows}")
+        del streams
+        t_rule = time.perf_counter() - t_rule
+        # the timed, counted runs
+        per_tok, lines = {}, {}
+        for tag, sess in sessions.items():
+            sess.reset_metrics()
+            self._zero_counts()
+            by_q.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slots = sess.admit(prompt)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            while any(sess.generated_count(s) < N for s in slots):
+                sess.spec_step() if sess.spec_k else sess.step()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            for s in slots:
+                sess.evict(s)
+            met = sess.metrics()
+            ticks = met["decode_ticks"]
+            counts = self._read_counts(f"spec generate {tag}",
+                                       ("flash_attention_fwd",
+                                        "decode_attention"))
+            per_tick = (k - 1) * cut + L if sess.spec_k else L
+            self._expect_counts(f"spec generate {tag}", counts, {
+                "flash_attention_fwd": L, "decode_attention": per_tick * ticks})
+            want_q = ({1: (k - 1) * cut * ticks, k: L * ticks}
+                      if sess.spec_k else {1: L * ticks})
+            if dict(by_q) != want_q:
+                raise AssertionError(f"spec generate {tag}: decode launches "
+                                     f"by Q {dict(by_q)}, expected {want_q}")
+            per_tok[tag] = (t2 - t1) / N * 1e3
+            lines[tag] = dict(
+                ticks=ticks, prefill_ms=round((t1 - t0) * 1e3, 3),
+                decode_ms_per_token=round(per_tok[tag], 3),
+                decode_launches_by_q_per_tick={
+                    str(q): n // ticks for q, n in sorted(by_q.items())},
+                spec_accept_rate=met["spec_accept_rate"],
+                spec_tokens_per_row_tick=met["spec_tokens_per_row_tick"])
+        log("[spec] " + json.dumps(dict(
+            path="GenerationSession, gpt3_1p3b bf16", batch=B, prompt=P,
+            new_tokens=N, spec_k=k, draft=f"early-exit, first {cut} layers",
+            spec_on=lines["on"], spec_off=lines["off"],
+            on_over_off=round(per_tok["on"] / per_tok["off"], 4),
+            margin_rule_s=round(t_rule, 1))))
+        # the same sessions' ticks, spec off and on, in one call
+        for sess in sessions.values():
+            self._spec_tick_profile(sess, prompt)
+        del sessions
+        torch.cuda.empty_cache()
+
+    def _spec_parity(self):
+        """gpt3_1p3b(n_layers=2, f32) on the numpy seed-0 weights, on the CPU
+        and on the card: greedy spec streams (early-exit and separate draft,
+        dense and paged) equal the spec-off stream on each device and
+        across the two; sampled spec streams equal across the two; and the
+        per-row key draws of the stochastic lane equal bitwise."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.framework import prng
+        from paddle_tpu_torch.inference import GenerationSession
+        from paddle_tpu_torch.models import gpt
+        pcfg = gpt.gpt3_1p3b(n_layers=2, dtype=torch.float32)
+        weights = self._weights(pcfg)
+        prompt = np.random.default_rng(9).integers(0, pcfg.vocab_size,
+                                                   (2, 64))
+        N = 16
+        greedy = {"early": dict(spec_draft_layers=1),
+                  "draft": dict(draft=True),
+                  "paged early": dict(spec_draft_layers=1, kv_paged=True),
+                  "paged draft": dict(draft=True, kv_paged=True)}
+        sampled = {"sampled early": dict(spec_draft_layers=1,
+                                         temperature=0.8),
+                   "sampled paged draft top-k": dict(
+                       draft=True, kv_paged=True, temperature=1.0, top_k=50)}
+        out = {}
+        for dev in ("cpu", str(self.dev)):
+            p = weights[dev]
+            for tag, kw in [("off", None)] + list(greedy.items()) \
+                    + list(sampled.items()):
+                kw = dict(kw or {})
+                if kw.pop("draft", False):
+                    kw["spec_draft"] = gpt.early_exit_draft(p, pcfg, 1)
+                if tag != "off":
+                    kw["spec_decode"] = 4
+                sess = GenerationSession(p, pcfg, max_slots=2,
+                                         max_prompt_len=64, max_len=96,
+                                         device=dev, **kw)
+                out[(dev, tag)] = sess.generate(
+                    prompt, max_new_tokens=N,
+                    seeds=[3, 4] if sess.spec_sample else None)
+        card = str(self.dev)
+        res = {tag: dict(
+            equal_spec_off=bool(np.array_equal(out[("cpu", tag)],
+                                               out[("cpu", "off")])
+                                and np.array_equal(out[(card, tag)],
+                                                   out[(card, "off")])),
+            equal_cpu_card=bool(np.array_equal(out[("cpu", tag)],
+                                               out[(card, tag)])))
+            for tag in greedy}
+        res.update({tag: dict(equal_cpu_card=bool(np.array_equal(
+            out[("cpu", tag)], out[(card, tag)]))) for tag in sampled})
+        # the lane's per-row key draws over the vocabulary
+        seeds = torch.tensor([0, 7, -1, 2 ** 31 - 1])
+        pos = torch.tensor([1, 300, 2047, 64])
+        draws = {}
+        for dev in ("cpu", card):
+            keys = gpt.spec_sample_key(seeds.to(dev), pos.to(dev),
+                                       gpt.SPEC_LANE_DRAFT)
+            lg = torch.from_numpy(np.random.default_rng(1).standard_normal(
+                (4, pcfg.vocab_size)).astype(np.float32)).to(dev)
+            u = prng.uniform_rows(keys, (pcfg.vocab_size,))
+            draws[dev] = (keys.cpu(), u.view(torch.int32).cpu(),
+                          prng.categorical_rows(keys, lg).cpu())
+        keys_equal = all(torch.equal(a, b)
+                         for a, b in zip(draws["cpu"], draws[card]))
+        log("[spec] " + json.dumps(dict(
+            parity="gpt3_1p3b(n_layers=2, f32), B=2 x P=64 + 16, spec_k=4",
+            streams=res, key_draws_equal_cpu_card=keys_equal)))
+        if not keys_equal or not all(all(v.values()) for v in res.values()):
+            raise AssertionError(f"spec parity failed: {res}, key draws "
+                                 f"equal {keys_equal}")
 
 
 def gpu_line() -> str:

@@ -16,6 +16,14 @@ device; there threefry is a chain of stock integer ops on int64 tensors
 holding uint32 values (torch's uint32 has no arithmetic on the CPU or
 CUDA), about 150 elementwise launches for one draw. ``>>`` stays logical
 because every value is kept in [0, 2**32).
+
+Keys on the device: a tensor key is an int64 tensor ``[..., 2]`` of
+uint32 words, one key per leading index. :func:`fold_in_rows` folds a
+tensor of data into such keys (or into a host key), and
+:func:`uniform_rows` / :func:`categorical_rows` draw with one key per
+leading row, each row equal to ``jax.vmap`` of the one-key call: the
+counters run 0.. within every row. One threefry over all rows draws for
+all of them, so a batch of keys costs what one key costs.
 """
 from __future__ import annotations
 
@@ -36,12 +44,20 @@ def _rotl(v, r: int):
     return ((v << r) & MASK) | (v >> (32 - r))
 
 
+def _key_words(key):
+    """``(k0, k1)`` of a host pair (Python ints) or of a tensor key
+    ``[..., 2]`` (int64 tensors of shape ``[...]``)."""
+    if torch.is_tensor(key):
+        return key[..., 0], key[..., 1]
+    return int(key[0]) & MASK, int(key[1]) & MASK
+
+
 def threefry2x32(key, x0, x1):
-    """The Threefry-2x32 block (20 rounds) of ``key = (k0, k1)`` over the
-    counter words ``(x0, x1)``. The words are Python ints or int64
-    tensors holding uint32 values (broadcast together); so is the result
-    pair."""
-    k0, k1 = int(key[0]) & MASK, int(key[1]) & MASK
+    """The Threefry-2x32 block (20 rounds) of ``key`` over the counter
+    words ``(x0, x1)``. ``key`` is a host pair or a tensor key ``[...,
+    2]``; the words are Python ints or int64 tensors holding uint32 values
+    (broadcast together with the key's words); so is the result pair."""
+    k0, k1 = _key_words(key)
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & MASK
     x1 = (x1 + ks[1]) & MASK
@@ -74,6 +90,67 @@ def split(key, num: int = 2) -> list[tuple[int, int]]:
     """``jax.random.split`` (partitionable form): key i is threefry of
     ``key`` over the counter ``(i >> 32, i & 0xffffffff)``."""
     return [threefry2x32(key, i >> 32, i & MASK) for i in range(int(num))]
+
+
+def fold_in_rows(keys, data) -> torch.Tensor:
+    """``jax.vmap(jax.random.fold_in)`` over tensors: ``keys`` a tensor key
+    ``[..., 2]`` or a host pair, ``data`` an integer tensor broadcast
+    against the keys' leading shape. Data wraps to uint32 as jax's
+    conversion of an int32 array does (-1 folds in 0xffffffff). Returns
+    int64 keys ``[..., 2]`` on data's device."""
+    d = torch.as_tensor(data).long() & MASK
+    y0, y1 = threefry2x32(keys, 0, d)
+    y0, y1 = torch.broadcast_tensors(torch.as_tensor(y0, device=d.device),
+                                     torch.as_tensor(y1, device=d.device))
+    return torch.stack([y0, y1], dim=-1)
+
+
+def _uniform_from_bits(b, minval, maxval) -> torch.Tensor:
+    """float32 uniforms from uint32 draws held in int64 (see
+    :func:`uniform`)."""
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo, hi = np.float32(minval), np.float32(maxval)
+    scale = float(np.float32(hi - lo))
+    if scale == 1.0 and lo == 0.0:      # the common case: exact as it is
+        return f
+    out = (f.double() * scale + float(lo)).float()
+    return torch.clamp_min(out, float(lo))
+
+
+def _bits_rows(keys, n: int) -> torch.Tensor:
+    """``bits(key_r, (n,))`` for every key of ``keys [..., 2]``: int64
+    ``[..., n]``, counters 0..n-1 in each row."""
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
+    if n > MASK + 1:
+        hi, lo = idx >> 32, idx & MASK
+    else:
+        hi, lo = 0, idx
+    y0, y1 = threefry2x32(keys[..., None, :], hi, lo)
+    return y0 ^ y1
+
+
+def uniform_rows(keys, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
+    """``jax.vmap(lambda k: jax.random.uniform(k, shape, float32, minval,
+    maxval))`` over a tensor key ``[..., 2]``: float32 ``[..., *shape]``
+    on the keys' device, every row drawn at counters 0.. of its own
+    key."""
+    shape = _shape(shape)
+    b = _bits_rows(keys, math.prod(shape))
+    return _uniform_from_bits(b, minval, maxval).reshape(
+        tuple(keys.shape[:-1]) + shape)
+
+
+def categorical_rows(keys, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.vmap(jax.random.categorical)`` over a tensor key ``[..., 2]``
+    and logits ``[..., V]`` (float32): row r is the argmax of its logits
+    plus gumbel noise drawn from its own key over ``(V,)``. Returns int64
+    ``[...]``."""
+    if logits.dtype != torch.float32:
+        raise ValueError(f"categorical draws float32 gumbel noise; got "
+                         f"{logits.dtype} logits")
+    u = uniform_rows(keys, (logits.shape[-1],), _F32_TINY, 1.0)
+    g = -torch.log(-torch.log(u))
+    return torch.argmax(g + logits, dim=-1)
 
 
 def _shape(shape) -> tuple[int, ...]:
@@ -123,14 +200,8 @@ def uniform(key, shape=(), minval=0.0, maxval=1.0, device=None,
     it is formed in float64 (the product of two float32 values is exact
     there) and rounded to float32 once, which gives XLA's bits.
     ``offset``: see the module doc."""
-    b = _bits64(key, shape, resolve_device(device), offset)
-    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo, hi = np.float32(minval), np.float32(maxval)
-    scale = float(np.float32(hi - lo))
-    if scale == 1.0 and lo == 0.0:      # the common case: exact as it is
-        return f
-    out = (f.double() * scale + float(lo)).float()
-    return torch.clamp_min(out, float(lo))
+    return _uniform_from_bits(_bits64(key, shape, resolve_device(device),
+                                      offset), minval, maxval)
 
 
 def _fma32(a, b, c) -> torch.Tensor:

@@ -36,8 +36,24 @@ a page returns to the free list only when its last reader (a row or a
 pooled entry, ``release_pooled_entry``) lets go. Paging changes where
 K/V lives, never the numbers: paged streams equal dense ones.
 
-Speculative decoding, meshes and the fleet's span export/import belong to
-later slices and raise ``NotImplementedError``.
+Speculative decoding (``spec_decode=k``, 2 <= k <= 8, or
+``PADDLE_TPU_SPEC_DECODE=k``): :meth:`spec_step` / :meth:`spec_tick` run a
+draft that proposes a window of k tokens a row, ONE k-wide target
+forward (``verify_tokens``, the decode kernels at Q = k) and the
+acceptance on the device, and emit up to k tokens a row a tick. The
+draft is the target's first ``spec_draft_layers`` layers (default half;
+its caches are the target's first layer caches) or a separate model
+``spec_draft=(params, cfg)`` with a cache of its own (a pool sharing the
+target's page table when paged). Greedy acceptance emits exactly the
+spec-off stream. ``spec_sample`` (on by itself when ``temperature > 0``)
+arms the stochastic lane: per-row temperature and seed (``admit(
+temperatures=, seeds=)``, :meth:`set_sampling`), every draw keyed by
+(seed, absolute position, lane), the Leviathan ratio test and the residual
+resample, pending into the next tick's window row 0. The physical cache
+keeps ``spec_k`` positions of headroom past ``max_len`` for the window.
+
+Meshes and the fleet's span export/import belong to later slices and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,12 +66,16 @@ import torch
 
 from ..device import resolve_device
 from ..framework import prng
-from ..models.gpt import (GPTConfig, _wq_bits, check_params_device,
-                          check_prefill_mode, decode_one_token, init_kv_cache,
+from ..models.gpt import (SPEC_LANE_DRAFT, GPTConfig, _kv_index, _wq_bits,
+                          check_draft_compat, check_params_device,
+                          check_prefill_mode, decode_one_token,
+                          early_exit_draft, greedy_acceptance, init_kv_cache,
                           kv_data, pad_cache_len, prefill, prefill_suffix,
-                          sample_logits)
+                          sample_logits, spec_draft_sample, spec_sample_key,
+                          stochastic_acceptance, verify_tokens)
 from ..observability import ServingMetrics
 from ..observability.quant import record_session_quant
+from ..ops.kernels.decode_attention import MAX_Q
 from ..quantization.gpt_quant import kv_cache_quantized
 from ..serving.prefix_cache import PageSpan, span_concat
 
@@ -77,6 +97,9 @@ class GenerationSession:
     >>> while sess.any_active():
     ...     emitted = sess.step()                 # {slot: token} this tick
     >>> outs = [sess.evict(s) for s in slots]     # per-slot new tokens
+
+    With ``spec_decode=k`` the loop calls :meth:`spec_step`, which
+    returns ``{slot: [tokens]}``.
     """
 
     def __init__(self, params, cfg: GPTConfig, max_slots: int,
@@ -86,19 +109,14 @@ class GenerationSession:
                  top_k: int = 0, top_p: float = 0.0, seed: int = 0,
                  prefill_mode: str | None = None, device=None, mesh=None,
                  spec_decode: int | None = None,
+                 spec_draft_layers: int | None = None,
+                 spec_draft: tuple | None = None,
+                 spec_sample: bool | None = None,
                  kv_paged: bool | None = None, kv_pages: int | None = None):
-        # the reference also arms speculation from the environment; it
-        # may not be ignored silently
-        env_spec = os.environ.get("PADDLE_TPU_SPEC_DECODE", "").strip()
-        for what, armed, later in (
-                ("mesh", mesh is not None, "multi-device serving"),
-                ("spec_decode", (spec_decode or 0) > 1
-                 or (spec_decode is None and env_spec not in ("", "0", "1")),
-                 "speculative decoding")):
-            if armed:
-                raise NotImplementedError(
-                    f"GenerationSession: {what} belongs to the {later} "
-                    "slice of the port")
+        if mesh is not None:
+            raise NotImplementedError(
+                "GenerationSession: mesh belongs to the multi-device "
+                "serving slice of the port")
         env_paged = os.environ.get("PADDLE_TPU_KV_PAGED", "0").strip()
         self.kv_paged = (bool(kv_paged) if kv_paged is not None
                          else env_paged not in ("", "0", "false", "False"))
@@ -123,11 +141,16 @@ class GenerationSession:
         self.pad_token_id = int(pad_token_id)
         self._sampling = (float(temperature), int(top_k), float(top_p))
         self._params = params
+        self._init_spec(spec_decode, spec_draft_layers, spec_draft,
+                        spec_sample, float(temperature))
 
         # ---- device state (slot-major) ----
         # the cache length rounds up to a decode_block multiple; rows
-        # still FREEZE at max_len (the logical limit)
-        self._phys_len = pad_cache_len(self.max_len, cfg.decode_block)
+        # still FREEZE at max_len (the logical limit). A spec session keeps
+        # spec_k positions of headroom past max_len: a window (or a dead
+        # row's dump window) starting at max_len - 1 or below always fits
+        self._phys_len = pad_cache_len(self.max_len + self.spec_k,
+                                       cfg.decode_block)
         if self.kv_paged:
             # page size = decode_block, the prefix pool's block; the row
             # length rounds UP to whole pages (a partial page has no
@@ -157,6 +180,13 @@ class GenerationSession:
             self._kc, self._vc = init_kv_cache(cfg, self.max_slots,
                                                self._phys_len, self.device)
         dev = self.device
+        # a separate draft owns a cache of the target's geometry (paged: a
+        # pool SHARING the target's page table, so one grant covers both)
+        self._dkc = self._dvc = None
+        if self._draft_mode:
+            self._dkc, self._dvc = init_kv_cache(
+                self._dcfg, self._n_pages if self.kv_paged else self.max_slots,
+                self._page_size if self.kv_paged else self._phys_len, dev)
         self._pos = torch.zeros((self.max_slots,), dtype=torch.long,
                                 device=dev)
         self._activ = torch.zeros((self.max_slots,), dtype=torch.bool,
@@ -166,6 +196,25 @@ class GenerationSession:
         # one threefry key for the session, split once a decode tick (a
         # host pair: splitting launches nothing)
         self._key = prng.PRNGKey(int(seed))
+        self._seed_base = int(seed)
+        if self.spec_sample:
+            # the stochastic lane's per-row device state: temperature,
+            # request seed (every draw keys off (seed, position, lane)),
+            # the last cache-resident token (the draft's entry point), the
+            # pending residual resample (+ flag) and the prompt length. The
+            # staged (temperature, seed) wait on the host between
+            # alloc_slot and the row's activation
+            B = self.max_slots
+            self._temp_dev = torch.full((B,), self.default_temperature,
+                                        dtype=torch.float32, device=dev)
+            self._seed_dev = torch.zeros((B,), dtype=torch.long, device=dev)
+            self._last_dev = torch.zeros((B,), dtype=torch.long, device=dev)
+            self._pend_tok = torch.zeros((B,), dtype=torch.long, device=dev)
+            self._pend_val = torch.zeros((B,), dtype=torch.bool, device=dev)
+            self._plen = torch.zeros((B,), dtype=torch.long, device=dev)
+            self._stage_temp = np.full((B,), self.default_temperature,
+                                       np.float32)
+            self._stage_seed = np.arange(B, dtype=np.int64) + self._seed_base
 
         # ---- host mirrors (no device sync per step) ----
         self._occupied = [False] * self.max_slots
@@ -211,16 +260,73 @@ class GenerationSession:
         if self.kv_paged:
             self._telemetry.kv_pages(*self.kv_page_stats())
 
+    def _init_spec(self, spec_decode, draft_layers, draft, sample,
+                   temperature: float) -> None:
+        """The speculative lane's configuration (the reference's checks,
+        plus the decode kernel's window bound)."""
+        cfg = self.cfg
+        env_k = os.environ.get("PADDLE_TPU_SPEC_DECODE", "").strip()
+        k = (int(spec_decode) if spec_decode is not None
+             else int(env_k) if env_k else 0)
+        if k < 0:
+            raise ValueError(f"spec_decode must be >= 0, got {k}")
+        if k > MAX_Q:
+            raise ValueError(
+                f"spec_decode={k}: the verify window runs through the "
+                f"decode attention kernel, which takes at most MAX_Q = "
+                f"{MAX_Q} query rows — use spec_decode <= {MAX_Q}")
+        self.spec_k = k if k > 1 else 0
+        if sample is None:
+            self.spec_sample = bool(self.spec_k) and temperature != 0.0
+        else:
+            self.spec_sample = bool(sample)
+            if self.spec_sample and not self.spec_k:
+                raise ValueError(
+                    "spec_sample needs a speculative window — pass "
+                    "spec_decode >= 2 (or PADDLE_TPU_SPEC_DECODE)")
+        # the temperature a row takes when its caller names none
+        self.default_temperature = temperature
+        self._draft_mode = False
+        self._spec_cut = None
+        self._draft_params = self._dcfg = None
+        if not self.spec_k:
+            return
+        if temperature != 0.0 and not self.spec_sample:
+            raise ValueError(
+                "spec_sample=False pins the speculative lane to greedy "
+                "argmax acceptance, which has no exact rule at "
+                f"temperature={temperature} — drop spec_sample=False "
+                "(stochastic acceptance arms itself) or set temperature=0")
+        if draft is not None:
+            d_params, d_cfg = draft
+            check_draft_compat(cfg, d_cfg)
+            check_params_device(d_params, self.device)
+            self._draft_mode = True
+            self._draft_params, self._dcfg = d_params, d_cfg
+            return
+        cut = int(draft_layers or max(1, cfg.n_layers // 2))
+        if not 1 <= cut <= cfg.n_layers:
+            raise ValueError(
+                f"spec_draft_layers={cut} must be in [1, {cfg.n_layers}] "
+                "(the target's layer count)")
+        self._spec_cut = cut
+        self._draft_params, self._dcfg = early_exit_draft(self._params, cfg,
+                                                          cut)
+
     # ------------------------------------------------------------- admission
     def free_slots(self) -> list[int]:
         return [i for i in range(self.max_slots) if not self._occupied[i]]
 
     @torch.no_grad()
-    def admit(self, prompts, lengths=None, arrival_ts=None) -> list[int]:
+    def admit(self, prompts, lengths=None, arrival_ts=None,
+              temperatures=None, seeds=None) -> list[int]:
         """Admit right-padded [n, p] prompts (true lengths in ``lengths``;
         None = all p) into free slots with ONE batched prefill over
         their rows. Returns the slot ids. ``arrival_ts`` (a
-        ``time.perf_counter()`` stamp) feeds the admission-wait metric."""
+        ``time.perf_counter()`` stamp) feeds the admission-wait metric.
+        On a session with the stochastic lane, ``temperatures``/``seeds``
+        ([n] each) set the rows' lanes; None keeps the defaults (the
+        session's temperature, ``seed + slot``)."""
         t_admit = time.perf_counter()
         prompts = np.asarray(prompts, np.int64)
         if prompts.ndim != 2:
@@ -259,11 +365,16 @@ class GenerationSession:
         dev = self.device
         rows = torch.as_tensor(slots, device=dev)
         lens = torch.as_tensor(lengths, device=dev)
-        logits, _, _ = prefill(self._params, self.cfg,
-                               torch.as_tensor(prompts, device=dev),
-                               self._kc, self._vc, lengths=lens,
-                               mode=self._mode, rows=rows,
-                               page_table=self._ptab_of(rows))
+        toks = torch.as_tensor(prompts, device=dev)
+        logits, _, _ = prefill(self._params, self.cfg, toks, self._kc,
+                               self._vc, lengths=lens, mode=self._mode,
+                               rows=rows, page_table=self._ptab_of(rows))
+        if self._draft_mode:
+            # the separate draft shadows the admission so its cache holds
+            # the prompt (positions past a row's length are never read)
+            prefill(self._draft_params, self._dcfg, toks, self._dkc,
+                    self._dvc, lengths=lens, rows=rows,
+                    page_table=self._ptab_of(rows))
         self._pos[rows] = lens
         self._activ[rows] = True
         self._logits[rows] = logits
@@ -275,6 +386,16 @@ class GenerationSession:
             self._new[s] = []
             self._admit_t[s] = t_admit
             self._await_first[s] = True
+        if self.spec_sample:
+            for j, s in enumerate(slots):
+                self._stage_temp[s] = (float(temperatures[j])
+                                       if temperatures is not None
+                                       else self.default_temperature)
+                self._stage_seed[s] = (int(seeds[j]) if seeds is not None
+                                       else self._seed_base + s)
+            self._lane_merge([(s, int(prompts[j, lengths[j] - 1]),
+                               int(lengths[j]))
+                              for j, s in enumerate(slots)])
         self._telemetry.admitted(
             n, prefill_s=now - t_admit, occupied=sum(self._occupied),
             queue_wait_s=max(0.0, t_admit - arrival_ts)
@@ -344,6 +465,11 @@ class GenerationSession:
         self._host_active[s] = False
         self._host_pos[s] = 0
         self._new[s] = []
+        if self.spec_sample:
+            # a previous occupant's lane never leaks into the next request:
+            # set_sampling overrides before the finalizing chunk merges it
+            self._stage_temp[s] = self.default_temperature
+            self._stage_seed[s] = self._seed_base + s
         return s
 
     def release_slot(self, slot: int) -> None:
@@ -362,6 +488,46 @@ class GenerationSession:
             self._dump[slot] = pos
             self._dump_dirty = True
 
+    # ------------------------------------------------------- sampling lane
+    def set_sampling(self, slot: int, temperature: float = 0.0,
+                     seed: int = 0) -> None:
+        """Stage one slot's sampling lane (a request's temperature and
+        seed) on a session with the stochastic lane, between
+        :meth:`alloc_slot` and the finalizing prefill chunk, whose
+        activation moves it to the device. The seed is all the sampling
+        state a request carries: every draw derives from (seed, absolute
+        position, lane). Without the lane a non-zero temperature raises
+        (decoding it greedily would misreport the distribution)."""
+        if not self.spec_sample:
+            if temperature != 0.0:
+                raise ValueError(
+                    f"temperature={temperature} on a session without the "
+                    "stochastic sampling lane — construct the session with "
+                    "spec_sample=True (or a non-zero session temperature + "
+                    "spec_decode)")
+            return
+        self._stage_temp[slot] = float(temperature)
+        self._stage_seed[slot] = int(seed)
+
+    def _lane_merge(self, rows) -> None:
+        """Move freshly activated rows' staged (temperature, seed), their
+        last resident token (the draft's entry point) and their prompt
+        length into the device lane state, and clear their pending
+        resample. ``rows``: ``[(slot, last_token, prompt_len)]``."""
+        if not self.spec_sample or not rows:
+            return
+        slots = [r[0] for r in rows]
+        dev = self.device
+        idx = torch.as_tensor(slots, device=dev)
+        self._temp_dev[idx] = torch.as_tensor(self._stage_temp[slots],
+                                              device=dev)
+        ints = torch.as_tensor(np.array(
+            [self._stage_seed[slots], [r[1] for r in rows],
+             [r[2] for r in rows]], np.int64), device=dev)
+        self._seed_dev[idx], self._last_dev[idx], self._plen[idx] = ints
+        self._pend_tok[idx] = 0
+        self._pend_val[idx] = False
+
     def is_active(self, slot: int) -> bool:
         """Whether the slot is still decoding."""
         return self._host_active[slot]
@@ -372,11 +538,12 @@ class GenerationSession:
 
     # ----------------------------------------------------- paged KV pool
     def _pages_for(self, need_tokens: int | None) -> int:
-        """Pages a row needs to hold ``need_tokens`` positions; None = a
-        full row's worth."""
+        """Pages a row needs to hold ``need_tokens`` positions plus the
+        spec window's headroom; None = a full row's worth."""
         if need_tokens is None:
             return self._pages_per_row
-        n = -(-min(int(need_tokens), self.max_len) // self._page_size)
+        need = min(int(need_tokens), self.max_len) + self.spec_k
+        n = -(-need // self._page_size)
         return max(1, min(n, self._pages_per_row))
 
     def _grant_pages(self, slot: int, n: int) -> None:
@@ -670,10 +837,18 @@ class GenerationSession:
         lens_d = torch.as_tensor(lens, device=dev)
         offs_d = torch.as_tensor(offs, device=dev)
         rows_d = torch.as_tensor(rows, device=dev)
+        toks_d = torch.as_tensor(toks, device=dev)
         logits, _, _ = prefill_suffix(
-            self._params, self.cfg, torch.as_tensor(toks, device=dev),
-            self._kc, self._vc, offsets=offs_d, lengths=lens_d, rows=rows_d,
+            self._params, self.cfg, toks_d, self._kc, self._vc,
+            offsets=offs_d, lengths=lens_d, rows=rows_d,
             page_table=self._ptab_of(rows_d))
+        if self._draft_mode:
+            # the draft shadows every chunk; a dense prefix copy has no
+            # draft side, so the draft stays cold over a reused span (its
+            # proposals get worse there, never the output)
+            prefill_suffix(self._draft_params, self._dcfg, toks_d, self._dkc,
+                           self._dvc, offsets=offs_d, lengths=lens_d,
+                           rows=rows_d, page_table=self._ptab_of(rows_d))
         if fin.any():
             f = torch.as_tensor(fin, device=dev)
             self._pos[rows_d[f]] = (offs_d + lens_d)[f]
@@ -682,6 +857,9 @@ class GenerationSession:
 
     def _finalize_chunks(self, chunks, arrivals, queue_waits,
                          t0: float) -> None:
+        self._lane_merge([(slot, int(np.asarray(tk)[-1]),
+                           off + np.asarray(tk).shape[0])
+                          for slot, tk, off, fz in chunks if fz])
         for slot, tk, off, fz in chunks:
             n = np.asarray(tk).shape[0]
             if not fz:
@@ -762,6 +940,209 @@ class GenerationSession:
         self._telemetry.tick(time.perf_counter() - t0, len(emitted))
         return emitted
 
+    # ------------------------------------------------- speculative decode
+    def _need_spec(self, plain: str) -> None:
+        if not self.spec_k:
+            raise RuntimeError(
+                "session built without speculative decoding — construct "
+                "with spec_decode=k >= 2 (or PADDLE_TPU_SPEC_DECODE=k), or "
+                f"use {plain}()")
+
+    def spec_step(self) -> dict[int, list[int]]:
+        """ONE speculative tick across every live slot: the draft proposes
+        a window, the target verifies it in one k-wide forward, and each
+        row emits its accepted prefix. Greedy rows emit 1..spec_k tokens,
+        exactly the stream of repeated :meth:`step` calls; on the
+        stochastic lane a row may emit 0 (a fresh rejection leaves its
+        resample pending) and its stream follows the target's sampling
+        distribution. Returns ``{slot: [tokens]}``; eos and the cache
+        limit freeze rows as the plain tick does."""
+        self._need_spec("step")
+        t0 = time.perf_counter()
+        was = list(self._host_active)
+        return self._process_spec_emitted(self._spec_decode(), was, t0)
+
+    def spec_tick(self, chunks, width: int, arrivals=None,
+                  queue_waits=None) -> dict[int, list[int]]:
+        """The speculative :meth:`fused_tick`: every chunk prefill advances
+        one chunk, then one spec tick runs over every live row; rows the
+        chunk half finalizes join its window. Returns the
+        :meth:`spec_step` dict."""
+        self._need_spec("fused_tick")
+        if not chunks:
+            return self.spec_step()
+        t0 = time.perf_counter()
+        self._run_chunks(chunks, width)
+        # the chunk half's wall is charged once, to the spec tick
+        self._telemetry.prefill_tick(0.0)
+        self._finalize_chunks(chunks, arrivals, queue_waits, t0)
+        was = list(self._host_active)
+        return self._process_spec_emitted(self._spec_decode(), was, t0)
+
+    def _draft(self):
+        """(params, cfg, k cache, v cache) of the draft: the separate
+        model's own, or the target's first layers and their caches (views:
+        the early-exit draft writes the target's layer caches in place)."""
+        if self._draft_mode:
+            return self._draft_params, self._dcfg, self._dkc, self._dvc
+        cut = slice(0, self._spec_cut)
+        return (self._draft_params, self._dcfg, _kv_index(self._kc, cut),
+                _kv_index(self._vc, cut))
+
+    @torch.no_grad()
+    def _spec_decode(self) -> np.ndarray:
+        """The spec tick on the device. Returns ONE host array [B, k + 1]
+        (the window's emitted tokens, pad where not accepted, then the
+        counts), and on the stochastic lane two more columns: the rows
+        that entered with a pending resample, and those that drew one.
+
+        The target's cache changes only inside each row's window [pos,
+        pos + k): the greedy early-exit draft writes pos .. pos + k - 2 of
+        the first layers, which verify then rewrites; dead rows write at
+        their dump window (paged: the scratch page)."""
+        if self._dump_dirty:
+            self._dump_dev = torch.as_tensor(self._dump, device=self.device)
+            self._dump_dirty = False
+        k, pad = self.spec_k, self.pad_token_id
+        can = self._activ & (self._pos < self.max_len)
+        pos_step = torch.where(can, self._pos, self._dump_dev)
+        ptab = self._ptab_of()
+        paged = dict(page_table=ptab, valid=can) if self.kv_paged else {}
+        if self.spec_sample:
+            return self._sspec_decode(can, pos_step, ptab, paged)
+        d_params, d_cfg, dkc, dvc = self._draft()
+        # window row 0 is the target's own greedy token, the plain tick's
+        t1 = torch.where(can, self._logits.argmax(-1),
+                         torch.full_like(self._pos, pad))
+        props, tok, p = [t1], t1, pos_step
+        # a separate draft takes one more step: it consumes the last
+        # proposal, so its cache covers the whole window on total accept
+        for _ in range(k if self._draft_mode else k - 1):
+            dlg, _, _ = decode_one_token(d_params, d_cfg, tok, p, dkc, dvc,
+                                         **paged)
+            tok, p = dlg.argmax(-1), p + 1
+            props.append(tok)
+        props = torch.stack(props[:k], 1)
+        vlogits, _, _ = verify_tokens(self._params, self.cfg, props,
+                                      pos_step, self._kc, self._vc, **paged)
+        accept, counts, n_adv, new_logits, last_tok = greedy_acceptance(
+            props, vlogits, self._pos, can, self.max_len, self.eos_token_id)
+        self._advance(can, n_adv, new_logits, last_tok)
+        toks = torch.where(accept, props, torch.full_like(props, pad))
+        return torch.cat([toks, counts[:, None]], 1).cpu().numpy()
+
+    def _advance(self, can, n_adv, new_logits, last_tok) -> None:
+        still = can
+        if self.eos_token_id is not None:
+            still = can & (last_tok != self.eos_token_id)
+        self._pos = torch.where(can, self._pos + n_adv, self._pos)
+        self._activ = still
+        self._logits = torch.where(can[:, None], new_logits, self._logits)
+
+    def _sspec_decode(self, can, pos_step, ptab, paged) -> np.ndarray:
+        """The stochastic tick: the draft samples all k window tokens,
+        entering at ``pos - 1`` with the last emitted token (a pending
+        resample replaces its first proposal), then one verify and
+        :func:`stochastic_acceptance`."""
+        k, pad = self.spec_k, self.pad_token_id
+        _, top_k, top_p = self._sampling
+        d_params, d_cfg, dkc, dvc = self._draft()
+        temp, seeds = self._temp_dev, self._seed_dev
+        pend_in = self._pend_val & can
+        p = (pos_step - 1).clamp_min(0)
+        keys = spec_sample_key(
+            seeds[:, None],
+            p[:, None] + 1 + torch.arange(k, device=p.device)[None, :],
+            SPEC_LANE_DRAFT)
+        # step 0 re-consumes the token at pos - 1 and keeps the cache there
+        # as it is: the early-exit draft's caches are the target's (that
+        # position may lie on a page shared with the prefix pool); a
+        # separate draft writes its own cache there only past the prompt
+        # (a hole after a fully accepted window), never over a prompt page
+        valid0 = (can & (p >= self._plen) if self._draft_mode
+                  else torch.zeros_like(can))
+        tok = self._last_dev
+        props, qs = [], []
+        for j in range(k):
+            valid = valid0 if j == 0 else paged.get("valid")
+            dlg, _, _ = decode_one_token(d_params, d_cfg, tok, p, dkc, dvc,
+                                         page_table=ptab, valid=valid)
+            tok, q = spec_draft_sample(dlg, temp, seeds, p + 1, top_k, top_p,
+                                       keys=keys[:, j])
+            if j == 0:
+                tok = torch.where(pend_in, self._pend_tok, tok)
+            props.append(tok)
+            qs.append(q)
+            p = p + 1
+        props = torch.stack(props, 1)
+        vlogits, _, _ = verify_tokens(self._params, self.cfg, props,
+                                      pos_step, self._kc, self._vc, **paged)
+        (accept, counts, n_adv, new_logits, new_last, self._pend_tok,
+         self._pend_val) = stochastic_acceptance(
+            props, torch.stack(qs, 1), vlogits, self._logits, temp, seeds,
+            self._pos, can, self.max_len, pend_in, self._last_dev, top_k,
+            top_p, self.eos_token_id)
+        self._advance(can, n_adv, new_logits, new_last)
+        self._last_dev = new_last
+        toks = torch.where(accept, props, torch.full_like(props, pad))
+        return torch.cat([toks, counts[:, None], pend_in[:, None].long(),
+                          self._pend_val[:, None].long()], 1).cpu().numpy()
+
+    def _process_spec_emitted(self, out, was, t0: float
+                              ) -> dict[int, list[int]]:
+        """Host half of a spec tick: fold each row's accepted prefix into
+        the output mirrors token by token, freezing at eos and the cache
+        limit as the device did, and feed the spec counters. ``out``: the
+        :meth:`_spec_decode` array, [B, k + 1] (the accepted window and its
+        count), or in the stochastic lane [B, k + 3] (also the pending flag
+        the row entered with and the one it leaves with)."""
+        k, sampled = self.spec_k, self.spec_sample
+        emitted: dict[int, list[int]] = {}
+        total = rows = prop = acc = res = 0
+        for s in range(self.max_slots):
+            if not was[s]:
+                continue
+            if self._host_pos[s] >= self.max_len:
+                # cache full: the device froze this row on the tick
+                self._host_active[s] = False
+                continue
+            rows += 1
+            row = []
+            for j in range(int(out[s, k])):
+                if self._host_pos[s] >= self.max_len:
+                    self._host_active[s] = False
+                    break
+                t = int(out[s, j])
+                self._new[s].append(t)
+                row.append(t)
+                if self._await_first[s]:
+                    self._await_first[s] = False
+                    self._telemetry.first_token(self._admit_t[s])
+                if self.eos_token_id is not None and t == self.eos_token_id:
+                    self._host_active[s] = False
+                    break
+                self._host_pos[s] += 1
+            if row:
+                emitted[s] = row
+                total += len(row)
+            if sampled:
+                # a pending row's window token 0 was accepted LAST tick:
+                # this tick it is neither a proposal nor an accept
+                pend = int(out[s, k + 1])
+                prop += k - pend
+                acc += max(0, len(row) - pend)
+                res += int(out[s, k + 2])
+        self._telemetry.tick(time.perf_counter() - t0, total)
+        if sampled:
+            self._telemetry.spec(proposed=prop, accepted=acc, rows=rows,
+                                 emitted=total, resampled=res)
+        else:
+            # every live row proposes k - 1 draft tokens; what it emitted
+            # past its guaranteed first token was an accepted proposal
+            self._telemetry.spec(proposed=(k - 1) * rows,
+                                 accepted=max(0, total - rows), rows=rows)
+        return emitted
+
     def freeze(self, slots) -> None:
         """Stop decoding the given slots without freeing them."""
         slots = list(slots)
@@ -804,15 +1185,20 @@ class GenerationSession:
         return dict(sorted(out.items()))
 
     # ----------------------------------------------------------- convenience
-    def generate(self, prompts, lengths=None, max_new_tokens: int = 32):
+    def generate(self, prompts, lengths=None, max_new_tokens: int = 32,
+                 temperatures=None, seeds=None):
         """Admit, decode until every admitted row finished (eos) or hit
         ``max_new_tokens``, evict. Returns [n, max_new_tokens] int64 —
         rows that stopped early are padded with pad_token_id. Other
-        in-flight slots advance underneath."""
-        slots = self.admit(prompts, lengths)
+        in-flight slots advance underneath. A spec session drains through
+        :meth:`spec_step` (a row may pass its budget inside a tick; the
+        output is cut to it); ``temperatures``/``seeds`` set the rows'
+        lanes as in :meth:`admit`."""
+        slots = self.admit(prompts, lengths, temperatures=temperatures,
+                           seeds=seeds)
         mine = set(slots)
         while any(self._host_active[s] for s in mine):
-            self.step()
+            self.spec_step() if self.spec_k else self.step()
             done = [s for s in mine if self._host_active[s]
                     and len(self._new[s]) >= max_new_tokens]
             if done:

@@ -20,8 +20,9 @@ maps ``jax.checkpoint`` to ``torch.utils.checkpoint`` and
 
 Attention goes through the hand-written kernels: flash-attention forward
 for whole-prompt prefill and training (its backward kernels under
-autograd), decode attention for every decode tick (its int8 form over a
-scaled-int8 cache) (``ops/kernels``); fused AdamW updates the parameters
+autograd), decode attention for every decode tick and every speculative
+verify window, Q = k rows a call (its int8 form over a scaled-int8 cache)
+(``ops/kernels``); fused AdamW updates the parameters
 when ``cfg.fused_adamw`` is set; with ``cfg.weight_quant`` the two FFN
 products of every serving block go through the quant_matmul kernel.
 Suffix prefill keeps the reference's plain band-masked attention, which
@@ -134,9 +135,8 @@ class GPTConfig:
         if any(d != 1 for d in degrees.values()) or self.moe_experts:
             raise NotImplementedError(
                 f"mesh degrees {degrees}, moe_experts={self.moe_experts}: "
-                "the port runs the dense model on one device; MoE is "
-                "ROADMAP queue 1 item 11 and multi-device parallelism "
-                "item 13")
+                "the port runs the dense model on one device; MoE and "
+                "multi-device parallelism belong to later slices")
         if self.remat_policy != "full":
             raise NotImplementedError(
                 f"remat_policy={self.remat_policy!r}: only 'full' is ported; "
@@ -442,23 +442,31 @@ def _kv_index(cache, idx):
     return cache[idx]
 
 
-def _kv_write(cache, new, pos):
+def _kv_write(cache, new, pos, valid=None):
     """Write ``new`` [B, H, Q, hd] into ``cache`` [B, H, S, hd] (or the
     scaled-int8 pair: codes and per-position steps) in place, row b at
     positions ``pos[b] .. pos[b] + Q - 1`` (a start past ``S - Q`` clamps
-    to it, as dynamic_update_slice does)."""
+    to it, as dynamic_update_slice does). ``valid`` ([B] bool): rows that
+    are False keep what their cache holds there."""
     data = kv_data(cache)
     B, Q, S = new.shape[0], new.shape[2], data.shape[2]
     start = pos.clamp(0, S - Q)
     cols = start[:, None] + torch.arange(Q, device=data.device)[None, :]
     rows = torch.arange(B, device=data.device)[:, None]
-    # advanced indices on dims 0 and 2 put [B, Q] first: value [B, Q, H, hd]
+
+    def put(leaf, vals):
+        # advanced indices on dims 0 and 2 put [B, Q] first: [B, Q, H(, hd)]
+        if valid is not None:
+            m = valid.view((B,) + (1,) * (vals.dim() - 1))
+            vals = torch.where(m, vals, leaf[rows, :, cols])
+        leaf[rows, :, cols] = vals
+
     if isinstance(cache, tuple):
         q, s = quantize_rows(new)
-        data[rows, :, cols] = q.permute(0, 2, 1, 3)
-        cache[1][rows, :, cols] = s.permute(0, 2, 1)
+        put(data, q.permute(0, 2, 1, 3))
+        put(cache[1], s.permute(0, 2, 1))
         return
-    data[rows, :, cols] = new.permute(0, 2, 1, 3).to(data.dtype)
+    put(data, new.permute(0, 2, 1, 3).to(data.dtype))
 
 
 def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int | None = None,
@@ -544,21 +552,22 @@ def paged_write(cache, new, pos=None, page_table=None, valid=None,
 
 
 def _block_decode(x, p, cfg: GPTConfig, k_cache, v_cache, pos,
-                  page_table=None, index=None):
+                  page_table=None, index=None, valid=None):
     """One block on a window of new positions. x: [B, Q, D]; k/v_cache:
     this layer's [B, H, S, hd] or scaled-int8 pair (written in place);
     pos: [B] position of window row 0. Row j attends keys <= pos + j.
     ``page_table`` makes the caches this layer's page pools: the window
     writes at the :func:`page_index` coordinates ``index`` and attention
-    reads through the table."""
+    reads through the table. ``valid`` ([B] bool, dense caches): rows
+    that are False write nothing and attend what the cache holds."""
     h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
     q, k_new, v_new = _split_qkv(h @ p["w_qkv"] + p["b_qkv"], cfg)
     if page_table is not None:
         paged_write(k_cache, k_new, index=index)
         paged_write(v_cache, v_new, index=index)
     else:
-        _kv_write(k_cache, k_new, pos)
-        _kv_write(v_cache, v_new, pos)
+        _kv_write(k_cache, k_new, pos, valid)
+        _kv_write(v_cache, v_new, pos, valid)
     attn = decode_attention(q, k_cache, v_cache, pos,
                             block=cfg.decode_block,
                             page_table=page_table).to(x.dtype)
@@ -574,23 +583,43 @@ def _positions(pos, batch: int, device) -> torch.Tensor:
     return pos.expand(batch) if pos.dim() == 0 else pos
 
 
+def _decode_window(params, cfg: GPTConfig, tokens, pos, k_cache, v_cache,
+                   page_table=None, valid=None):
+    """The serving forward of a window of Q new tokens per row. tokens:
+    [B, Q] int; pos: int or [B] int, the position of window row 0. Writes
+    the window's K/V at ``[pos, pos + Q)`` of every layer in place and
+    returns the logits [B, Q, V] f32. Positions past ``cfg.max_seq`` clip
+    to the last positional embedding (only window rows past the logical
+    cache limit reach them, and acceptance never takes their logits).
+    ``page_table``/``valid``: the paged pool layout (masked rows write the
+    scratch page); ``valid`` on a dense cache: masked rows write
+    nothing."""
+    B, Q = tokens.shape
+    pos = _positions(pos, B, tokens.device)
+    posq = pos[:, None] + torch.arange(Q, device=tokens.device)[None, :]
+    emb = _take_wte(params, tokens, cfg) \
+        + params["wpe"][posq.clamp(0, cfg.max_seq - 1)]
+    x = emb.to(cfg.dtype)
+    index = None if page_table is None else page_index(
+        pos, Q, page_table, kv_data(k_cache).shape[3], valid)
+    for i, lp in enumerate(layer_params(params)):
+        x = _block_decode(x, lp, cfg, _kv_index(k_cache, i),
+                          _kv_index(v_cache, i), pos, page_table, index,
+                          valid if page_table is None else None)
+    x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
+    return _lm_logits(x, params, cfg)
+
+
 def decode_one_token(params, cfg: GPTConfig, token, pos, k_cache, v_cache,
                      page_table=None, valid=None):
     """token: [B] int; pos: int or [B] int positions. Writes this token's
     K/V into the caches in place and returns (logits [B, V] f32,
     k_cache, v_cache). ``page_table``/``valid``: the paged pool layout
-    (see :func:`_block_decode`)."""
-    B = token.shape[0]
-    pos = _positions(pos, B, token.device)
-    emb = _take_wte(params, token[:, None], cfg) + params["wpe"][pos][:, None]
-    x = emb.to(cfg.dtype)
-    index = None if page_table is None else page_index(
-        pos, 1, page_table, kv_data(k_cache).shape[3], valid)
-    for i, lp in enumerate(layer_params(params)):
-        x = _block_decode(x, lp, cfg, _kv_index(k_cache, i),
-                          _kv_index(v_cache, i), pos, page_table, index)
-    x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
-    return _lm_logits(x, params, cfg)[:, 0], k_cache, v_cache
+    (see :func:`_block_decode`); ``valid`` on a dense cache keeps masked
+    rows' cache as it is."""
+    logits = _decode_window(params, cfg, token[:, None], pos, k_cache,
+                            v_cache, page_table, valid)
+    return logits[:, 0], k_cache, v_cache
 
 
 def _attend_prefill(q, k, v, chunk: int):
@@ -887,6 +916,221 @@ def sample_logits(logits, key=None, temperature=0.0, top_k=0, top_p=0.0):
     return prng.categorical(key, torch.log(probs))
 
 
+# ==========================================================================
+# Speculative decoding: draft-propose, one k-wide verify, acceptance
+# ==========================================================================
+def verify_tokens(params, cfg: GPTConfig, tokens, pos, k_cache, v_cache,
+                  page_table=None, valid=None):
+    """The speculative verify forward: score a k-token window in one
+    forward. tokens: [B, k] int (window row 0 is the target's own token,
+    rows 1.. the draft's proposals); pos: int or [B], the cache position
+    of window row 0. Writes the window's K/V at ``[pos, pos + k)`` of
+    every layer in place and returns (logits [B, k, V] f32, the target's
+    next-token distribution after each window position, k_cache,
+    v_cache). Window row j attends keys ``<= pos + j`` through the decode
+    kernel at Q = k (:data:`~..ops.kernels.decode_attention.MAX_Q` rows at
+    most). The wpe index clips to ``max_seq - 1``: only rows past the
+    logical cache limit reach it, and acceptance never takes them."""
+    return (_decode_window(params, cfg, tokens, pos, k_cache, v_cache,
+                           page_table, valid), k_cache, v_cache)
+
+
+def early_exit_draft(params, cfg: GPTConfig, n_layers: int):
+    """Self-speculation draft: the target's first ``n_layers`` layers with
+    the shared final norm and lm-head, as a model of its own. Returns
+    ``(draft_params, draft_cfg)``; the blocks are views of the target's
+    (no copy), and the draft's layer caches are the target's first
+    ``n_layers`` layer caches."""
+    if not 1 <= n_layers <= cfg.n_layers:
+        raise ValueError(
+            f"early-exit draft cut {n_layers} must be in "
+            f"[1, {cfg.n_layers}] (the target's layer count)")
+    dcfg = dataclasses.replace(cfg, n_layers=n_layers)
+    dparams = {"wte": params["wte"], "wpe": params["wpe"],
+               "blocks": {k: v[:n_layers]
+                          for k, v in params["blocks"].items()},
+               "lnf_g": params["lnf_g"], "lnf_b": params["lnf_b"]}
+    if cfg.weight_quant:
+        # a quantized wte rides with its per-row steps
+        dparams["wte_s"] = params["wte_s"]
+    return dparams, dcfg
+
+
+def check_draft_compat(cfg: GPTConfig, draft_cfg: GPTConfig) -> None:
+    """A separate draft must speak the target's token space and cover its
+    positions; a mismatch is a construction-time error (a vocab mismatch
+    would accept proposals whose ids merely collide)."""
+    if draft_cfg.vocab_size != cfg.vocab_size:
+        raise ValueError(
+            f"draft/target vocab mismatch: draft vocab_size "
+            f"{draft_cfg.vocab_size} != target {cfg.vocab_size} — "
+            "speculative proposals are token ids, the two models must "
+            "share one vocabulary")
+    if draft_cfg.max_seq < cfg.max_seq:
+        raise ValueError(
+            f"draft max_seq {draft_cfg.max_seq} < target {cfg.max_seq}: "
+            "the draft must have positional embeddings for every position "
+            "the target can decode")
+
+
+def _take_along(x, idx):
+    """``x[b, idx[b]]`` over dim 1: x [B, k, ...], idx [B] int."""
+    g = idx.view((-1, 1) + (1,) * (x.dim() - 2)).expand(
+        (x.shape[0], 1) + tuple(x.shape[2:]))
+    return torch.gather(x, 1, g)[:, 0]
+
+
+def greedy_acceptance(props, verify_logits, pos, can, limit,
+                      eos_token_id=None):
+    """Greedy speculative acceptance, per row. props: [B, k] the verified
+    window (row 0 the target's own greedy token, always accepted for live
+    rows); verify_logits: [B, k, V] from :func:`verify_tokens`; pos: [B]
+    the window's first position; can: [B] bool, rows allowed to decode;
+    limit: the logical cache length.
+
+    Window index j is accepted iff every earlier index was, the target's
+    greedy choice after index j-1 equals it, no earlier accepted token was
+    eos, and ``pos + j < limit``: the accepted prefix is exactly what the
+    plain greedy loop emits. Returns ``(accept [B, k] bool, counts [B],
+    n_adv [B] (accepted non-eos tokens: how far pos advances), new_logits
+    [B, V] (after the last accepted token), last_tok [B])``."""
+    k = props.shape[1]
+    g = verify_logits.argmax(-1)
+    ok = [can & (pos < limit)]
+    for j in range(1, k):
+        okj = ok[-1] & (props[:, j] == g[:, j - 1]) & (pos + j < limit)
+        if eos_token_id is not None:
+            okj = okj & (props[:, j - 1] != eos_token_id)
+        ok.append(okj)
+    accept = torch.stack(ok, 1)
+    counts = accept.sum(1)
+    adv = accept & (props != eos_token_id) if eos_token_id is not None \
+        else accept
+    n_adv = adv.sum(1)
+    last = (counts - 1).clamp(0, k - 1)
+    return (accept, counts, n_adv, _take_along(verify_logits, last),
+            _take_along(props, last))
+
+
+# lanes of the stochastic key rule: every draw of the sampled spec path is
+# keyed by (request seed, absolute position, lane) and nothing else, so a
+# row's draws do not depend on where tick boundaries fall
+SPEC_LANE_DRAFT = 0      # the draft's proposal sample at a position
+SPEC_LANE_ACCEPT = 1     # the acceptance-test uniform at a position
+SPEC_LANE_RESAMPLE = 2   # the residual resample at a position
+_SPEC_ROOT = prng.PRNGKey(0x5BEC)
+
+
+def spec_sample_key(seed, position, lane):
+    """The key rule of stochastic speculative sampling: ``fold_in(fold_in(
+    fold_in(PRNGKey(0x5BEC), seed), position), lane)``, over tensors
+    (seeds and positions broadcast together; a tensor key ``[..., 2]``
+    each), row for row ``jax.vmap`` of the reference's scalar rule."""
+    pos = torch.as_tensor(position)
+    seed = torch.as_tensor(seed, device=pos.device)
+    k = prng.fold_in_rows(prng.fold_in_rows(_SPEC_ROOT, seed), pos)
+    return prng.fold_in_rows(k, torch.as_tensor(lane, device=pos.device))
+
+
+def spec_draft_sample(logits, temperature, seeds, positions, top_k=0,
+                      top_p=0.0, keys=None):
+    """One draft proposal per row from ``logits`` [B, V]: returns ``(tok
+    [B], q [B, V] f32)``, the proposal and the post-filter proposal
+    distribution the acceptance ratio divides by, drawn with
+    ``spec_sample_key(seeds, positions, SPEC_LANE_DRAFT)`` (``keys``: those
+    keys, when the caller derived them already). Greedy rows
+    (temperature <= 0) get a one-hot q, so their draw is the argmax."""
+    q = filtered_probs(logits, temperature, top_k, top_p)
+    if keys is None:
+        keys = spec_sample_key(seeds, positions, SPEC_LANE_DRAFT)
+    return prng.categorical_rows(keys, torch.log(q)), q
+
+
+def stochastic_acceptance(props, q_probs, verify_logits, base_logits,
+                          temperature, seeds, pos, can, limit, pend_valid,
+                          last_tok, top_k=0, top_p=0.0, eos_token_id=None):
+    """Stochastic speculative acceptance (Leviathan et al., ICML 2023),
+    per row. props: [B, k] the verified window (row 0 is either last
+    tick's pending residual resample, ``pend_valid``, already accepted,
+    or a fresh draft proposal); q_probs: [B, k, V] the draft's post-filter
+    distributions (:func:`spec_draft_sample`); verify_logits: [B, k, V];
+    base_logits: [B, V] the target's stored distribution at the window's
+    first position; temperature and seeds: [B].
+
+    Index j is accepted iff every earlier index was, ``u_j < p_j(x_j) /
+    q_j(x_j)`` (u_j keyed by (seed, pos + j, ACCEPT)), ``pos + j < limit``
+    and no earlier accepted token was eos. At the first ratio rejection a
+    correction token is drawn from the normalized residual ``max(0, p -
+    q)`` (keyed by (seed, pos + j, RESAMPLE)); it is not emitted this tick
+    but returned pending, for the next tick's window row 0. p, q and the
+    ratio are f32, both filtered through the one :func:`filtered_probs`.
+
+    Returns ``(accept [B, k], counts [B], n_adv [B], new_logits [B, V],
+    last_tok [B], pend_tok [B], pend_valid [B])``: ``pend_valid`` marks the
+    rows that drew a resample this tick."""
+    B, k = props.shape
+    dev = props.device
+    tb = torch.as_tensor(temperature, dtype=torch.float32, device=dev
+                         ).expand(B)[:, None]
+    base_logits = base_logits.float()
+    # the target's distribution at window index j: after window token j-1;
+    # index 0's is the stored distribution the last tick left
+    p_src = torch.cat([base_logits[:, None],
+                       verify_logits.float()[:, :-1]], dim=1)
+    p_probs = filtered_probs(p_src, tb, top_k, top_p)
+    q_probs = q_probs.float()
+    idx = props[:, :, None]
+    p_tok = torch.gather(p_probs, 2, idx)[:, :, 0]
+    q_tok = torch.gather(q_probs, 2, idx)[:, :, 0]
+    posw = pos[:, None] + torch.arange(k, device=dev)[None, :]
+    # one position key per window index serves both lanes
+    pkeys = prng.fold_in_rows(prng.fold_in_rows(
+        _SPEC_ROOT, torch.as_tensor(seeds, device=dev))[:, None], posw)
+    u = prng.uniform_rows(prng.fold_in_rows(
+        pkeys, torch.tensor(SPEC_LANE_ACCEPT, device=dev)))
+    # accept iff u < min(1, p/q): a ratio >= 1 always accepts (u < 1), p ==
+    # 0 never does; greedy rows degenerate to equality
+    take = u < p_tok / torch.clamp_min(q_tok, 1e-30)
+    elig = [can & (pos < limit)]
+    ok = [elig[0] & (pend_valid | take[:, 0])]
+    for j in range(1, k):
+        ej = ok[-1] & (pos + j < limit)
+        if eos_token_id is not None:
+            ej = ej & (props[:, j - 1] != eos_token_id)
+        elig.append(ej)
+        ok.append(ej & take[:, j])
+    eligible = torch.stack(elig, 1)
+    accept = torch.stack(ok, 1)
+    counts = accept.sum(1)
+    adv = accept & (props != eos_token_id) if eos_token_id is not None \
+        else accept
+    n_adv = adv.sum(1)
+    last = (counts - 1).clamp(0, k - 1)
+    moved = counts > 0
+    # counts == 0 (a fresh row 0 ratio-rejected): the window advanced
+    # nothing, so the stored distribution and last token stay
+    new_logits = torch.where(moved[:, None], _take_along(verify_logits, last),
+                             base_logits)
+    new_last = torch.where(moved, _take_along(props, last), last_tok)
+    # the first RATIO rejection (eligible, failed the uniform) resamples;
+    # chains stopped by the limit or eos resample nothing
+    jrej = counts.clamp(0, k - 1)
+    rejected = (counts < k) & _take_along(eligible, jrej) \
+        & ~_take_along(accept, jrej)
+    p_r = _take_along(p_probs, jrej)
+    q_r = _take_along(q_probs, jrej)
+    res = torch.clamp_min(p_r - q_r, 0.0)
+    norm = res.sum(-1, keepdim=True)
+    # q >= p everywhere makes a rejection impossible; should float dust
+    # land here anyway, p keeps the draw honest
+    res = torch.where(norm > 0.0, res / torch.clamp_min(norm, 1e-30), p_r)
+    y = prng.categorical_rows(prng.fold_in_rows(
+        _take_along(pkeys, jrej),
+        torch.tensor(SPEC_LANE_RESAMPLE, device=dev)), torch.log(res))
+    pend_tok = torch.where(rejected, y, torch.zeros_like(y))
+    return accept, counts, n_adv, new_logits, new_last, pend_tok, rejected
+
+
 @torch.no_grad()
 def generate(params, cfg: GPTConfig, prompt_tokens, max_new_tokens=32,
              temperature=0.0, top_k=0, top_p=0.0, seed=0,
@@ -1080,8 +1324,8 @@ def build_train_step(cfg: GPTConfig, lr=3e-4, wd=0.1, device=None,
     params and moments are the given tensors, updated in place."""
     if sentinel:
         raise NotImplementedError(
-            "sentinel=True: the in-program anomaly sentinel is ROADMAP "
-            "queue 1 item 12 (training guards), not ported yet")
+            "sentinel=True: the in-program anomaly sentinel belongs to "
+            "the training-guards slice, not ported yet")
     dev = resolve_device(device)
 
     def step(params, opt, tokens, labels):

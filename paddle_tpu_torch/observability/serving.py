@@ -6,8 +6,9 @@ the telemetry slice).
 Host-side only: per-request time-to-first-token, per-token decode
 latency over LIVE rows (eos-frozen and cache-full rows emit pad filler
 but add neither tokens nor samples), admission wait, rejects, expiries,
-queue depth, evictions and, for a paged session, the KV page pool
-(total, free, shared). Latency distributions keep a bounded,
+queue depth, evictions, the speculative lane's proposals, accepts,
+emitted tokens and residual resamples and, for a paged session, the KV
+page pool (total, free, shared). Latency distributions keep a bounded,
 deterministically seeded reservoir (algorithm R) and report p50/p99.
 """
 from __future__ import annotations
@@ -108,6 +109,25 @@ class ServingMetrics:
             self.tokens_emitted += emitted
             self._decode_ms_tok.add(wall_s / emitted * 1e3)
 
+    def spec(self, proposed: int, accepted: int, rows: int,
+             emitted: int | None = None, resampled: int = 0) -> None:
+        """One speculative tick: ``rows`` live rows got ``proposed`` draft
+        proposals, ``accepted`` of them survived verification (greedy:
+        argmax equality; stochastic: the u < p/q test). ``emitted`` is the
+        tick's real output; greedy ticks leave it None (rows + accepted),
+        stochastic ticks pass it, since a row may emit its pending residual
+        without a fresh accept, or nothing on a fresh row-0 rejection.
+        ``resampled`` counts residual resamples drawn. (The reference also
+        emits a ``serving_spec`` JSONL event here; it comes with the
+        events slice.)"""
+        self.spec_ticks += 1
+        self.spec_rows_total += rows
+        self.spec_proposed_total += proposed
+        self.spec_accepted_total += accepted
+        self.spec_emitted_total += rows + accepted if emitted is None \
+            else emitted
+        self.spec_resample_total += resampled
+
     def kv_pages(self, total: int, free: int, shared: int,
                  event: str | None = None, **kw) -> None:
         """Paged-KV pool snapshot from the session's allocator: ``total``
@@ -139,6 +159,9 @@ class ServingMetrics:
         self.evictions = self.tokens_emitted = self.admissions = 0
         self.prefill_s = self.queue_wait_s = self.decode_s = 0.0
         self.decode_ticks = self.prefill_chunks = 0
+        self.spec_proposed_total = self.spec_accepted_total = 0
+        self.spec_ticks = self.spec_rows_total = 0
+        self.spec_emitted_total = self.spec_resample_total = 0
         self.queue_depth = 0
         self.ttft_sum_s = self.ttft_last_s = 0.0
         self.ttft_n = 0
@@ -175,6 +198,19 @@ class ServingMetrics:
             "slot_occupancy": round(self._occupied / self.max_slots, 4)
             if self.max_slots else None,
             "slots_occupied": self._occupied,
+            # accepted / proposed draft tokens
+            "spec_accept_rate": round(
+                self.spec_accepted_total / self.spec_proposed_total, 4)
+            if self.spec_proposed_total else None,
+            "spec_accepted_total": self.spec_accepted_total,
+            "spec_emitted_total": self.spec_emitted_total,
+            "spec_proposed_total": self.spec_proposed_total,
+            "spec_resample_total": self.spec_resample_total,
+            "spec_ticks": self.spec_ticks,
+            # the tokens a live row emits a spec tick (1.0 = plain decode)
+            "spec_tokens_per_row_tick": round(
+                self.spec_emitted_total / self.spec_rows_total, 4)
+            if self.spec_rows_total else None,
             "tokens_emitted": toks,
             "ttft_ms_last": round(self.ttft_last_s * 1e3, 3)
             if self.ttft_n else None,

@@ -12,6 +12,10 @@ paddle_tpu/serving/engine.py:
   by one chunk and decodes every live row (``session.fused_tick``), so a
   long prompt never stalls the decode batch;
 - full-occupancy decode: every poll fills freed slots first;
+- speculative sessions (``session.spec_k > 1``): the poll's tick is
+  ``spec_tick`` / ``spec_step`` and a row may emit several tokens, cut at
+  eos and at the request's budget; ``submit(temperature=, seed=)`` sets a
+  request's sampling lane on a session with the stochastic lane;
 - prefix KV reuse (``prefix_cache_blocks > 0``): admission copies the
   longest pooled block-aligned prefix into the slot and prefills only the
   tail; a finalized prompt's full blocks are offered to the pool
@@ -121,15 +125,22 @@ class ServingEngine:
     # ------------------------------------------------------------ submit
     def submit(self, tokens, max_new_tokens: int = 32, priority: int = 0,
                deadline: float | None = None,
-               request_id: str | None = None) -> Request:
+               request_id: str | None = None,
+               temperature: float | None = None,
+               seed: int | None = None) -> Request:
         """Enqueue one request; raises :class:`QueueFull` when the bounded
         queue is at capacity (a silent drop would read as an infinitely
-        slow request)."""
+        slow request). ``temperature``/``seed`` set the request's sampling
+        lane on a session with the stochastic lane (``spec_sample``):
+        None is the session's temperature and a per-request default seed;
+        a non-zero temperature on any other session raises."""
         if self._closed:
             raise RuntimeError("engine is closed")
         req = Request(tokens=tokens, max_new_tokens=int(max_new_tokens),
                       priority=int(priority), deadline=deadline,
-                      request_id=request_id)
+                      request_id=request_id,
+                      temperature=self._resolve_temp(temperature),
+                      seed=seed)
         req.arrival_ts = self.clock()
         req.arrival_perf = time.perf_counter()
         if req.prompt_len >= self.session.max_len:
@@ -151,6 +162,19 @@ class ServingEngine:
         self._queued += 1
         self._tm.set_queue_depth(self._queued)
         return req
+
+    def _resolve_temp(self, temperature: float | None) -> float:
+        """None is the session's own temperature (0.0 without the
+        stochastic lane); a non-zero temperature needs the lane."""
+        armed = self.session.spec_sample
+        if temperature is None:
+            return self.session.default_temperature if armed else 0.0
+        if temperature and not armed:
+            raise ValueError(
+                f"temperature={temperature} needs the stochastic sampling "
+                "lane — build the session with spec_decode >= 2 and "
+                "spec_sample=True (or a non-zero session temperature)")
+        return float(temperature)
 
     def try_submit(self, tokens, **kw) -> Request | None:
         """:meth:`submit` that returns None on a full queue (the
@@ -251,25 +275,30 @@ class ServingEngine:
             req.state = RequestState.PREFILLING
             req.slot = slot
             req.admitted_ts = now
+            if sess.spec_sample:
+                # staged now; the finalizing chunk moves it to the device
+                sess.set_sampling(slot, req.temperature, req.seed)
             self._partials[slot] = [req, self._reuse_prefix(req, slot)]
             admitted.append(req)
 
-        # 2. one chunk for every partial prompt and one decode token for
-        # every live row; rows the chunk half finalizes emit their first
-        # token in the same tick. The engine only starts a decode tick
-        # when it owns decodable work (ticks are communal on the session)
+        # 2. one chunk for every partial prompt and one decode tick over
+        # every live row (a spec tick on a spec session); rows the chunk
+        # half finalizes emit in the same tick. The engine only starts a
+        # tick when it owns decodable work (ticks are communal)
         own_active = any(sess.is_active(s) for s in self._by_slot)
         chunks, arrivals, waits, fins = (
             self._collect_chunks() if self._partials else ([], {}, {}, []))
+        spec = sess.spec_k > 1
         if chunks and (fins or own_active):
-            emitted = sess.fused_tick(chunks, self.width, arrivals=arrivals,
-                                      queue_waits=waits)
+            tick = sess.spec_tick if spec else sess.fused_tick
+            emitted = tick(chunks, self.width, arrivals=arrivals,
+                           queue_waits=waits)
         elif chunks:
             sess.prefill_chunks(chunks, self.width, arrivals=arrivals,
                                 queue_waits=waits)
             emitted = {}
         elif own_active:
-            emitted = sess.step()
+            emitted = sess.spec_step() if spec else sess.step()
         else:
             emitted = {}
         for slot, req in fins:
@@ -283,16 +312,23 @@ class ServingEngine:
         if emitted:
             now = self.clock()
             eos = sess.eos_token_id
-            for slot, tok in emitted.items():
+            for slot, toks in emitted.items():
                 req = self._by_slot.get(slot)
                 if req is None:
                     continue   # a direct session.admit() user's slot
-                req.output.append(int(tok))
-                emitted_n += 1
+                # a plain tick emits one token a slot, a spec tick a list
+                toks = toks if isinstance(toks, list) else [toks]
+                done = False
+                for tok in toks:
+                    req.output.append(int(tok))
+                    emitted_n += 1
+                    done = (eos is not None and tok == eos) \
+                        or len(req.output) >= req.max_new_tokens
+                    if done:
+                        break
                 if req.first_token_ts is None:
                     req.first_token_ts = now
-                if (eos is not None and tok == eos) \
-                        or len(req.output) >= req.max_new_tokens:
+                if done:
                     self._finish(req, now)
                     finished.append(req)
         # rows the session froze itself (cache full) stop without an eos

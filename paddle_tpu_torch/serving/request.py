@@ -1,6 +1,6 @@
 """Request model for the continuous-batching serving engine (host-only
-copy of paddle_tpu/serving/request.py, trimmed to what this slice's
-engine uses: no retry, tracing, tenant or sampling-lane fields).
+copy of paddle_tpu/serving/request.py, trimmed to what the port's
+engine uses: no retry, tracing or tenant fields).
 
     QUEUED ──admission──> PREFILLING ──final chunk──> DECODING ──> DONE
       ├── deadline passed before prefill ──> EXPIRED
@@ -43,6 +43,11 @@ class Request:
     priority: int = 0
     deadline: float | None = None
     request_id: str | None = None
+    # the stochastic sampling lane (spec_sample sessions): 0.0 = greedy.
+    # The seed is the request's whole sampling state (every draw derives
+    # from (seed, absolute position, lane)); None picks the seq number
+    temperature: float = 0.0
+    seed: int | None = None
     # filled by the engine
     seq: int = dataclasses.field(default_factory=lambda: next(_REQ_SEQ))
     state: RequestState = RequestState.QUEUED
@@ -64,6 +69,11 @@ class Request:
             raise ValueError("request needs at least one prompt token")
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if self.temperature < 0.0:
+            raise ValueError(
+                f"temperature must be >= 0, got {self.temperature}")
+        if self.seed is None:
+            self.seed = self.seq
         if self.request_id is None:
             self.request_id = f"req{self.seq}"
 

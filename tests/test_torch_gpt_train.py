@@ -259,7 +259,7 @@ def test_config_guards(field, value):
 
 
 def test_sentinel_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="training-guards"):
         tg.build_train_step(tg.gpt_tiny(), device="cpu", sentinel=True)
 
 

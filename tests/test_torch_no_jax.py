@@ -29,7 +29,8 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
-    REPO / "chip_smoke.py"], ids=lambda p: str(p.relative_to(REPO)))
+    REPO / "chip_smoke.py"] + sorted((REPO / "tools").glob("torch_*.py")),
+    ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_import(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "paddle_tpu"}
     assert not bad, f"{path} imports {sorted(bad)}"

@@ -155,14 +155,17 @@ def test_admission_control_and_later_slices(setup, monkeypatch):
         _session(setup, max_slots=2, max_prompt_len=4).admit(
             np.asarray([[1, 2]]), lengths=[3])
     assert _session(setup, max_slots=1).admit(np.zeros((0, 3))) == []
-    for kw in ({"spec_decode": 4}, {"mesh": object()},
-               {"kv_paged": True, "mesh": object()}):
+    for kw in ({"mesh": object()}, {"kv_paged": True, "mesh": object()}):
         with pytest.raises(NotImplementedError, match="slice"):
             _session(setup, max_slots=1, **kw)
+    # speculative decoding is ported: from the argument and the
+    # environment alike, up to the decode kernel's window of 8 rows
+    assert _session(setup, max_slots=1, spec_decode=4).spec_k == 4
+    with pytest.raises(ValueError, match="MAX_Q"):
+        _session(setup, max_slots=1, spec_decode=9)
     with monkeypatch.context() as mp:
         mp.setenv("PADDLE_TPU_SPEC_DECODE", "4")
-        with pytest.raises(NotImplementedError, match="slice"):
-            _session(setup, max_slots=1)
+        assert _session(setup, max_slots=1).spec_k == 4
     # paged KV and prefix spans are this slice: from the argument and the
     # environment alike
     paged = _session(setup, max_slots=1, kv_paged=True)
