@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,kernels,paged,paged_parity
     python3 chip_smoke.py --phases build,incubate,sampling
     python3 chip_smoke.py --phases build,spec
+    python3 chip_smoke.py --phases build,graph
 
 Phases, each fatal on failure:
 
@@ -145,6 +146,28 @@ Phases, each fatal on failure:
               draft, dense and paged) equal spec off and equal across the
               two; sampled spec streams and the lane's per-row key draws over
               [4, 50304] equal bitwise across the two.
+15. graph   — the serving steps as captured CUDA graphs, at full gpt3_1p3b
+              width (bf16, init_params seed 0, and its w8kv8 quantization):
+              two identical sessions side by side, one under eager_ticks(),
+              fed the same admissions (two rows of 256 tokens, two more
+              after six ticks), 16 ticks each: plain greedy and sampled,
+              dense and paged, bf16 and w8kv8; spec k=4 with the early-exit
+              and a separate draft (the first 4 layers), greedy and
+              stochastic. Every tick's tokens, the final logits, tick
+              state and caches bitwise equal. generate() B=4 x P=256 (+32)
+              greedy and sampled, graphed against eager, bitwise equal,
+              ms a token each. 16 plain ticks (bf16 and w8kv8) and 16 spec
+              ticks (bf16, k=4) at B=4, eager beside graphed: wall, device
+              time (profiler, and 16 bare replays between CUDA events),
+              idle share; 16 graphed ticks make no host-to-device copy and
+              one device-to-host copy each.
+
+Every other phase runs the session's ticks and generate()'s steps as
+captured graphs too (each session's first tick is the warm-up, run
+eagerly; the second captures; later ticks replay). The kernel counters
+count what the device ran: a replay adds the launches its capture
+recorded. The spec phase's margin rule runs its ticks eagerly
+(eager_ticks()): it reruns each forward through the plain attention.
 
 The CPU/card parity gates (parity, quant_parity, paged_parity,
 train_parity, sampling's 2-layer streams) run on the numpy N(0, 0.02)
@@ -169,7 +192,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "generate", "server", "parity", "quant",
           "quant_parity", "paged", "paged_parity", "train", "train_parity",
-          "incubate", "sampling", "spec")
+          "incubate", "sampling", "spec", "graph")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -1365,36 +1388,28 @@ class Smoke:
 
     # ------------------------------------------------------ main path
     def _counters(self):
-        from paddle_tpu_torch.ops.kernels import flash_attention as fa
-        from paddle_tpu_torch.ops.kernels.decode_attention import (
-            decode_attention)
-        from paddle_tpu_torch.ops.kernels.decode_attention import (
-            decode_attention_paged, decode_attention_paged_q8,
-            decode_attention_q8)
-        from paddle_tpu_torch.ops.kernels.fused_adamw import (
-            fused_adamw_update)
-        from paddle_tpu_torch.ops.kernels.quant_matmul import quant_matmul
-        from paddle_tpu_torch.ops.kernels import primitives as prim
-        from paddle_tpu_torch.ops.kernels.fused_residual_ln import (
-            fused_bias_dropout_residual_ln)
-        return {"flash_attention_fwd": fa.flash_attention,
-                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-                "decode_attention": decode_attention,
-                "fused_adamw": fused_adamw_update,
-                "quant_matmul": quant_matmul,
-                "decode_attention_q8": decode_attention_q8,
-                "decode_attention_paged": decode_attention_paged,
-                "decode_attention_paged_q8": decode_attention_paged_q8,
-                "fused_residual_ln": fused_bias_dropout_residual_ln,
-                "elementwise_kernel": prim.elementwise_kernel,
-                "reduce_kernel": prim.reduce_kernel}
+        """The kernel wrappers by kernel name. Their counters count what
+        the device ran: a replayed CUDA graph adds the launches its
+        capture recorded (``ops.kernels.launch_counts``)."""
+        from paddle_tpu_torch.ops.kernels import launch_counts
+        return launch_counts.counters()
 
     def _zero_counts(self):
-        for fn in self._counters().values():
-            fn.launches = 0
-            if hasattr(fn, "routes"):
-                fn.routes = dict.fromkeys(fn.routes, 0)
+        from paddle_tpu_torch.ops.kernels import launch_counts
+        launch_counts.zero()
+
+    @staticmethod
+    def _by_q() -> dict:
+        """Decode-attention launches by window width, every form summed
+        (the wrappers' ``by_q``), the widths that ran only."""
+        from paddle_tpu_torch.ops.kernels import decode_attention as da
+        out = {}
+        for fn in (da.decode_attention, da.decode_attention_q8,
+                   da.decode_attention_paged, da.decode_attention_paged_q8):
+            for q, n in fn.by_q.items():
+                if n:
+                    out[q] = out.get(q, 0) + n
+        return out
 
     def _read_counts(self, path: str, need) -> dict:
         """Counts of one main-path run; every kernel in ``need`` must have
@@ -1513,12 +1528,14 @@ class Smoke:
 
     def _profile(self, cfg, params, prompt):
         """Where the time of the main path goes: torch.profiler over one
-        B=4 x P=256 prefill and over 16 decode steps, printing the wall
-        time with and without the profiler, the summed device time (one
-        stream, so device time over unprofiled wall is the busy share)
-        and the kernels that take the most device time."""
+        B=4 x P=256 prefill and over 16 decode steps, eagerly and as 16
+        replays of one captured step, printing the wall time with and
+        without the profiler, the summed device time (one stream, so
+        device time over unprofiled wall is the busy share) and the
+        kernels that take the most device time."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
+        from paddle_tpu_torch.framework.cuda_graph import TickGraph
         from paddle_tpu_torch.models import gpt
         B, P = prompt.shape
         tokens = torch.as_tensor(prompt, device=self.dev)
@@ -1534,7 +1551,26 @@ class Smoke:
                                                     kc, vc)
                 tok = logits.argmax(-1)
 
-        for name, fn in (("prefill", prefill), ("decode_x16", decode)):
+        # the same 16 steps, each a replay of one captured step on device
+        # state (generate()'s form: the token and position stay on the card)
+        tok, pos = tokens[:, -1].clone(), torch.full((B,), P, device=self.dev)
+
+        def step():
+            logits, _, _ = gpt.decode_one_token(params, cfg, tok, pos, kc, vc)
+            tok.copy_(logits.argmax(-1))
+            pos.add_(1)
+            return pos
+
+        graph = TickGraph(step, self.dev)
+
+        def decode_graphed(steps=16):
+            tok.copy_(tokens[:, -1])
+            pos.fill_(P)
+            for _ in range(steps):
+                graph()
+
+        for name, fn in (("prefill", prefill), ("decode_x16", decode),
+                         ("decode_x16_graphed", decode_graphed)):
             fn()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2133,10 +2169,11 @@ class Smoke:
                                          max_prompt_len=128, max_len=256,
                                          kv_paged=True, device=dev)
                 sess.admit(prompt, lengths)
-                seen = [sess._logits.cpu()]
+                # copies: a tick rewrites the session's logits in place
+                seen = [sess._logits.to("cpu", copy=True)]
                 for _ in range(4):
                     sess.step()
-                    seen.append(sess._logits.cpu())
+                    seen.append(sess._logits.to("cpu", copy=True))
                 logits[str(dev)] = seen
             if tag == "w8kv8":   # f32 x: every launch on the skinny kernel
                 from paddle_tpu_torch.ops.kernels.quant_matmul import (
@@ -2670,25 +2707,19 @@ class Smoke:
 
     # ------------------------------------------------------------- spec
     def _spec_instruments(self):
-        """Counters this script lays over the model for the spec phase:
-        decode-attention launches by window width (a wrapper of the name
-        ``models/gpt.py`` calls, counting what the kernels' own counters
-        count, split by Q) and, while ``self._capture`` names a lane
-        ("on": the verify, "off": the plain tick), each such forward's
-        logits beside the same forward on copies of the caches through
-        the plain decode attention. Returns (by_q, captured, undo)."""
-        import collections
+        """What this script lays over the model for the spec phase's
+        margin rule: while ``self._capture`` names a lane ("on": the
+        verify, "off": the plain tick), each such forward's logits beside
+        the same forward on copies of the caches through the plain decode
+        attention (the ticks run eagerly then: ``eager_ticks``). Returns
+        (captured, undo)."""
         torch = self.torch
         from paddle_tpu_torch.inference import generation
         from paddle_tpu_torch.models import gpt
         from paddle_tpu_torch.ops.kernels import decode_attention as da
-        by_q, captured = collections.Counter(), []
+        captured = []
         attend = gpt.decode_attention
         verify, one = generation.verify_tokens, generation.decode_one_token
-
-        def counted(q, *a, **kw):
-            by_q[int(q.shape[2])] += 1
-            return attend(q, *a, **kw)
 
         def plain(q, kc, vc, pos, block=128, page_table=None):
             # the dense bf16 session of the margin rule only
@@ -2704,14 +2735,13 @@ class Smoke:
                     gpt.decode_attention = plain
                     ref = fn(params, cfg, tokens, pos, kc.clone(),
                              vc.clone(), *a, **kw)[0]
-                    gpt.decode_attention = counted
+                    gpt.decode_attention = attend
                 out = fn(params, cfg, tokens, pos, kc, vc, *a, **kw)
                 if self._capture == lane:
                     captured.append((out[0], ref))
                 return out
             return run
 
-        gpt.decode_attention = counted
         generation.verify_tokens = twin(verify, "on")
         generation.decode_one_token = twin(one, "off")
         self._capture = None
@@ -2719,7 +2749,7 @@ class Smoke:
         def undo():
             gpt.decode_attention = attend
             generation.verify_tokens, generation.decode_one_token = verify, one
-        return by_q, captured, undo
+        return captured, undo
 
     def _spec_streams(self, sess, prompt, N, captured):
         """Drive a session (spec on or off) over ``prompt`` until every row
@@ -2728,6 +2758,7 @@ class Smoke:
         attention [B][N] as (kernel row, plain row) pairs; the first
         token's, the prefill's, has no plain row)."""
         torch = self.torch
+        from paddle_tpu_torch.inference import eager_ticks
         spec = bool(sess.spec_k)
         self._capture = "on" if spec else "off"
         slots = sess.admit(prompt)
@@ -2736,7 +2767,8 @@ class Smoke:
         prev = {s: (sess._logits[s].clone(), None) for s in slots}
         while any(len(out[s]) < N for s in slots):
             del captured[:]
-            em = sess.spec_step() if spec else sess.step()
+            with eager_ticks():
+                em = sess.spec_step() if spec else sess.step()
             lk, lp = captured[-1]
             for s, toks in em.items():
                 toks = toks if isinstance(toks, list) else [toks]
@@ -2764,7 +2796,7 @@ class Smoke:
         the plain decode attention. A divergence is explained by rounding
         when the spec-off logits' top-two gap there is no larger than d;
         and every d stays within SPEC_D_LIMIT and every e within
-        SPEC_E_LIMIT (PERF.md §5 has the readings these limits come from),
+        SPEC_E_LIMIT (PERF.md §6 has the readings these limits come from),
         so a verify that computes the wrong window fails even where the
         near-flat logits of random weights would explain any divergence.
         Returns one dict a row."""
@@ -2925,10 +2957,10 @@ class Smoke:
         t_start = time.perf_counter()
         params = gpt.init_params(cfg, seed=0, device=self.dev)
         L, k, cut = cfg.n_layers, 4, cfg.n_layers // 2
-        by_q, captured, undo = self._spec_instruments()
+        captured, undo = self._spec_instruments()
         marks = [("start", t_start), ("weights", time.perf_counter())]
         try:
-            self._spec_full_width(cfg, params, L, k, cut, by_q, captured)
+            self._spec_full_width(cfg, params, L, k, cut, captured)
             marks.append(("generate", time.perf_counter()))
             # the replays: a separate draft (the first 4 layers as a model
             # of their own, with its own cache) serving half the requests
@@ -2980,7 +3012,7 @@ class Smoke:
             name: round(t - t0, 1)
             for (_, t0), (name, t) in zip(marks, marks[1:])}))
 
-    def _spec_full_width(self, cfg, params, L, k, cut, by_q, captured):
+    def _spec_full_width(self, cfg, params, L, k, cut, captured):
         """generate-shaped runs at B=4 x P=256 (+32) through a session with
         the early-exit draft at its default cut, beside spec off: ms/token,
         acceptance, exact launches by Q a tick, the margin rule, and a
@@ -3021,7 +3053,6 @@ class Smoke:
         for tag, sess in sessions.items():
             sess.reset_metrics()
             self._zero_counts()
-            by_q.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             slots = sess.admit(prompt)
@@ -3043,9 +3074,10 @@ class Smoke:
                 "flash_attention_fwd": L, "decode_attention": per_tick * ticks})
             want_q = ({1: (k - 1) * cut * ticks, k: L * ticks}
                       if sess.spec_k else {1: L * ticks})
-            if dict(by_q) != want_q:
+            by_q = self._by_q()
+            if by_q != want_q:
                 raise AssertionError(f"spec generate {tag}: decode launches "
-                                     f"by Q {dict(by_q)}, expected {want_q}")
+                                     f"by Q {by_q}, expected {want_q}")
             per_tok[tag] = (t2 - t1) / N * 1e3
             lines[tag] = dict(
                 ticks=ticks, prefill_ms=round((t1 - t0) * 1e3, 3),
@@ -3137,6 +3169,260 @@ class Smoke:
         if not keys_equal or not all(all(v.values()) for v in res.values()):
             raise AssertionError(f"spec parity failed: {res}, key draws "
                                  f"equal {keys_equal}")
+
+    # ------------------------------------------------------------ graph
+    def _graph_pair(self, params, cfg, max_len=448, **kw):
+        """Two identical sessions, B=4 rows of 256-token prompts: one to
+        run under eager_ticks(), one graphed."""
+        from paddle_tpu_torch.inference import GenerationSession
+        return tuple(GenerationSession(params, cfg, max_slots=4,
+                                       max_prompt_len=256, max_len=max_len,
+                                       device=self.dev, **kw)
+                     for _ in range(2))
+
+    def _state_diff(self, a, b) -> list:
+        """The tick-state tensors and cache leaves of two sessions that
+        differ in any bit. A paged pool's page 0 is left out: it is the
+        scratch page, where dead rows' writes land together (one index
+        store of several rows to one place, an arbitrary one winning) and
+        which nothing reads."""
+        torch = self.torch
+        sa, sb = a._tick_state(), b._tick_state()
+        bad = []
+        for n, x in sa.items():
+            y = sb[n]
+            if a.kv_paged and n.startswith(("_kc", "_vc", "_dkc", "_dvc")):
+                x, y = x[:, 1:], y[:, 1:]
+            if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+                bad.append(n)
+        return bad
+
+    def _graph_case(self, tag, pair, prompt, lanes, ticks=16):
+        """Feed an (eager, graphed) pair the same admissions (half the rows
+        at tick 0, the rest at tick 6, so a page grant or a new row lands
+        between replays) and hold every tick's emitted tokens, then the
+        final logits, tick state and caches, bitwise equal."""
+        import contextlib
+        torch = self.torch
+        from paddle_tpu_torch.inference import eager_ticks
+        B = prompt.shape[0]
+        runs = {}
+        for name, sess in zip(("eager", "graphed"), pair):
+            tick = sess.spec_step if sess.spec_k else sess.step
+            out = []
+            with (eager_ticks() if name == "eager"
+                  else contextlib.nullcontext()):
+                for t in range(ticks):
+                    if t in (0, 6):
+                        rows = slice(0, B // 2) if t == 0 else slice(B // 2, B)
+                        sess.admit(prompt[rows], **{
+                            k: v[rows] for k, v in lanes.items()})
+                    out.append(tick())
+            torch.cuda.synchronize()
+            runs[name] = out
+        eager, graphed = pair
+        kind = "spec" if graphed.spec_k else "plain"
+        graph = graphed._graphs.get(kind)
+        if graph is None or not graph.captured or eager._graphs:
+            raise AssertionError(f"{tag}: the graphed session captured no "
+                                 "tick, or the eager one did")
+        bad = self._state_diff(eager, graphed)
+        same = runs["eager"] == runs["graphed"]
+        toks = sum(len(v) if isinstance(v, list) else 1
+                   for em in runs["graphed"] for v in em.values())
+        log("[graph] " + json.dumps(dict(
+            case=tag, batch=B, prompt=int(prompt.shape[1]), ticks=ticks,
+            tokens=toks, streams_equal=same, state_and_caches_equal=not bad,
+            differing=bad)))
+        if not same or bad:
+            raise AssertionError(f"{tag}: graphed ticks differ from eager "
+                                 f"ones (streams equal {same}, differing "
+                                 f"state {bad})")
+
+    def _graph_tick_profile(self, tag, sess, prompt, graphed):
+        """16 ticks of ``sess`` with B rows admitted and 2 ticks run
+        first: the wall unprofiled; for a graphed session then 16 replays
+        of its graph alone between CUDA events (the graphed tick's device
+        time, whether or not the profiler sees a graph's kernels); then 16
+        ticks under torch.profiler: device busy time, idle share against
+        the unprofiled wall, the host-to-device and device-to-host copies.
+        The profiler can lose a few records at the edges of its window, so
+        a graphed session's 16 ticks run inside a ``record_function``
+        range with two ticks on each side, and only the device records
+        that start inside the range count (device activity alone for the
+        eager session: reading its host ops would take half a minute)."""
+        import contextlib
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile, record_function
+        from paddle_tpu_torch.inference import eager_ticks
+        tick = sess.spec_step if sess.spec_k else sess.step
+        window = "graph_phase_16_ticks"
+        with (contextlib.nullcontext() if graphed else eager_ticks()):
+            slots = sess.admit(prompt)
+            for _ in range(2):
+                tick()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(16):
+                tick()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            replay_ms = None
+            if graphed:
+                g = sess._graphs["spec" if sess.spec_k else "plain"]._graph
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(16):
+                    g.replay()
+                end.record()
+                torch.cuda.synchronize()
+                replay_ms = start.elapsed_time(end)
+            acts = [ProfilerActivity.CUDA] + (
+                [ProfilerActivity.CPU] if graphed else [])
+            with profile(activities=acts) as prof:
+                pad = 2 if graphed else 0
+                for _ in range(pad):
+                    tick()
+                torch.cuda.synchronize()
+                with record_function(window):
+                    for _ in range(16):
+                        tick()
+                    torch.cuda.synchronize()
+                for _ in range(pad):
+                    tick()
+                torch.cuda.synchronize()
+        for s in slots:
+            sess.evict(s)
+        cuda = torch.autograd.DeviceType.CUDA
+        events = prof.events()
+        dev = [e for e in events
+               if e.device_type == cuda and e.name != window]
+        if graphed:
+            rng = next(e.time_range for e in events if e.name == window
+                       and e.device_type != cuda)
+            dev = [e for e in dev
+                   if rng.start <= e.time_range.start <= rng.end]
+        by_name: dict = {}
+        for e in dev:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        busy_ms = sum(ms for ms, _ in by_name.values())
+        copies = {d: sum(n for k, (_, n) in by_name.items()
+                         if k.startswith(f"Memcpy {d}"))
+                  for d in ("HtoD", "DtoH")}
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+        line = dict(
+            region=f"{tag}, 16 ticks, {'graphed' if graphed else 'eager'}",
+            batch=len(slots), prompt=int(prompt.shape[1]),
+            wall_ms=round(wall_ms, 3),
+            device_busy_ms_profiler=round(busy_ms, 3),
+            device_idle_share=round(1 - busy_ms / wall_ms, 4),
+            replay_device_ms_events=round(replay_ms, 3)
+            if replay_ms is not None else None,
+            h2d_copies=copies["HtoD"], d2h_copies=copies["DtoH"],
+            top=[dict(name=k[:60], ms=round(ms, 3), calls=n)
+                 for k, (ms, n) in top])
+        log("[graph] " + json.dumps(line))
+        if graphed and (copies["HtoD"] or copies["DtoH"] != 16):
+            raise AssertionError(f"{tag}: 16 graphed ticks made "
+                                 f"{copies['HtoD']} host-to-device and "
+                                 f"{copies['DtoH']} device-to-host copies "
+                                 "(want 0 and 16)")
+        return line
+
+    def _graph_generate(self, cfg, params, prompt, N=32):
+        """generate() on B=4 x P=256 (+N), greedy and sampled, graphed
+        against eager: the outputs bitwise equal, decode ms a token each
+        ((t(N) - t(1)) / (N - 1), the capture included)."""
+        import contextlib
+        torch = self.torch
+        from paddle_tpu_torch.inference import eager_ticks
+        from paddle_tpu_torch.models import gpt
+        B, P = prompt.shape
+        for tag, kw in (("greedy", {}),
+                        ("sampled", dict(temperature=0.8, top_k=50, seed=0))):
+            res = {}
+            for name in ("eager", "graphed"):
+                with (eager_ticks() if name == "eager"
+                      else contextlib.nullcontext()):
+                    gpt.generate(params, cfg, prompt[:2, :16], 3,
+                                 device=self.dev, **kw)
+                    t = []
+                    for n in (1, N):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        out = gpt.generate(params, cfg, prompt, n,
+                                           device=self.dev, **kw)
+                        torch.cuda.synchronize()
+                        t.append(time.perf_counter() - t0)
+                res[name] = (out, (t[1] - t[0]) / (N - 1) * 1e3)
+            same = torch.equal(res["eager"][0], res["graphed"][0])
+            log("[graph] " + json.dumps(dict(
+                path=f"generate {tag}", batch=B, prompt=P, new_tokens=N, **kw,
+                decode_ms_per_token_eager=round(res["eager"][1], 3),
+                decode_ms_per_token_graphed=round(res["graphed"][1], 3),
+                outputs_equal=same)))
+            if not same:
+                raise AssertionError(f"generate {tag}: graphed output "
+                                     "differs from eager")
+
+    def phase_graph(self):
+        """The serving steps as captured CUDA graphs at full gpt3_1p3b
+        width (see the module doc)."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.quantization import quantize_gpt_params
+        cfg, params = self._model()
+        qcfg = gpt.gpt3_1p3b(weight_quant="int8", kv_cache_dtype="int8")
+        qp = quantize_gpt_params(params, qcfg, 8)
+        d4, dq4 = (gpt.early_exit_draft(params, cfg, 4),
+                   gpt.early_exit_draft(qp, qcfg, 4))
+        prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                   (4, 256))
+        lanes = dict(temperatures=np.array([0.8, 1.0, 0.0, 0.7]),
+                     seeds=np.array([11, 12, 13, 14]))
+        samp = dict(temperature=0.8, top_k=50)
+        cases = [
+            ("plain greedy dense bf16", params, cfg, {}),
+            ("plain sampled paged bf16", params, cfg,
+             dict(kv_paged=True, **samp)),
+            ("plain greedy paged w8kv8", qp, qcfg, dict(kv_paged=True)),
+            ("plain sampled dense w8kv8", qp, qcfg, samp),
+            ("spec k=4 early-exit greedy dense bf16", params, cfg,
+             dict(spec_decode=4)),
+            ("spec k=4 separate draft stochastic paged bf16", params, cfg,
+             dict(spec_decode=4, spec_draft=d4, kv_paged=True, **samp)),
+            ("spec k=4 early-exit stochastic paged w8kv8", qp, qcfg,
+             dict(spec_decode=4, kv_paged=True, **samp)),
+            ("spec k=4 separate draft greedy dense w8kv8", qp, qcfg,
+             dict(spec_decode=4, spec_draft=dq4)),
+        ]
+        self._zero_counts()
+        for tag, p, c, kw in cases:
+            pair = self._graph_pair(p, c, **kw)
+            self._graph_case(tag, pair, prompt,
+                             lanes if pair[1].spec_sample else {})
+            del pair
+            torch.cuda.empty_cache()
+        self._read_counts("graph", (
+            "decode_attention", "decode_attention_q8",
+            "decode_attention_paged", "decode_attention_paged_q8",
+            "quant_matmul"))
+        self._graph_generate(cfg, params, prompt)
+        # 16 ticks, eager against graphed in this call
+        for tag, p, c, kw in (("plain bf16", params, cfg, {}),
+                              ("plain w8kv8", qp, qcfg, {}),
+                              ("spec k=4 early-exit bf16", params, cfg,
+                               dict(spec_decode=4))):
+            eager, graphed = self._graph_pair(p, c, max_len=640, **kw)
+            self._graph_tick_profile(tag, eager, prompt, False)
+            self._graph_tick_profile(tag, graphed, prompt, True)
+            del eager, graphed
+            torch.cuda.empty_cache()
+        del qp, d4, dq4
+        torch.cuda.empty_cache()
 
 
 def gpu_line() -> str:

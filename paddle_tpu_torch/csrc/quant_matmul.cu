@@ -537,10 +537,16 @@ cudaError_t launch_qmm_tile(const void* x, const int8_t* w,
                     CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != cudaSuccess) return err;
   constexpr size_t smem = qmm_smem_bytes<BITS, BN>();
-  err = cudaFuncSetAttribute(qmm_wgmma_kernel<BITS, BN>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
+  // attributes set once a template instance, on the first (eager) launch:
+  // a launch captured into a CUDA graph then makes no other CUDA call
+  static bool ready = false;
+  if (!ready) {
+    err = cudaFuncSetAttribute(qmm_wgmma_kernel<BITS, BN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
   dim3 grid((N + BN - 1) / BN, (M + BLOCK_ROWS - 1) / BLOCK_ROWS);
   qmm_wgmma_kernel<BITS, BN><<<grid, THREADS, smem, s>>>(mx, mw, step, out,
                                                          M, K, N);

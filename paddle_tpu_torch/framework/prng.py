@@ -9,25 +9,33 @@ is the XOR of the two output words. A draw's element depends only on its
 flat index, so ``offset=`` draws a slice of a larger draw: the elements
 at flat indices ``[offset, offset + prod(shape))``.
 
-A key is a pair of Python ints ``(k0, k1)``, each a uint32 value, so
-``split`` and ``fold_in`` run on the host and launch nothing. Only
-``bits``, ``uniform`` and ``categorical`` over a tensor shape run on a
-device; there threefry is a chain of stock integer ops on int64 tensors
-holding uint32 values (torch's uint32 has no arithmetic on the CPU or
-CUDA), about 150 elementwise launches for one draw. ``>>`` stays logical
-because every value is kept in [0, 2**32).
+A host key is a pair of Python ints ``(k0, k1)``, each a uint32 value,
+so ``split`` and ``fold_in`` of a host key run on the host and launch
+nothing. ``bits``, ``uniform`` and ``categorical`` over a tensor shape run
+on a device; there threefry is a chain of stock integer ops on int64
+tensors holding uint32 values (torch's uint32 has no arithmetic on the CPU
+or CUDA), about 150 elementwise launches for one draw. ``>>`` stays
+logical because every value is kept in [0, 2**32).
 
 Keys on the device: a tensor key is an int64 tensor ``[..., 2]`` of
-uint32 words, one key per leading index. :func:`fold_in_rows` folds a
-tensor of data into such keys (or into a host key), and
-:func:`uniform_rows` / :func:`categorical_rows` draw with one key per
-leading row, each row equal to ``jax.vmap`` of the one-key call: the
-counters run 0.. within every row. One threefry over all rows draws for
-all of them, so a batch of keys costs what one key costs.
+uint32 words, one key per leading index. Every one-key call also takes a
+tensor key ``[2]`` and then reads no word of it on the host: ``split``
+returns the ``[num, 2]`` tensor of subkeys, and ``bits``/``uniform``/
+``categorical`` draw over the whole shape from it, bit for bit the draw of
+the host pair holding the same words. That is the form a captured CUDA
+graph needs: a host pair's words would be baked into the graph as
+constants, and every replay would draw the same numbers.
+:func:`fold_in_rows` folds a tensor of data (or a Python int) into tensor
+keys (or into a host key), and :func:`uniform_rows` /
+:func:`categorical_rows` draw with one key per leading row, each row equal
+to ``jax.vmap`` of the one-key call: the counters run 0.. within every
+row. One threefry over all rows draws for all of them, so a batch of keys
+costs what one key costs.
 """
 from __future__ import annotations
 
 import math
+import numbers
 
 import numpy as np
 import torch
@@ -86,22 +94,38 @@ def fold_in(key, data) -> tuple[int, int]:
     return threefry2x32(key, 0, d)
 
 
-def split(key, num: int = 2) -> list[tuple[int, int]]:
+def split(key, num: int = 2):
     """``jax.random.split`` (partitionable form): key i is threefry of
-    ``key`` over the counter ``(i >> 32, i & 0xffffffff)``."""
-    return [threefry2x32(key, i >> 32, i & MASK) for i in range(int(num))]
+    ``key`` over the counter ``(i >> 32, i & 0xffffffff)``. A host pair
+    gives a list of host pairs; a tensor key ``[..., 2]`` gives the int64
+    tensor ``[..., num, 2]`` on its device, computed there."""
+    if not torch.is_tensor(key):
+        return [threefry2x32(key, i >> 32, i & MASK)
+                for i in range(int(num))]
+    i = torch.arange(int(num), dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[..., None, :], i >> 32, i & MASK)
+    return torch.stack([y0, y1], dim=-1)
 
 
 def fold_in_rows(keys, data) -> torch.Tensor:
     """``jax.vmap(jax.random.fold_in)`` over tensors: ``keys`` a tensor key
     ``[..., 2]`` or a host pair, ``data`` an integer tensor broadcast
-    against the keys' leading shape. Data wraps to uint32 as jax's
-    conversion of an int32 array does (-1 folds in 0xffffffff). Returns
-    int64 keys ``[..., 2]`` on data's device."""
-    d = torch.as_tensor(data).long() & MASK
+    against the keys' leading shape, or a Python int folded into every
+    tensor key (no tensor is made of it, so nothing is copied to the
+    device). Data wraps to uint32 as jax's conversion of an int32 array
+    does (-1 folds in 0xffffffff). Returns int64 keys ``[..., 2]`` on
+    data's device (an int's: the keys')."""
+    if isinstance(data, numbers.Integral):
+        if not torch.is_tensor(keys):
+            raise TypeError("fold_in_rows of a host key needs tensor data "
+                            "(fold_in folds an int into a host key)")
+        d, dev = int(data) & MASK, keys.device
+    else:
+        d = torch.as_tensor(data).long() & MASK
+        dev = d.device
     y0, y1 = threefry2x32(keys, 0, d)
-    y0, y1 = torch.broadcast_tensors(torch.as_tensor(y0, device=d.device),
-                                     torch.as_tensor(y1, device=d.device))
+    y0, y1 = torch.broadcast_tensors(torch.as_tensor(y0, device=dev),
+                                     torch.as_tensor(y1, device=dev))
     return torch.stack([y0, y1], dim=-1)
 
 
@@ -184,7 +208,8 @@ def _bits_host(key) -> int:
 
 def bits(key, shape=(), device=None, offset=0) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)``: a torch.uint32 tensor on
-    ``device`` (default the CUDA card); ``offset``: see the module doc."""
+    ``device`` (default the CUDA card); ``key``: a host pair or a tensor
+    key ``[2]`` on that device; ``offset``: see the module doc."""
     return _bits64(key, shape, resolve_device(device), offset).to(
         torch.uint32)
 
@@ -194,7 +219,7 @@ def uniform(key, shape=(), minval=0.0, maxval=1.0, device=None,
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: the
     top 23 bits of each draw as the mantissa of a float in [1, 2), minus
     1, scaled and shifted, then floored at ``minval``; on ``device``
-    (default the CUDA card).
+    (default the CUDA card), from a host pair or a tensor key ``[2]``.
 
     XLA contracts the scale-and-shift into one fused multiply-add; here
     it is formed in float64 (the product of two float32 values is exact
@@ -325,8 +350,9 @@ def normal(key, shape=(), dtype=torch.float32, device=None,
 def categorical(key, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """``jax.random.categorical(key, logits, axis)``: the argmax of
     ``logits`` plus gumbel noise ``-log(-log(u))``, u uniform over
-    [tiny, 1) in float32, drawn over the logits' whole shape. Returns
-    int64 indices with ``axis`` removed."""
+    [tiny, 1) in float32, drawn over the logits' whole shape from a host
+    pair or a tensor key ``[2]`` on the logits' device. Returns int64
+    indices with ``axis`` removed."""
     if logits.dtype != torch.float32:
         raise ValueError(f"categorical draws float32 gumbel noise; got "
                          f"{logits.dtype} logits")

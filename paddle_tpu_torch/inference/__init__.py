@@ -1,4 +1,4 @@
 """Slot-based generation sessions of the port."""
-from .generation import GenerationSession
+from .generation import GenerationSession, eager_ticks
 
-__all__ = ["GenerationSession"]
+__all__ = ["GenerationSession", "eager_ticks"]

@@ -12,10 +12,20 @@ while other rows keep decoding. Positions are per row, and the decode
 attention masks per row, so a row's tokens equal what a solo
 ``generate()`` of its prompt produces.
 
-Where the reference ran one compiled program per tick, the port runs
-eager PyTorch: a decode tick is one ``decode_one_token`` over every slot
-(dead rows write at their dump position, never read), and ``fused_tick``
-is the chunk-prefill half followed by the decode half.
+Where the reference ran one compiled program per tick, the port
+replays one captured CUDA graph per tick shape on the card
+(``framework.cuda_graph``): a decode tick is one ``decode_one_token``
+over every slot (dead rows write at their dump position, never read),
+and ``fused_tick`` is the chunk-prefill half, run eagerly (its widths
+vary), followed by the decode half. The tick's state lives in device
+tensors whose storage never changes (positions, active flags, last
+logits, the session's threefry key, the dump positions, the page tables,
+the stochastic lane), so the device body of a tick (``_decode_body``,
+``_spec_body``) reads and writes only that storage and the caches; the
+host reads the emitted tokens (and a spec tick's counts and flags) once
+after it, and copies host state in only when it changed (an admission, a
+page grant, a new dump position). :func:`eager_ticks` runs the same
+bodies op by op (the CPU always does).
 
 Quantized serving (``cfg.weight_quant="int8"/"int4"`` with params from
 ``quantization.quantize_gpt_params``, and/or ``cfg.kv_cache_dtype="int8"``
@@ -66,6 +76,7 @@ import torch
 
 from ..device import resolve_device
 from ..framework import prng
+from ..framework.cuda_graph import TickGraph, eager_ticks, graphed
 from ..models.gpt import (SPEC_LANE_DRAFT, GPTConfig, _kv_index, _wq_bits,
                           check_draft_compat, check_params_device,
                           check_prefill_mode, decode_one_token,
@@ -80,6 +91,8 @@ from ..quantization.gpt_quant import kv_cache_quantized
 from ..serving.prefix_cache import PageSpan, span_concat
 
 _SESSION_SEQ = itertools.count()
+
+__all__ = ["GenerationSession", "eager_ticks"]
 
 
 def _leaves(cache):
@@ -193,9 +206,10 @@ class GenerationSession:
                                   device=dev)
         self._logits = torch.zeros((self.max_slots, cfg.vocab_size),
                                    dtype=torch.float32, device=dev)
-        # one threefry key for the session, split once a decode tick (a
-        # host pair: splitting launches nothing)
-        self._key = prng.PRNGKey(int(seed))
+        # one threefry key for the session, split once a sampled decode
+        # tick, on the device (a tensor key, updated in place)
+        self._key = torch.tensor(prng.PRNGKey(int(seed)), dtype=torch.int64,
+                                 device=dev)
         self._seed_base = int(seed)
         if self.spec_sample:
             # the stochastic lane's per-row device state: temperature,
@@ -228,6 +242,8 @@ class GenerationSession:
         self._dump_dev = torch.zeros((self.max_slots,), dtype=torch.long,
                                      device=dev)
         self._dump_dirty = False
+        # the captured tick of each kind ("plain", "spec") on the card
+        self._graphs: dict[str, TickGraph] = {}
 
         # ---- paged pool host state ----
         # _ptab mirrors the device page table (re-sent only when dirty);
@@ -595,18 +611,18 @@ class GenerationSession:
         self._telemetry.kv_pages(*self.kv_page_stats(), event=kind, **kw)
 
     def _sync_ptab(self) -> None:
-        """Re-send the page tables to the device when they changed."""
+        """Copy the page tables into their device storage when they
+        changed."""
         if self._ptab_dirty:
-            self._ptab_dev = torch.as_tensor(self._ptab, device=self.device)
+            self._ptab_dev.copy_(torch.from_numpy(self._ptab))
             self._ptab_dirty = False
 
-    def _ptab_of(self, rows=None):
-        """The device page tables of ``rows`` (all slots when None); None
-        on a dense session."""
+    def _ptab_of(self, rows):
+        """The device page tables of ``rows``; None on a dense session."""
         if not self.kv_paged:
             return None
         self._sync_ptab()
-        return self._ptab_dev if rows is None else self._ptab_dev[rows]
+        return self._ptab_dev[rows]
 
     # ------------------------------------------------------- prefix spans
     def copy_prefix_into(self, slot: int, blocks) -> int:
@@ -888,15 +904,55 @@ class GenerationSession:
         return self._process_emitted(self._decode(), was, t0)
 
     @torch.no_grad()
-    def _decode(self) -> np.ndarray:
-        """The decode tick on the device; returns the sampled tokens."""
+    def _tick(self, kind: str, body) -> np.ndarray:
+        """Run one tick body — replaying its captured graph on the card,
+        eagerly on the CPU and inside :func:`eager_ticks` — after copying
+        in the host state that changed, and read its result on the host:
+        the tick's one device-to-host copy."""
         if self._dump_dirty:
-            self._dump_dev = torch.as_tensor(self._dump, device=self.device)
+            self._dump_dev.copy_(torch.from_numpy(self._dump))
             self._dump_dirty = False
+        if self.kv_paged:
+            self._sync_ptab()
+        if graphed(self.device):
+            graph = self._graphs.get(kind)
+            if graph is None:
+                graph = self._graphs[kind] = TickGraph(body, self.device)
+            out = graph()
+        else:
+            out = body()
+        return out.cpu().numpy()
+
+    def _tick_state(self) -> dict[str, torch.Tensor]:
+        """The tensors a tick body reads and writes besides the weights:
+        the tick state and every cache leaf (the draft's too). Allocated
+        once; a captured tick keeps their addresses."""
+        out = {n: getattr(self, n) for n in (
+            "_pos", "_activ", "_logits", "_key", "_dump_dev", "_ptab_dev",
+            "_temp_dev", "_seed_dev", "_last_dev", "_pend_tok", "_pend_val",
+            "_plen") if hasattr(self, n)}
+        for name in ("_kc", "_vc", "_dkc", "_dvc"):
+            cache = getattr(self, name)
+            if cache is not None:
+                for i, t in enumerate(_leaves(cache)):
+                    out[f"{name}{i}"] = t
+        return out
+
+    def _decode(self) -> np.ndarray:
+        """The decode tick; returns the sampled tokens."""
+        return self._tick("plain", self._decode_body)
+
+    def _decode_body(self) -> torch.Tensor:
+        """The decode tick's device body: reads and writes only the tick
+        state's fixed storage and the caches; returns the tokens [B]."""
         # rows at the LOGICAL cache limit freeze like eos rows
         can = self._activ & (self._pos < self.max_len)
         temperature, top_k, top_p = self._sampling
-        self._key, sub = prng.split(self._key)
+        sub = None
+        if temperature != 0.0:
+            key_sub = prng.split(self._key)
+            self._key.copy_(key_sub[0])
+            sub = key_sub[1]
         tok = sample_logits(self._logits, sub, temperature, top_k, top_p)
         tok = torch.where(can, tok, torch.full_like(tok, self.pad_token_id))
         still = can
@@ -908,15 +964,16 @@ class GenerationSession:
         pos_step = torch.where(can, self._pos, self._dump_dev)
         # paged: dead rows' writes go to the scratch page (valid = can),
         # never to a page a live row or the prefix pool shares
-        paged = dict(page_table=self._ptab_of(), valid=can) \
+        paged = dict(page_table=self._ptab_dev, valid=can) \
             if self.kv_paged else {}
         new_logits, _, _ = decode_one_token(self._params, self.cfg, tok,
                                             pos_step, self._kc, self._vc,
                                             **paged)
-        self._pos = torch.where(still, self._pos + 1, self._pos)
-        self._activ = still
-        self._logits = torch.where(still[:, None], new_logits, self._logits)
-        return tok.cpu().numpy()   # device sync: the tick really ran
+        self._pos.copy_(torch.where(still, self._pos + 1, self._pos))
+        self._activ.copy_(still)
+        self._logits.copy_(torch.where(still[:, None], new_logits,
+                                       self._logits))
+        return tok
 
     def _process_emitted(self, toks, was, t0: float) -> dict[int, int]:
         emitted = {}
@@ -989,27 +1046,29 @@ class GenerationSession:
         return (self._draft_params, self._dcfg, _kv_index(self._kc, cut),
                 _kv_index(self._vc, cut))
 
-    @torch.no_grad()
     def _spec_decode(self) -> np.ndarray:
-        """The spec tick on the device. Returns ONE host array [B, k + 1]
-        (the window's emitted tokens, pad where not accepted, then the
-        counts), and on the stochastic lane two more columns: the rows
-        that entered with a pending resample, and those that drew one.
+        """The spec tick. Returns ONE host array [B, k + 1] (the window's
+        emitted tokens, pad where not accepted, then the counts), and on
+        the stochastic lane two more columns: the rows that entered with a
+        pending resample, and those that drew one."""
+        return self._tick("spec", self._spec_body)
+
+    def _spec_body(self) -> torch.Tensor:
+        """The spec tick's device body (greedy, or :meth:`_sspec_body` on
+        the stochastic lane); reads and writes only the tick state's fixed
+        storage and the caches.
 
         The target's cache changes only inside each row's window [pos,
         pos + k): the greedy early-exit draft writes pos .. pos + k - 2 of
         the first layers, which verify then rewrites; dead rows write at
         their dump window (paged: the scratch page)."""
-        if self._dump_dirty:
-            self._dump_dev = torch.as_tensor(self._dump, device=self.device)
-            self._dump_dirty = False
         k, pad = self.spec_k, self.pad_token_id
         can = self._activ & (self._pos < self.max_len)
         pos_step = torch.where(can, self._pos, self._dump_dev)
-        ptab = self._ptab_of()
+        ptab = self._ptab_dev if self.kv_paged else None
         paged = dict(page_table=ptab, valid=can) if self.kv_paged else {}
         if self.spec_sample:
-            return self._sspec_decode(can, pos_step, ptab, paged)
+            return self._sspec_body(can, pos_step, ptab, paged)
         d_params, d_cfg, dkc, dvc = self._draft()
         # window row 0 is the target's own greedy token, the plain tick's
         t1 = torch.where(can, self._logits.argmax(-1),
@@ -1029,17 +1088,18 @@ class GenerationSession:
             props, vlogits, self._pos, can, self.max_len, self.eos_token_id)
         self._advance(can, n_adv, new_logits, last_tok)
         toks = torch.where(accept, props, torch.full_like(props, pad))
-        return torch.cat([toks, counts[:, None]], 1).cpu().numpy()
+        return torch.cat([toks, counts[:, None]], 1)
 
     def _advance(self, can, n_adv, new_logits, last_tok) -> None:
         still = can
         if self.eos_token_id is not None:
             still = can & (last_tok != self.eos_token_id)
-        self._pos = torch.where(can, self._pos + n_adv, self._pos)
-        self._activ = still
-        self._logits = torch.where(can[:, None], new_logits, self._logits)
+        self._pos.copy_(torch.where(can, self._pos + n_adv, self._pos))
+        self._activ.copy_(still)
+        self._logits.copy_(torch.where(can[:, None], new_logits,
+                                       self._logits))
 
-    def _sspec_decode(self, can, pos_step, ptab, paged) -> np.ndarray:
+    def _sspec_body(self, can, pos_step, ptab, paged) -> torch.Tensor:
         """The stochastic tick: the draft samples all k window tokens,
         entering at ``pos - 1`` with the last emitted token (a pending
         resample replaces its first proposal), then one verify and
@@ -1077,16 +1137,18 @@ class GenerationSession:
         props = torch.stack(props, 1)
         vlogits, _, _ = verify_tokens(self._params, self.cfg, props,
                                       pos_step, self._kc, self._vc, **paged)
-        (accept, counts, n_adv, new_logits, new_last, self._pend_tok,
-         self._pend_val) = stochastic_acceptance(
+        (accept, counts, n_adv, new_logits, new_last, pend_tok,
+         pend_val) = stochastic_acceptance(
             props, torch.stack(qs, 1), vlogits, self._logits, temp, seeds,
             self._pos, can, self.max_len, pend_in, self._last_dev, top_k,
             top_p, self.eos_token_id)
         self._advance(can, n_adv, new_logits, new_last)
-        self._last_dev = new_last
+        self._last_dev.copy_(new_last)
+        self._pend_tok.copy_(pend_tok)
+        self._pend_val.copy_(pend_val)
         toks = torch.where(accept, props, torch.full_like(props, pad))
         return torch.cat([toks, counts[:, None], pend_in[:, None].long(),
-                          self._pend_val[:, None].long()], 1).cpu().numpy()
+                          pend_val[:, None].long()], 1)
 
     def _process_spec_emitted(self, out, was, t0: float
                               ) -> dict[int, list[int]]:

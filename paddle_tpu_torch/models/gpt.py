@@ -14,7 +14,9 @@ Eager PyTorch replaces jit, donation and ``lax.scan``: layers run in a
 Python loop, and the KV cache is UPDATED IN PLACE (``cache[l][rows, :,
 positions] = ...``) where the reference rebuilt it with
 dynamic_update_slice under buffer donation — in place keeps one cache
-resident instead of a second [L, B, H, S, hd] copy per step. Training
+resident instead of a second [L, B, H, S, hd] copy per step. On the card
+``generate()``'s decode steps replay one captured CUDA graph
+(``framework.cuda_graph``) where the reference scans them. Training
 maps ``jax.checkpoint`` to ``torch.utils.checkpoint`` and
 ``value_and_grad`` to ``torch.autograd.grad``.
 
@@ -56,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..framework import prng
+from ..framework.cuda_graph import TickGraph, graphed
 from ..ops.kernels.decode_attention import decode_attention, paged_view
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.fused_adamw import (fused_adamw_update, tree_flatten,
@@ -1029,7 +1032,7 @@ def spec_sample_key(seed, position, lane):
     pos = torch.as_tensor(position)
     seed = torch.as_tensor(seed, device=pos.device)
     k = prng.fold_in_rows(prng.fold_in_rows(_SPEC_ROOT, seed), pos)
-    return prng.fold_in_rows(k, torch.as_tensor(lane, device=pos.device))
+    return prng.fold_in_rows(k, lane)
 
 
 def spec_draft_sample(logits, temperature, seeds, positions, top_k=0,
@@ -1086,8 +1089,7 @@ def stochastic_acceptance(props, q_probs, verify_logits, base_logits,
     # one position key per window index serves both lanes
     pkeys = prng.fold_in_rows(prng.fold_in_rows(
         _SPEC_ROOT, torch.as_tensor(seeds, device=dev))[:, None], posw)
-    u = prng.uniform_rows(prng.fold_in_rows(
-        pkeys, torch.tensor(SPEC_LANE_ACCEPT, device=dev)))
+    u = prng.uniform_rows(prng.fold_in_rows(pkeys, SPEC_LANE_ACCEPT))
     # accept iff u < min(1, p/q): a ratio >= 1 always accepts (u < 1), p ==
     # 0 never does; greedy rows degenerate to equality
     take = u < p_tok / torch.clamp_min(q_tok, 1e-30)
@@ -1125,8 +1127,7 @@ def stochastic_acceptance(props, q_probs, verify_logits, base_logits,
     # land here anyway, p keeps the draw honest
     res = torch.where(norm > 0.0, res / torch.clamp_min(norm, 1e-30), p_r)
     y = prng.categorical_rows(prng.fold_in_rows(
-        _take_along(pkeys, jrej),
-        torch.tensor(SPEC_LANE_RESAMPLE, device=dev)), torch.log(res))
+        _take_along(pkeys, jrej), SPEC_LANE_RESAMPLE), torch.log(res))
     pend_tok = torch.where(rejected, y, torch.zeros_like(y))
     return accept, counts, n_adv, new_logits, new_last, pend_tok, rejected
 
@@ -1139,7 +1140,17 @@ def generate(params, cfg: GPTConfig, prompt_tokens, max_new_tokens=32,
     [B, P] ints. Returns [B, P + max_new_tokens] int64 on ``device``.
     The prompt prefills in one batched forward ("full", or "chunked"
     attention tiles; PADDLE_TPU_PREFILL_MODE sets the default), then one
-    decode step per new token."""
+    decode step per new token.
+
+    A step (split the key, sample, decode the token, position + 1) reads
+    and writes only device state: the key (a tensor key), the positions,
+    the logits, the caches and the output columns. On the card the steps
+    replay one captured CUDA graph (``framework.cuda_graph``, the
+    counterpart of the reference's ``lax.scan``; the first step is the
+    warm-up, run eagerly), so nothing is read back until the caller reads
+    the result; inside ``eager_ticks()`` and on the CPU every step runs
+    eagerly. A greedy step draws nothing: its key is never read, so it is
+    not split either."""
     dev = resolve_device(device)
     check_params_device(params, dev)
     mode = check_prefill_mode(
@@ -1154,15 +1165,32 @@ def generate(params, cfg: GPTConfig, prompt_tokens, max_new_tokens=32,
     kc, vc = init_kv_cache(cfg, B, pad_cache_len(P + max_new_tokens,
                                                  cfg.decode_block), dev)
     logits, kc, vc = prefill(params, cfg, prompt, kc, vc, mode=mode)
-    key = prng.PRNGKey(seed)
-    toks = []
-    for i in range(max_new_tokens):
-        key, sub = prng.split(key)
+    key = torch.tensor(prng.PRNGKey(seed), dtype=torch.int64, device=dev)
+    pos = torch.full((B,), P, dtype=torch.int64, device=dev)
+    toks = torch.empty((B, max_new_tokens), dtype=torch.int64, device=dev)
+
+    def draw():
+        sub = None
+        if temperature != 0.0:
+            key_sub = prng.split(key)
+            key.copy_(key_sub[0])
+            sub = key_sub[1]
         tok = sample_logits(logits, sub, temperature, top_k, top_p)
-        toks.append(tok)
-        if i + 1 < max_new_tokens:   # the last token needs no forward
-            logits, kc, vc = decode_one_token(params, cfg, tok, P + i, kc, vc)
-    return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+        toks.index_copy_(1, pos[:1] - P, tok[:, None])
+        return tok
+
+    def step():
+        new_logits, _, _ = decode_one_token(params, cfg, draw(), pos, kc, vc)
+        logits.copy_(new_logits)
+        pos.add_(1)
+        return pos
+
+    # the last token needs no forward
+    tick = TickGraph(step, dev) if graphed(dev) else step
+    for _ in range(max_new_tokens - 1):
+        tick()
+    draw()
+    return torch.cat([prompt, toks], dim=1)
 
 
 # ==========================================================================

@@ -7,5 +7,6 @@ paged), ``fused_adamw``, ``quant_matmul``, ``fused_residual_ln`` and
 wrapper runs the plain version for a tensor on the CPU, and for a CUDA
 tensor launches its kernel (CUDA built from ``paddle_tpu_torch/csrc`` at
 first use by ``_build``; Triton compiled at first launch) or raises.
-``wrapper.launches`` counts kernel launches.
+``wrapper.launches`` counts kernel launches; ``launch_counts`` reads and
+adds them as one vector (a replayed CUDA graph adds its capture's).
 """

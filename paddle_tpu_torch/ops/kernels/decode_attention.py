@@ -28,6 +28,9 @@ each row's keys across a cluster of blocks (:func:`decode_split`,
 :func:`decode_split_q8`) and merges the partial softmaxes in rank order;
 the int8 forms turn the loaded codes into floats in registers and apply
 each key's and value's step once a key.
+
+Each wrapper counts its launches (``fn.launches``) and, by window width
+Q, in ``fn.by_q``.
 """
 from __future__ import annotations
 
@@ -410,6 +413,7 @@ def decode_attention(q, k_cache, v_cache, pos, scale=None, block=128,
     out = torch.empty((B, H, Q, d), dtype=torch.float32, device=q.device)
     _launch(q, k_cache, v_cache, pos, out, scale)
     decode_attention.launches += 1
+    decode_attention.by_q[Q] += 1
     return out
 
 
@@ -430,6 +434,7 @@ def decode_attention_q8(q, k_cache, v_cache, pos, scale=None, block=128):
     out = torch.empty((B, H, Q, d), dtype=torch.float32, device=q.device)
     _launch(q, k_cache, v_cache, pos, out, scale)
     decode_attention_q8.launches += 1
+    decode_attention_q8.by_q[Q] += 1
     return out
 
 
@@ -451,6 +456,7 @@ def decode_attention_paged(q, k_pool, v_pool, pos, page_table, scale=None):
     out = torch.empty((B, H, Q, d), dtype=torch.float32, device=q.device)
     _launch(q, k_pool, v_pool, pos, out, scale, ptab=pt)
     decode_attention_paged.launches += 1
+    decode_attention_paged.by_q[Q] += 1
     return out
 
 
@@ -471,10 +477,15 @@ def decode_attention_paged_q8(q, k_pool, v_pool, pos, page_table,
     out = torch.empty((B, H, Q, d), dtype=torch.float32, device=q.device)
     _launch(q, k_pool, v_pool, pos, out, scale, ptab=pt)
     decode_attention_paged_q8.launches += 1
+    decode_attention_paged_q8.by_q[Q] += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.by_q = dict.fromkeys(range(1, MAX_Q + 1), 0)
 decode_attention_q8.launches = 0
+decode_attention_q8.by_q = dict.fromkeys(range(1, MAX_Q + 1), 0)
 decode_attention_paged.launches = 0
+decode_attention_paged.by_q = dict.fromkeys(range(1, MAX_Q + 1), 0)
 decode_attention_paged_q8.launches = 0
+decode_attention_paged_q8.by_q = dict.fromkeys(range(1, MAX_Q + 1), 0)

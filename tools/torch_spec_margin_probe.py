@@ -55,7 +55,7 @@ def main(argv=None) -> int:
             return attend(q, kc, vc, pos, *a, **kw)
 
         gpt.decode_attention = short
-        _, captured, undo = smoke._spec_instruments()
+        captured, undo = smoke._spec_instruments()
         mk = lambda **kw: GenerationSession(
             params, cfg, max_slots=4, max_prompt_len=256, max_len=448,
             device=smoke.dev, **kw)
