@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,incubate,sampling
     python3 chip_smoke.py --phases build,spec
     python3 chip_smoke.py --phases build,graph
+    python3 chip_smoke.py --phases build,buckets
 
 Phases, each fatal on failure:
 
@@ -42,7 +43,9 @@ Phases, each fatal on failure:
               just after; both serving kernels must have run.
 4. server   — GenerationSession(max_slots=8, max_prompt_len=384,
               max_len=512) behind a ServingEngine replays 12 seeded
-              requests, whole-prompt and with prefill_chunk=128; every
+              requests, whole-prompt and with prefill_chunk=128 (no width
+              buckets: every chunk tick runs at the one width, its graphs
+              captured by prewarm() before the warm-up request); every
               request must end DONE with its token count, and the decode
               kernel must have run.
 5. parity   — gpt3_1p3b(n_layers=2) in f32: the CPU (plain versions) and
@@ -159,8 +162,30 @@ Phases, each fatal on failure:
               ms a token each. 16 plain ticks (bf16 and w8kv8) and 16 spec
               ticks (bf16, k=4) at B=4, eager beside graphed: wall, device
               time (profiler, and 16 bare replays between CUDA events),
-              idle share; 16 graphed ticks make no host-to-device copy and
-              one device-to-host copy each.
+              idle share; 16 graphed ticks make one copy call each (the
+              host's cudaMemcpyAsync calls in the range: the tokens, device
+              to host) and no host-to-device copy.
+
+16. buckets — width buckets and prefill batching at full gpt3_1p3b width
+              (bf16, init_params seed 0, 8 slots x 512 positions): four
+              replays, each on a graphed session after prewarm() (one in
+              the background) beside an identical session under
+              eager_ticks(), streams, tick state and caches bitwise equal:
+              the 12-request replay with prefill_chunk=128,
+              width_buckets=(32, 64), prefill_min_batch=6,
+              prefill_max_defer=4; the same whole-prompt with
+              width_buckets=(64, 128, 256); the shared-prefix trace on a
+              paged session with prefix_cache_blocks=16, width_buckets=(32,
+              64, 128); the w8kv8 paged early-exit spec replay (k=4,
+              prefill_chunk=128, width_buckets=(32, 64)). Per replay: TTFT
+              p50/p99, tokens/s (PR 12's beside them), wall of a tick by
+              kind and width, exact launch counts, the graphs prewarm()
+              captured (the replay captures none) and their pool MiB; then
+              four requests profiled: device time a tick by kind and
+              width, and every tick's host-to-device copies exactly what
+              it owes (a chunk tick its packed batch, any tick the page
+              tables or a decode tick the dump positions when they
+              changed), one device-to-host copy each.
 
 Every other phase runs the session's ticks and generate()'s steps as
 captured graphs too (each session's first tick is the warm-up, run
@@ -192,7 +217,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "generate", "server", "parity", "quant",
           "quant_parity", "paged", "paged_parity", "train", "train_parity",
-          "incubate", "sampling", "spec", "graph")
+          "incubate", "sampling", "spec", "graph", "buckets")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -1612,6 +1637,8 @@ class Smoke:
         for chunk in (0, 128):
             eng = ServingEngine(sess, max_queue=64, prefill_chunk=chunk,
                                 device=self.dev)
+            # one width, no buckets: the chunk tick pads to it
+            eng.prewarm()
             warm = eng.submit(trace[0][0][:64], max_new_tokens=2)
             eng.run()
             if warm.state is not RequestState.DONE:
@@ -1778,6 +1805,7 @@ class Smoke:
         for chunk in chunks:
             eng = ServingEngine(sess, max_queue=64, prefill_chunk=chunk,
                                 device=self.dev)
+            eng.prewarm()       # the tick graphs, before the warm-up request
             warm = eng.submit(trace[0][0][:64], max_new_tokens=2)
             eng.run()
             if warm.state is not RequestState.DONE:
@@ -1925,6 +1953,7 @@ class Smoke:
         eng = ServingEngine(sess, max_queue=64, prefill_chunk=chunk,
                             prefix_cache_blocks=prefix_blocks,
                             device=self.dev)
+        eng.prewarm()           # the tick graphs, before the warm-up request
         # the warm-up prompt holds no full block: nothing enters the pool
         warm = eng.submit(trace[0][0][:64], max_new_tokens=2)
         eng.run()
@@ -2897,6 +2926,7 @@ class Smoke:
         trace = self._server_trace(sess.cfg)
         eng = ServingEngine(sess, max_queue=64, prefill_chunk=128,
                             device=self.dev)
+        eng.prewarm()           # the tick graphs, before the warm-up request
         warm = eng.submit(trace[0][0][:64], max_new_tokens=2)
         eng.run()
         if warm.state is not RequestState.DONE:
@@ -3311,6 +3341,13 @@ class Smoke:
         copies = {d: sum(n for k, (_, n) in by_name.items()
                          if k.startswith(f"Memcpy {d}"))
                   for d in ("HtoD", "DtoH")}
+        # the host's copy calls in the range, on the range's own clock: the
+        # device's records of a tick can be lost at the window's edge
+        calls = None
+        if graphed:
+            calls = sum(1 for e in events if e.device_type != cuda
+                        and e.name in ("cudaMemcpyAsync", "cudaMemcpy")
+                        and rng.start <= e.time_range.start <= rng.end)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
         line = dict(
             region=f"{tag}, 16 ticks, {'graphed' if graphed else 'eager'}",
@@ -3321,14 +3358,16 @@ class Smoke:
             replay_device_ms_events=round(replay_ms, 3)
             if replay_ms is not None else None,
             h2d_copies=copies["HtoD"], d2h_copies=copies["DtoH"],
+            copy_calls=calls,
             top=[dict(name=k[:60], ms=round(ms, 3), calls=n)
                  for k, (ms, n) in top])
         log("[graph] " + json.dumps(line))
-        if graphed and (copies["HtoD"] or copies["DtoH"] != 16):
-            raise AssertionError(f"{tag}: 16 graphed ticks made "
-                                 f"{copies['HtoD']} host-to-device and "
-                                 f"{copies['DtoH']} device-to-host copies "
-                                 "(want 0 and 16)")
+        # 16 copy calls, one a tick (its tokens, device to host), and no
+        # device record of a host-to-device copy
+        if graphed and (copies["HtoD"] or calls != 16):
+            raise AssertionError(f"{tag}: 16 graphed ticks made {calls} copy "
+                                 f"calls and {copies['HtoD']} host-to-device "
+                                 "copies (want 16 and 0)")
         return line
 
     def _graph_generate(self, cfg, params, prompt, N=32):
@@ -3423,6 +3462,291 @@ class Smoke:
             torch.cuda.empty_cache()
         del qp, d4, dq4
         torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ buckets
+    def _tick_spy(self, sess, ticks, label=None):
+        """Wrap the session's tick calls: each appends (kind, width, wall
+        s, host-to-device copies it owes) to ``ticks``; ``label`` opens a
+        profiler range named ``label(i)`` around tick i. A chunk tick owes
+        its packed batch, a decode tick its dump positions when they
+        changed, either the page tables when an admission changed them.
+        Returns the undo."""
+        import contextlib
+        from torch.profiler import record_function
+        kinds = {"step": "decode", "spec_step": "decode",
+                 "fused_tick": "fused", "spec_tick": "spec_fused",
+                 "prefill_chunks": "chunk"}
+        for name, kind in kinds.items():
+            fn = getattr(sess, name)
+
+            def spy(*a, _fn=fn, _kind=kind, **kw):
+                owed = (1 if _kind != "decode" else int(sess._dump_dirty)) \
+                    + int(sess.kv_paged and sess._ptab_dirty)
+                rng = (record_function(label(len(ticks))) if label
+                       else contextlib.nullcontext())
+                t0 = time.perf_counter()
+                with rng:
+                    out = _fn(*a, **kw)
+                ticks.append((_kind, a[1] if a else None,
+                              time.perf_counter() - t0, owed))
+                return out
+            setattr(sess, name, spy)
+        return lambda: [delattr(sess, n) for n in kinds]
+
+    def _bucket_run(self, tag, sess, trace, ekw, graphed, background=False):
+        """One replay of ``trace`` through ServingEngine(**ekw): for the
+        graphed session prewarm() first (timed; in a thread with
+        ``background``), then a warm-up request, then the trace submitted
+        at once, drained, with the counters zeroed just before and read
+        just after (graphed). Returns (streams, line, ticks)."""
+        import contextlib
+        torch = self.torch
+        from paddle_tpu_torch.inference import eager_ticks
+        from paddle_tpu_torch.serving import RequestState, ServingEngine
+        eng = ServingEngine(sess, max_queue=64, device=self.dev, **ekw)
+        line = dict(run=tag, mode="graphed" if graphed else "eager")
+        with (contextlib.nullcontext() if graphed else eager_ticks()):
+            t0 = time.perf_counter()
+            if graphed:
+                out = eng.prewarm(background=background)
+                if not background:
+                    line["prewarm"] = out
+            warm = eng.submit(trace[0][0][:64], max_new_tokens=2)
+            eng.run()
+            torch.cuda.synchronize()
+            if graphed:
+                line["prewarm_s" if not background else
+                     "prewarm_in_background_and_warm_up_s"] = round(
+                         time.perf_counter() - t0, 3)
+            if warm.state is not RequestState.DONE:
+                raise AssertionError(f"{tag}: warm-up request did not finish")
+            sess.reset_metrics()
+            ticks = []
+            undo = self._tick_spy(sess, ticks)
+            if graphed:
+                self._zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reqs = [eng.submit(p, max_new_tokens=m) for p, m in trace]
+            eng.run(deadline=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            undo()
+        for r, (_, m) in zip(reqs, trace):
+            if r.state is not RequestState.DONE or len(r.output) != m:
+                raise AssertionError(f"{tag} {r.request_id}: {r.state} with "
+                                     f"{len(r.output)} of {m} tokens")
+        met = eng.metrics()
+        toks = sum(len(r.output) for r in reqs)
+        by_kind: dict = {}
+        for kind, w, dt, _ in ticks:
+            key = kind if w is None else f"{kind}@{w}"
+            n, s = by_kind.get(key, (0, 0.0))
+            by_kind[key] = (n + 1, s + dt)
+        line.update(
+            requests=len(reqs), new_tokens=toks, wall_s=round(wall, 3),
+            tokens_per_s=round(toks / wall, 1),
+            ttft_ms_p50=met["ttft_ms_p50"], ttft_ms_p99=met["ttft_ms_p99"],
+            decode_ms_per_token_p50=met["decode_ms_per_token_p50"],
+            chunk_ticks=met["prefill_chunks"], decode_ticks=met["decode_ticks"],
+            tick_wall_ms={k: dict(ticks=n, mean=round(s / n * 1e3, 3))
+                          for k, (n, s) in sorted(by_kind.items())})
+        if eng.prefix_cache is not None:
+            line["prefix_hit_tokens"] = sum(r.prefix_hit_tokens for r in reqs)
+        if graphed:
+            line["counts"] = self._read_counts(f"buckets {tag}", ())
+            # prewarm() brought up every graph the replay ran, and no other
+            tick = "spec_fused" if sess.spec_k else "fused"
+            want = {"spec" if sess.spec_k else "plain"} | {
+                (kind, w) for w in eng.width_buckets
+                for kind in ("chunk", tick)}
+            if set(sess._graphs) != want or not all(
+                    g.captured for g in sess._graphs.values()):
+                raise AssertionError(
+                    f"{tag}: graphs {sorted(map(str, sess._graphs))}, "
+                    f"prewarm() should have captured {sorted(map(str, want))}")
+            line["graphs"] = len(sess._graphs)
+            line["graph_pool_mib"] = round(sum(
+                g.pool_bytes for g in sess._graphs.values()) / 2 ** 20, 1)
+            line["graph_pool_mib_by_graph"] = {
+                str(k): round(g.pool_bytes / 2 ** 20, 1)
+                for k, g in sess._graphs.items()}
+        eng.close()
+        while eng.prefix_cache is not None and len(eng.prefix_cache):
+            eng.prefix_cache._evict_one()
+        return [list(r.output) for r in reqs], line, ticks
+
+    def _bucket_profile(self, tag, sess, trace, ekw):
+        """Four requests of ``trace`` through the graphed session under
+        torch.profiler, each tick in a range of its own: per tick kind
+        and width, the ticks, host wall and device time (kernels and
+        copies that start inside the range) a tick, its six largest
+        kernels, and the CUDA copy calls the host made in the range, held
+        exactly to the host-to-device copies the tick owes
+        (:meth:`_tick_spy`) plus the one device-to-host copy of its
+        result."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from paddle_tpu_torch.serving import ServingEngine
+        eng = ServingEngine(sess, max_queue=64, device=self.dev, **ekw)
+        ticks = []
+        label = lambda i: f"bucket_tick_{i}"
+        undo = self._tick_spy(sess, ticks, label)
+        pad = torch.ones((1024,), device=self.dev)
+
+        def padding():
+            # device work on either side of the ticks: the profiler drops
+            # records at the edges of its window
+            for _ in range(8):
+                pad.mul_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            padding()
+            for p, m in trace[:4]:
+                eng.submit(p, max_new_tokens=min(m, 8))
+            eng.run(deadline=300)
+            torch.cuda.synchronize()
+            padding()
+        undo()
+        eng.close()
+        while eng.prefix_cache is not None and len(eng.prefix_cache):
+            eng.prefix_cache._evict_one()
+        import bisect
+        cuda = torch.autograd.DeviceType.CUDA
+        events = prof.events()
+        ranges = {e.name: e.time_range for e in events
+                  if e.device_type != cuda and e.name.startswith(
+                      "bucket_tick_")}
+        dev = sorted(((e.time_range.start, e.time_range.elapsed_us(), e.name)
+                      for e in events if e.device_type == cuda
+                      and not e.name.startswith("bucket_tick_")))
+        # the host's copy calls: on the host's clock, like the ranges (the
+        # device's copy records may fall into a neighbouring tick's range)
+        calls = sorted(e.time_range.start for e in events
+                       if e.device_type != cuda
+                       and e.name in ("cudaMemcpyAsync", "cudaMemcpy"))
+        starts = [d[0] for d in dev]
+        table: dict = {}
+        bad = []
+        for i, (kind, w, _, owed) in enumerate(ticks):
+            rng = ranges.get(label(i))
+            if rng is None:
+                continue        # the profiler lost the range
+            lo = bisect.bisect_left(starts, rng.start)
+            hi = bisect.bisect_right(starts, rng.end)
+            inside = dev[lo:hi]
+            # a tick's copies: those it owes in, one out (the tokens)
+            copies = bisect.bisect_right(calls, rng.end) \
+                - bisect.bisect_left(calls, rng.start)
+            if copies != owed + 1:
+                bad.append((i, kind, w, copies, owed + 1))
+            key = kind if w is None else f"{kind}@{w}"
+            row = table.setdefault(key, dict(ticks=0, wall_ms=0.0,
+                                             device_ms=0.0, h2d=0,
+                                             copy_calls=0, top={}))
+            row["ticks"] += 1
+            row["wall_ms"] += rng.elapsed_us() / 1e3
+            row["device_ms"] += sum(us for _, us, _ in inside) / 1e3
+            row["h2d"] += owed
+            row["copy_calls"] += copies
+            for _, us, n in inside:
+                row["top"][n] = row["top"].get(n, 0.0) + us / 1e3
+        for row in table.values():
+            for k in ("wall_ms", "device_ms"):
+                row[k] = round(row[k] / row["ticks"], 3)
+            # where a tick's device time goes: the six largest kernels
+            row["top"] = [dict(name=n[:60], ms=round(ms / row["ticks"], 3))
+                          for n, ms in sorted(row["top"].items(),
+                                              key=lambda kv: -kv[1])[:6]]
+        log("[buckets] " + json.dumps(dict(
+            profile=tag, ticks_seen=sum(r["ticks"] for r in table.values()),
+            ticks=len(ticks), copy_calls_seen=len(calls),
+            by_tick=dict(sorted(table.items())))))
+        if bad or not calls:
+            raise AssertionError(
+                f"{tag}: ticks whose copy calls differ from the copies in "
+                f"they owe plus one out (tick, kind, width, calls, owed): "
+                f"{bad[:8]}; {len(calls)} copy calls recorded")
+        return table
+
+    def phase_buckets(self):
+        """Width buckets and prefill batching at full gpt3_1p3b width (see
+        the module doc)."""
+        torch = self.torch
+        from paddle_tpu_torch.inference import GenerationSession
+        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.quantization import quantize_gpt_params
+        cfg, params = self._model()
+        L, k, cut = cfg.n_layers, 4, cfg.n_layers // 2
+        trace = self._server_trace(cfg)
+        pr12 = {0: dict(ttft_ms_p50=61.5, tokens_per_s=937.1),
+                128: dict(ttft_ms_p50=145.6, tokens_per_s=662.3)}
+        qcfg = gpt.gpt3_1p3b(weight_quant="int8", kv_cache_dtype="int8")
+        runs = [
+            ("bf16 dense chunk=128 buckets=(32,64) min_batch=6 defer=4",
+             params, cfg, {}, trace,
+             dict(prefill_chunk=128, width_buckets=(32, 64),
+                  prefill_min_batch=6, prefill_max_defer=4), False),
+            ("bf16 dense whole-prompt buckets=(64,128,256)", params, cfg, {},
+             trace, dict(width_buckets=(64, 128, 256)), False),
+            ("bf16 paged shared-prefix reuse buckets=(32,64,128)", params, cfg,
+             dict(kv_paged=True), self._shared_prefix_trace(cfg),
+             dict(prefix_cache_blocks=16, width_buckets=(32, 64, 128)), True),
+            ("w8kv8 paged spec k=4 early-exit chunk=128 buckets=(32,64)",
+             None, qcfg, dict(kv_paged=True, spec_decode=k), trace,
+             dict(prefill_chunk=128, width_buckets=(32, 64)), False),
+        ]
+        summary = []
+        for tag, p, c, skw, tr, ekw, background in runs:
+            if p is None:
+                p = quantize_gpt_params(params, qcfg, 8)
+            pair = [GenerationSession(p, c, max_slots=8, max_prompt_len=384,
+                                      max_len=512, device=self.dev, **skw)
+                    for _ in range(2)]
+            eager_out, eager_line, _ = self._bucket_run(
+                tag, pair[0], tr, ekw, graphed=False)
+            out, line, ticks = self._bucket_run(tag, pair[1], tr, ekw,
+                                                graphed=True,
+                                                background=background)
+            bad = self._state_diff(*pair)
+            line.update(streams_equal=out == eager_out,
+                        state_and_caches_equal=not bad, differing=bad,
+                        eager=dict(tokens_per_s=eager_line["tokens_per_s"],
+                                   ttft_ms_p50=eager_line["ttft_ms_p50"]))
+            if tag.startswith("bf16 dense"):
+                line["pr12_same_trace_without_buckets"] = pr12[
+                    ekw.get("prefill_chunk", 0)]
+            counts = line.pop("counts")
+            log("[buckets] " + json.dumps(line))
+            if out != eager_out or bad:
+                raise AssertionError(f"{tag}: graphed replay differs from "
+                                     f"eager (streams equal "
+                                     f"{out == eager_out}, state {bad})")
+            ticks_n, chunks_n = line["decode_ticks"], line["chunk_ticks"]
+            if "spec" in tag:
+                spec_ticks = sum(1 for t in ticks if t[0] != "chunk")
+                self._expect_counts(tag, counts, {
+                    "decode_attention_paged_q8":
+                        ((k - 1) * cut + L) * spec_ticks,
+                    "quant_matmul": 2 * ((k - 1) * cut + L) * spec_ticks
+                    + 2 * L * chunks_n})
+                self._expect_routes(tag, {
+                    "gemv": 2 * (k - 1) * cut * spec_ticks,
+                    "wgmma": 2 * L * (spec_ticks + chunks_n)})
+            else:
+                self._expect_counts(tag, counts, {
+                    "decode_attention_paged" if skw.get("kv_paged")
+                    else "decode_attention": L * ticks_n})
+            self._bucket_profile(tag, pair[1], tr, ekw)
+            summary.append(dict(run=tag, ttft_ms_p50=line["ttft_ms_p50"],
+                                tokens_per_s=line["tokens_per_s"],
+                                graph_pool_mib=line["graph_pool_mib"]))
+            del pair, p
+            torch.cuda.empty_cache()
+        log("[buckets] " + json.dumps(dict(summary=summary)))
 
 
 def gpu_line() -> str:

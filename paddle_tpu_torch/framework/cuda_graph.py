@@ -2,9 +2,10 @@
 reference's compiled tick (``jax.jit`` of the session's decode and spec
 ticks, ``lax.scan`` over ``generate()``'s steps).
 
-A :class:`TickGraph` holds one tick body: a function of no arguments that
-reads and writes only tensors whose storage never changes (the caller's
-tick state, the caches, the weights) and returns one tensor. On a CUDA
+A :class:`TickGraph` holds one tick body: a function of fixed arguments
+(none, or a width bucket) that reads and writes only tensors whose
+storage never changes (the caller's tick state, the caches, the weights)
+and returns one tensor. On a CUDA
 device its first call runs the body eagerly on a side stream — the
 warm-up ``torch.cuda.graph`` needs (the kernels' libraries load, cuBLAS
 makes its handles), and a real tick: its writes are the tick's own — its
@@ -19,6 +20,9 @@ it through fixed device storage, copied in before the call. A failed
 capture or replay raises; nothing falls back to the eager tick. The
 eager path stays for the CPU and for A/B runs on the card, inside
 :func:`eager_ticks` (the counterpart of ``jax.disable_jit``).
+:meth:`TickGraph.prepare` warms up and captures without a replay, for a
+caller that brings its graphs up before traffic (and saves and restores
+the state the warm-up tick writes).
 
 Freeing a graph is a CUDA call that a capture forbids, so no graph may be
 freed while another is captured. Python's cycle collector could do that
@@ -26,6 +30,13 @@ freed while another is captured. Python's cycle collector could do that
 that is a bound method (a session's tick) is held weakly, so the graph
 makes no cycle with the object that owns it, which then frees the graph
 by reference count, when its owner goes.
+
+Memory: a capture allocates the body's temporaries and its output from
+a graph memory pool, private unless ``pool=`` names one to share
+(``torch.cuda.graph_pool_handle()``). Graphs may share a pool when they
+never run at once and each output is read before the next replay — then
+a later capture may reuse what an earlier graph frees, and the pool
+holds the largest tick's temporaries instead of the sum of all.
 
 Launch counting: a replay calls no kernel wrapper, so the capture records
 the wrappers' counter difference as the graph's launch vector
@@ -72,17 +83,22 @@ class TickGraph:
     itself. On the CPU only the warm-up runs (the body, directly): there
     is nothing to capture."""
 
-    def __init__(self, body, device):
+    def __init__(self, body, device, args=(), pool=None):
         if hasattr(body, "__self__"):
             method = weakref.WeakMethod(body)
-            self._body = lambda: method()()
+            self._body = lambda: method()(*args)
         else:
-            self._body = body
+            self._body = lambda: body(*args)
         self._device = torch.device(device)
         self._warm = False
         self._graph = None
         self._out = None
         self._launches = None
+        # the memory pool the capture allocates from (None: a private one;
+        # see the module doc on sharing) and the bytes the capture added
+        # to the allocator's reserve
+        self._pool = pool
+        self.pool_bytes = 0
 
     @property
     def captured(self) -> bool:
@@ -96,6 +112,13 @@ class TickGraph:
         self._graph.replay()
         launch_counts.add(self._launches)
         return self._out
+
+    def prepare(self) -> None:
+        """Warm up (a real tick) and capture, without a replay."""
+        if not self._warm:
+            self._warm_up()
+        if self._graph is None:
+            self._capture()
 
     def _warm_up(self) -> torch.Tensor:
         if self._device.type != "cuda":
@@ -117,7 +140,9 @@ class TickGraph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, pool=self._pool):
+                # read after the context's empty_cache, before the body
+                reserved = torch.cuda.memory_reserved(self._device)
                 out = self._body()
             self._launches = launch_counts.diff(before,
                                                 launch_counts.snapshot())
@@ -125,4 +150,5 @@ class TickGraph:
             if collecting:
                 gc.enable()
             launch_counts.restore(before)
+        self.pool_bytes = torch.cuda.memory_reserved(self._device) - reserved
         self._graph, self._out = graph, out

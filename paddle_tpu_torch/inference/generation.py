@@ -15,17 +15,24 @@ attention masks per row, so a row's tokens equal what a solo
 Where the reference ran one compiled program per tick, the port
 replays one captured CUDA graph per tick shape on the card
 (``framework.cuda_graph``): a decode tick is one ``decode_one_token``
-over every slot (dead rows write at their dump position, never read),
-and ``fused_tick`` is the chunk-prefill half, run eagerly (its widths
-vary), followed by the decode half. The tick's state lives in device
-tensors whose storage never changes (positions, active flags, last
-logits, the session's threefry key, the dump positions, the page tables,
-the stochastic lane), so the device body of a tick (``_decode_body``,
-``_spec_body``) reads and writes only that storage and the caches; the
-host reads the emitted tokens (and a spec tick's counts and flags) once
-after it, and copies host state in only when it changed (an admission, a
-page grant, a new dump position). :func:`eager_ticks` runs the same
-bodies op by op (the CPU always does).
+over every slot (dead rows write at their dump position, never read);
+a chunk tick (``prefill_chunks``, and the chunk half of ``fused_tick``
+and ``spec_tick``) is one suffix prefill over the whole slot batch at the
+tick's width bucket, admitted rows masked in (the reference's
+``chunk_body``), so each (kind, width) replays one graph. The tick's
+state lives in device tensors whose storage never changes (positions,
+active flags, last logits, the session's threefry key, the dump
+positions, the page tables, the stochastic lane, the chunk batch), so
+the device body of a tick reads and writes only that storage and the
+caches; the host reads the emitted tokens (and a spec tick's counts and
+flags) once after it. A decode tick copies host state in only when it
+changed (an admission, a page grant); a chunk tick copies in ONE packed
+batch: the chunk tokens, lengths, offsets, admit and finalize masks, the
+dump positions, and the finalizing rows' sampling lanes, which the body
+merges with ``torch.where`` (the reference's ``lane_prog``).
+:meth:`prewarm_programs` captures a session's graphs before traffic
+without changing any stream. :func:`eager_ticks` runs the same bodies op
+by op (the CPU always does).
 
 Quantized serving (``cfg.weight_quant="int8"/"int4"`` with params from
 ``quantization.quantize_gpt_params``, and/or ``cfg.kv_cache_dtype="int8"``
@@ -242,8 +249,25 @@ class GenerationSession:
         self._dump_dev = torch.zeros((self.max_slots,), dtype=torch.long,
                                      device=dev)
         self._dump_dirty = False
-        # the captured tick of each kind ("plain", "spec") on the card
-        self._graphs: dict[str, TickGraph] = {}
+        # the chunk batch of a chunk tick, one packed int64 copy: per row
+        # 5 columns (length, offset, admit, finalize, the dump position
+        # after the tick; on the stochastic lane 4 more: the finalizing
+        # row's temperature bits, seed, last token and prompt length),
+        # then the width bucket's tokens. A width-W batch is the first
+        # max_slots * (columns + W) elements of one flat buffer
+        self._chunk_cols = 9 if self.spec_sample else 5
+        n = self.max_slots * (self._chunk_cols + self._phys_len)
+        self._chunk_dev = torch.zeros((n,), dtype=torch.long, device=dev)
+        self._chunk_host = np.zeros((n,), np.int64)
+        # the captured tick of each kind on the card: "plain", "spec", and
+        # ("chunk" | "fused" | "spec_fused", width) per width bucket. They
+        # share one memory pool: ticks never overlap and each output is
+        # read before the next replay, and private pools would hold every
+        # bucket's temporaries at once (2198 MiB for gpt3_1p3b's
+        # whole-prompt session of 8 slots x 512 positions, widths 64-384,
+        # on an H100)
+        self._graphs: dict = {}
+        self._graph_pool = None
 
         # ---- paged pool host state ----
         # _ptab mirrors the device page table (re-sent only when dirty);
@@ -272,7 +296,8 @@ class GenerationSession:
             if cfg.weight_quant:
                 _wq_bits(cfg)    # an unknown mode fails here, explained
             self._quant_stats = record_session_quant(
-                cfg, self._params, (self._kc, self._vc), self.max_slots)
+                self._telemetry.name, cfg, self._params,
+                (self._kc, self._vc), self.max_slots)
         if self.kv_paged:
             self._telemetry.kv_pages(*self.kv_page_stats())
 
@@ -792,48 +817,59 @@ class GenerationSession:
     def prefill_chunks(self, chunks, width: int, arrivals=None,
                        queue_waits=None) -> None:
         """Advance in-progress chunked prefills by ONE chunk each, in one
-        batched suffix prefill over their rows. ``chunks``: list of
-        ``(slot, tokens, offset, finalize)`` — ``tokens`` (1..width ints)
-        land at cache positions [offset, offset + len); ``finalize``
-        marks the prompt's last chunk, after which the row decodes.
+        suffix prefill over the whole slot batch at ``width`` (the
+        engine's width bucket: one captured graph per width), the
+        chunks' rows masked in. ``chunks``: list of ``(slot, tokens,
+        offset, finalize)`` — ``tokens`` (1..width ints) land at cache
+        positions [offset, offset + len); ``finalize`` marks the prompt's
+        last chunk, after which the row decodes.
         ``arrivals``/``queue_waits``: {slot: perf_counter stamp} /
         {slot: seconds} for the TTFT and wait metrics."""
         if not chunks:
             return
         t0 = time.perf_counter()
-        self._run_chunks(chunks, width)
-        self._telemetry.prefill_tick(time.perf_counter() - t0)
+        self._assemble_chunks(chunks, width)
+        self._tick("chunk", self._chunk_body, width)
+        self._telemetry.prefill_tick(time.perf_counter() - t0,
+                                     rows=len(chunks))
         self._finalize_chunks(chunks, arrivals, queue_waits, t0)
 
     def fused_tick(self, chunks, width: int, arrivals=None,
                    queue_waits=None) -> dict[int, int]:
-        """Both halves of a serving tick: every chunk prefill advances one
-        chunk, then every live row decodes one token; rows finalized by
-        the chunk half emit their first token in the SAME tick. Returns
-        the :meth:`step`-style {slot: token} dict."""
+        """Both halves of a serving tick in one body (one graph per
+        width): every chunk prefill advances one chunk, then every live
+        row decodes one token; rows finalized by the chunk half emit
+        their first token in the SAME tick. Returns the :meth:`step`-style
+        {slot: token} dict."""
         if not chunks:
             return self.step()
         t0 = time.perf_counter()
-        self._run_chunks(chunks, width)
+        self._assemble_chunks(chunks, width)
+        toks = self._tick("fused", self._fused_body, width)
         # the chunk half's wall is charged once, to the decode tick
-        self._telemetry.prefill_tick(0.0)
+        self._telemetry.prefill_tick(0.0, rows=len(chunks))
         self._finalize_chunks(chunks, arrivals, queue_waits, t0)
         was = list(self._host_active)
-        return self._process_emitted(self._decode(), was, t0)
+        return self._process_emitted(toks, was, t0)
 
-    @torch.no_grad()
-    def _run_chunks(self, chunks, width: int) -> None:
+    def _assemble_chunks(self, chunks, width: int) -> None:
+        """Check a chunk batch and copy it into the device chunk storage
+        of ``width``: the one host-to-device copy of a chunk tick (the
+        page tables ride apart, when an admission changed them). The
+        dump positions it carries are the host mirror after the tick: a
+        row still mid-prefill dumps at its next chunk's offset, which
+        that chunk rewrites anyway, a finalizing row at 0."""
         if width > self._phys_len:
             raise ValueError(
                 f"chunk width {width} exceeds the physical cache "
                 f"length {self._phys_len} — no window can fit it")
-        n = len(chunks)
-        toks = np.full((n, width), self.pad_token_id, np.int64)
-        lens = np.zeros((n,), np.int64)
-        offs = np.zeros((n,), np.int64)
-        rows = np.zeros((n,), np.int64)
-        fin = np.zeros((n,), bool)
-        for i, (slot, tk, off, fz) in enumerate(chunks):
+        nc = self._chunk_cols
+        n = self.max_slots * (nc + width)
+        batch = self._chunk_host[:n].reshape(self.max_slots, nc + width)
+        batch[:] = 0
+        batch[:, 4] = self._dump
+        batch[:, nc:] = self.pad_token_id
+        for slot, tk, off, fz in chunks:
             tk = np.asarray(tk, np.int64)
             if tk.ndim != 1 or not (0 < tk.shape[0] <= width):
                 raise ValueError(
@@ -847,50 +883,127 @@ class GenerationSession:
                 raise ValueError(
                     f"chunk for slot {slot} ends at {off + tk.shape[0]}, "
                     f"past the cache length ({self.max_len})")
-            toks[i, :tk.shape[0]] = tk
-            lens[i], offs[i], rows[i], fin[i] = tk.shape[0], off, slot, fz
-        dev = self.device
-        lens_d = torch.as_tensor(lens, device=dev)
-        offs_d = torch.as_tensor(offs, device=dev)
-        rows_d = torch.as_tensor(rows, device=dev)
-        toks_d = torch.as_tensor(toks, device=dev)
+            end = off + tk.shape[0]
+            batch[slot, :5] = (tk.shape[0], off, 1, fz, 0 if fz else end)
+            batch[slot, nc:nc + tk.shape[0]] = tk
+            if fz and self.spec_sample:
+                batch[slot, 5:9] = (
+                    np.float32(self._stage_temp[slot]).view(np.int32),
+                    self._stage_seed[slot], tk[-1], end)
+        self._chunk_dev[:n].copy_(torch.from_numpy(self._chunk_host[:n]))
+        self._dump[:] = batch[:, 4]
+        self._dump_dirty = False
+
+    def _chunk_view(self, width: int) -> torch.Tensor:
+        """The device chunk batch of ``width``: [max_slots, meta + W]."""
+        nc = self._chunk_cols
+        return self._chunk_dev[:self.max_slots * (nc + width)].view(
+            self.max_slots, nc + width)
+
+    def _chunk_half(self, width: int) -> None:
+        """The chunk half of a tick (the reference's ``chunk_body``): one
+        suffix prefill over every slot at ``width``, only admitted rows
+        writing their caches (a separate draft shadows it); finalizing
+        rows take their position, logits, activation and sampling lane;
+        every row its dump position. Reads and writes only fixed
+        storage and the caches."""
+        batch = self._chunk_view(width)
+        lens, offs, dump = batch[:, 0], batch[:, 1], batch[:, 4]
+        admit, fin = batch[:, 2] != 0, batch[:, 3] != 0
+        toks = batch[:, self._chunk_cols:]
+        paged = dict(page_table=self._ptab_dev) if self.kv_paged else {}
         logits, _, _ = prefill_suffix(
-            self._params, self.cfg, toks_d, self._kc, self._vc,
-            offsets=offs_d, lengths=lens_d, rows=rows_d,
-            page_table=self._ptab_of(rows_d))
+            self._params, self.cfg, toks, self._kc, self._vc, offsets=offs,
+            lengths=lens, valid=admit, **paged)
         if self._draft_mode:
             # the draft shadows every chunk; a dense prefix copy has no
             # draft side, so the draft stays cold over a reused span (its
             # proposals get worse there, never the output)
-            prefill_suffix(self._draft_params, self._dcfg, toks_d, self._dkc,
-                           self._dvc, offsets=offs_d, lengths=lens_d,
-                           rows=rows_d, page_table=self._ptab_of(rows_d))
-        if fin.any():
-            f = torch.as_tensor(fin, device=dev)
-            self._pos[rows_d[f]] = (offs_d + lens_d)[f]
-            self._activ[rows_d[f]] = True
-            self._logits[rows_d[f]] = logits[f]
+            prefill_suffix(self._draft_params, self._dcfg, toks, self._dkc,
+                           self._dvc, offsets=offs, lengths=lens,
+                           valid=admit, **paged)
+        self._pos.copy_(torch.where(fin, offs + lens, self._pos))
+        self._activ.copy_(self._activ | fin)
+        self._logits.copy_(torch.where(fin[:, None], logits, self._logits))
+        self._dump_dev.copy_(dump)
+        if self.spec_sample:
+            temp = batch[:, 5].to(torch.int32).view(torch.float32)
+            self._temp_dev.copy_(torch.where(fin, temp, self._temp_dev))
+            for dst, col in ((self._seed_dev, 6), (self._last_dev, 7),
+                             (self._plen, 8)):
+                dst.copy_(torch.where(fin, batch[:, col], dst))
+            self._pend_tok.masked_fill_(fin, 0)
+            self._pend_val.copy_(self._pend_val & ~fin)
+
+    def _chunk_body(self, width: int) -> torch.Tensor:
+        """:meth:`prefill_chunks`'s device body; returns the finalize
+        mask (read back only to close the tick)."""
+        self._chunk_half(width)
+        return self._chunk_view(width)[:, 3] != 0
+
+    def _fused_body(self, width: int) -> torch.Tensor:
+        """:meth:`fused_tick`'s device body: the chunk half, then the
+        decode tick over every row (rows still mid-prefill dump at their
+        next chunk's offset, the reference's ``dump_eff``)."""
+        self._chunk_half(width)
+        return self._decode_body()
+
+    def _spec_fused_body(self, width: int) -> torch.Tensor:
+        """:meth:`spec_tick`'s device body: the chunk half, then the spec
+        tick."""
+        self._chunk_half(width)
+        return self._spec_body()
 
     def _finalize_chunks(self, chunks, arrivals, queue_waits,
                          t0: float) -> None:
-        self._lane_merge([(slot, int(np.asarray(tk)[-1]),
-                           off + np.asarray(tk).shape[0])
-                          for slot, tk, off, fz in chunks if fz])
         for slot, tk, off, fz in chunks:
-            n = np.asarray(tk).shape[0]
             if not fz:
-                # an interleaved decode tick's dead-row write must land
-                # where the NEXT chunk rewrites it anyway
-                self._set_dump(slot, off + n)
                 continue
             self._host_active[slot] = True
-            self._host_pos[slot] = int(off + n)
-            self._set_dump(slot, 0)
+            self._host_pos[slot] = int(off + np.asarray(tk).shape[0])
             self._admit_t[slot] = (arrivals or {}).get(slot, t0)
             self._await_first[slot] = True
             self._telemetry.admitted(
                 1, prefill_s=0.0, occupied=sum(self._occupied),
                 queue_wait_s=(queue_waits or {}).get(slot, 0.0))
+
+    def prewarm_programs(self, widths=(), blocks=()) -> dict:
+        """Bring the session's tick graphs up before traffic: the decode
+        (or spec) tick, and for each width bucket the chunk tick and the
+        fused (or, on a spec session, the fused spec) tick. Each warms up
+        and is captured without changing any stream: every tensor of
+        :meth:`_tick_state` is saved before and restored after (a
+        warm-up is a real tick). ``blocks`` names the prefix block sizes
+        the reference compiles copy and read programs for; the port
+        copies spans eagerly, so there is nothing to warm. Off the card
+        (and inside :func:`eager_ticks`) nothing is captured. Returns
+        ``{"programs": graphs prepared, "loaded": 0}`` (no program
+        store)."""
+        kinds = [("spec" if self.spec_k else "plain",)]
+        for w in dict.fromkeys(int(w) for w in widths):
+            if w > self._phys_len:
+                raise ValueError(
+                    f"width bucket {w} exceeds the physical cache length "
+                    f"{self._phys_len}")
+            kinds += [("chunk", w), ("spec_fused" if self.spec_k
+                                     else "fused", w)]
+        if not graphed(self.device):
+            return {"programs": len(kinds), "loaded": 0}
+        bodies = {"plain": self._decode_body, "spec": self._spec_body,
+                  "chunk": self._chunk_body, "fused": self._fused_body,
+                  "spec_fused": self._spec_fused_body}
+        todo = [g for g in (self._graph(kind, bodies[kind], *w)
+                            for kind, *w in kinds) if not g.captured]
+        if todo:
+            with torch.no_grad():
+                saved = {n: t.clone() for n, t in self._tick_state().items()}
+                try:
+                    for graph in todo:
+                        graph.prepare()
+                finally:
+                    for n, t in self._tick_state().items():
+                        t.copy_(saved[n])
+        return {"programs": len(kinds), "loaded": 0}
 
     # ---------------------------------------------------------------- decode
     def any_active(self) -> bool:
@@ -904,24 +1017,34 @@ class GenerationSession:
         return self._process_emitted(self._decode(), was, t0)
 
     @torch.no_grad()
-    def _tick(self, kind: str, body) -> np.ndarray:
+    def _tick(self, kind: str, body, *args) -> np.ndarray:
         """Run one tick body — replaying its captured graph on the card,
         eagerly on the CPU and inside :func:`eager_ticks` — after copying
         in the host state that changed, and read its result on the host:
-        the tick's one device-to-host copy."""
+        the tick's one device-to-host copy. ``args``: a chunk tick's
+        width bucket (one graph each)."""
         if self._dump_dirty:
             self._dump_dev.copy_(torch.from_numpy(self._dump))
             self._dump_dirty = False
         if self.kv_paged:
             self._sync_ptab()
         if graphed(self.device):
-            graph = self._graphs.get(kind)
-            if graph is None:
-                graph = self._graphs[kind] = TickGraph(body, self.device)
-            out = graph()
+            out = self._graph(kind, body, *args)()
         else:
-            out = body()
+            out = body(*args)
         return out.cpu().numpy()
+
+    def _graph(self, kind: str, body, *args) -> TickGraph:
+        """The captured tick of ``kind`` (at a width bucket), made on first
+        use."""
+        key = (kind, *args) if args else kind
+        graph = self._graphs.get(key)
+        if graph is None:
+            if self._graph_pool is None and self.device.type == "cuda":
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph = self._graphs[key] = TickGraph(body, self.device, args,
+                                                  pool=self._graph_pool)
+        return graph
 
     def _tick_state(self) -> dict[str, torch.Tensor]:
         """The tensors a tick body reads and writes besides the weights:
@@ -930,7 +1053,7 @@ class GenerationSession:
         out = {n: getattr(self, n) for n in (
             "_pos", "_activ", "_logits", "_key", "_dump_dev", "_ptab_dev",
             "_temp_dev", "_seed_dev", "_last_dev", "_pend_tok", "_pend_val",
-            "_plen") if hasattr(self, n)}
+            "_plen", "_chunk_dev") if hasattr(self, n)}
         for name in ("_kc", "_vc", "_dkc", "_dvc"):
             cache = getattr(self, name)
             if cache is not None:
@@ -1021,20 +1144,21 @@ class GenerationSession:
 
     def spec_tick(self, chunks, width: int, arrivals=None,
                   queue_waits=None) -> dict[int, list[int]]:
-        """The speculative :meth:`fused_tick`: every chunk prefill advances
-        one chunk, then one spec tick runs over every live row; rows the
-        chunk half finalizes join its window. Returns the
-        :meth:`spec_step` dict."""
+        """The speculative :meth:`fused_tick` (one body, one graph per
+        width): every chunk prefill advances one chunk, then one spec tick
+        runs over every live row; rows the chunk half finalizes join its
+        window. Returns the :meth:`spec_step` dict."""
         self._need_spec("fused_tick")
         if not chunks:
             return self.spec_step()
         t0 = time.perf_counter()
-        self._run_chunks(chunks, width)
+        self._assemble_chunks(chunks, width)
+        out = self._tick("spec_fused", self._spec_fused_body, width)
         # the chunk half's wall is charged once, to the spec tick
-        self._telemetry.prefill_tick(0.0)
+        self._telemetry.prefill_tick(0.0, rows=len(chunks))
         self._finalize_chunks(chunks, arrivals, queue_waits, t0)
         was = list(self._host_active)
-        return self._process_spec_emitted(self._spec_decode(), was, t0)
+        return self._process_spec_emitted(out, was, t0)
 
     def _draft(self):
         """(params, cfg, k cache, v cache) of the draft: the separate
@@ -1197,7 +1321,8 @@ class GenerationSession:
         self._telemetry.tick(time.perf_counter() - t0, total)
         if sampled:
             self._telemetry.spec(proposed=prop, accepted=acc, rows=rows,
-                                 emitted=total, resampled=res)
+                                 emitted=total, resampled=res,
+                                 mode="stochastic")
         else:
             # every live row proposes k - 1 draft tokens; what it emitted
             # past its guaranteed first token was an accepted proposal
@@ -1231,6 +1356,18 @@ class GenerationSession:
     def reset_metrics(self) -> None:
         """Zero the serving accumulators (e.g. after a warm-up wave)."""
         self._telemetry.reset()
+
+    def close(self) -> None:
+        """Retire the session's telemetry gauges (:meth:`metrics` keeps
+        working on the host counters); called when the session is
+        collected, so session churn does not grow the stat registry."""
+        self._telemetry.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
 
     def metrics(self) -> dict:
         """Serving metrics snapshot: TTFT, per-token decode latency and

@@ -730,24 +730,24 @@ def prefill(params, cfg: GPTConfig, tokens, k_cache, v_cache, lengths=None,
 
 
 def _block_prefill_suffix(x, p, cfg: GPTConfig, k_cache, v_cache, starts,
-                          shifts, rows, page_table=None, index=None):
-    """One block over a suffix chunk at per-row cache offsets. x: [n, C, D]
+                          shifts, page_table=None, index=None, valid=None):
+    """One block over a suffix chunk at per-row cache offsets. x: [B, C, D]
     (row r's real tokens sit at window indices [shifts[r], C)); the
-    window [starts[r], starts[r] + C) of cache row rows[r] is written in
-    place, except indices below shifts[r], which keep the resident
-    prefix (a window slid left near the cache end must not clobber it).
-    A scaled-int8 cache merges its codes AND its per-position steps the
-    same way: a resident position keeps the step its codes were written
-    with. Each query attends the WHOLE cache row under a band mask (key j
-    visible iff j <= its absolute position).
+    window [starts[r], starts[r] + C) of cache row r is written in place,
+    except indices below shifts[r], which keep the resident prefix (a
+    window slid left near the cache end must not clobber it), and except
+    rows where ``valid`` ([B] bool) is False, which rewrite their own
+    bytes (the reference's ``_merge_kv`` keeps them, without copying the
+    whole cache). A scaled-int8 cache merges its codes AND its
+    per-position steps the same way: a resident position keeps the step
+    its codes were written with. Each query attends the WHOLE cache row
+    under a band mask (key j visible iff j <= its absolute position).
 
-    With ``page_table`` ([n, nb], the rows' tables) the caches are page
-    pools written at the :func:`page_index` coordinates ``index``, where
-    only window indices at or above the shift write (the dense merge below
-    the shift rewrites resident content with itself, so skipping it leaves
-    the same bytes, and a shared prefix page, always below the offset, is
-    never touched); the band attention reads the gathered whole-row
-    view."""
+    With ``page_table`` ([B, nb]) the caches are page pools written at
+    the :func:`page_index` coordinates ``index`` (its mask holds the shift
+    and ``valid``: masked writes land on the scratch page, and a shared
+    prefix page, always below the offset, is never touched); the band
+    attention reads the gathered whole-row view."""
     h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
     q, k_new, v_new = _split_qkv(h @ p["w_qkv"] + p["b_qkv"], cfg)
     C = x.shape[1]
@@ -758,9 +758,12 @@ def _block_prefill_suffix(x, p, cfg: GPTConfig, k_cache, v_cache, starts,
         k_att = kv_dequant(paged_gather(k_cache, page_table), q.dtype)
         v_att = kv_dequant(paged_gather(v_cache, page_table), q.dtype)
         return _suffix_attend(x, p, cfg, q, k_att, v_att, starts, C)
-    cols = starts[:, None] + ar[None, :]                        # [n, C]
-    keep_new = (ar[None, :] >= shifts[:, None])[:, :, None, None]
-    r = rows[:, None]
+    cols = starts[:, None] + ar[None, :]                        # [B, C]
+    keep_new = ar[None, :] >= shifts[:, None]
+    if valid is not None:
+        keep_new = keep_new & valid[:, None]
+    keep_new = keep_new[:, :, None, None]
+    r = torch.arange(x.shape[0], device=x.device)[:, None]
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
         if isinstance(cache, tuple):
             codes, steps = quantize_rows(new)
@@ -770,12 +773,12 @@ def _block_prefill_suffix(x, p, cfg: GPTConfig, k_cache, v_cache, starts,
             st[r, :, cols] = torch.where(
                 keep_new[..., 0], steps.permute(0, 2, 1), st[r, :, cols])
             continue
-        cur = cache[r, :, cols]                                 # [n, C, H, hd]
+        cur = cache[r, :, cols]                                 # [B, C, H, hd]
         cache[r, :, cols] = torch.where(
             keep_new, new.permute(0, 2, 1, 3).to(cache.dtype), cur)
     # one round trip through the cache storage, as in _block_prefill
-    k_att = kv_dequant(_kv_index(k_cache, rows), q.dtype)
-    v_att = kv_dequant(_kv_index(v_cache, rows), q.dtype)
+    k_att = kv_dequant(k_cache, q.dtype)
+    v_att = kv_dequant(v_cache, q.dtype)
     return _suffix_attend(x, p, cfg, q, k_att, v_att, starts, C)
 
 
@@ -800,29 +803,28 @@ def _suffix_attend(x, p, cfg: GPTConfig, q, k_att, v_att, starts, C):
 
 
 def prefill_suffix(params, cfg: GPTConfig, tokens, k_cache, v_cache,
-                   offsets, lengths=None, rows=None, page_table=None,
-                   valid=None):
+                   offsets, lengths=None, page_table=None, valid=None):
     """Suffix-only prefill: run the forward over a chunk of new prompt
     tokens whose K/V prefix is already resident (chunked prefill, one
-    chunk per serving tick). tokens: [n, C] right-padded; offsets: [n]
-    absolute start positions; lengths: [n] true token counts (None = C);
-    rows: [n] cache rows (None = 0..n-1).
+    chunk per serving tick), over every row of the caches. tokens: [B, C]
+    right-padded; offsets: [B] absolute start positions; lengths: [B]
+    true token counts (None = C); ``valid`` ([B] bool): rows that are
+    False write nothing (dense: they rewrite their own bytes; paged: the
+    scratch page), so a serving tick runs the whole slot batch at fixed
+    shapes and masks the rows it admits.
 
     A chunk whose window [offset, offset + C) would run past the cache
     slides left to start = S - C; its tokens roll right by shift =
     offset - start inside the window and the write keeps the resident
     K/V below shift, so the real tokens land at their absolute
-    positions. ``page_table`` ([n, nb]) and ``valid`` ([n] bool) select
-    the paged pool layout (no ``rows``); a paged row's length is nb * ps.
-    Returns (logits [n, V] f32 at each row's last real position, k_cache,
-    v_cache)."""
+    positions. ``page_table`` ([B, nb]) selects the paged pool layout; a
+    paged row's length is nb * ps. Returns (logits [B, V] f32 at each
+    row's last real position, k_cache, v_cache)."""
     n, C = tokens.shape
     dev = tokens.device
     S = _row_len(k_cache, page_table)
     if C > S:
         raise ValueError(f"chunk width {C} exceeds the cache length {S}")
-    rows = (torch.arange(n, device=dev) if rows is None
-            else torch.as_tensor(rows, device=dev).long())
     offsets = torch.as_tensor(offsets, device=dev).long()
     starts = offsets.clamp(max=S - C)
     shifts = offsets - starts
@@ -833,7 +835,7 @@ def prefill_suffix(params, cfg: GPTConfig, tokens, k_cache, v_cache,
     x = (_take_wte(params, tokens, cfg) + params["wpe"][pos_ids]).to(cfg.dtype)
     index = None
     if page_table is not None:
-        wmask = ar[None, :] >= shifts[:, None]                  # [n, C]
+        wmask = ar[None, :] >= shifts[:, None]                  # [B, C]
         if valid is not None:
             wmask = wmask & valid[:, None]
         index = page_index(starts, C, page_table, kv_data(k_cache).shape[3],
@@ -841,7 +843,7 @@ def prefill_suffix(params, cfg: GPTConfig, tokens, k_cache, v_cache,
     for i, lp in enumerate(layer_params(params)):
         x = _block_prefill_suffix(x, lp, cfg, _kv_index(k_cache, i),
                                   _kv_index(v_cache, i), starts, shifts,
-                                  rows, page_table, index)
+                                  page_table, index, valid)
     x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
     lengths = (torch.full((n,), C, device=dev, dtype=torch.long)
                if lengths is None

@@ -11,7 +11,16 @@ paddle_tpu/serving/engine.py:
   (``prefill_chunk>0``): each :meth:`poll` advances every partial prompt
   by one chunk and decodes every live row (``session.fused_tick``), so a
   long prompt never stalls the decode batch;
-- full-occupancy decode: every poll fills freed slots first;
+- width buckets (``width_buckets``): a tick's chunk batch runs at the
+  smallest bucket that fits its longest piece, one captured graph per
+  bucket, so a short suffix pays a narrow tick; and prefill batching
+  (``prefill_min_batch``, ``prefill_max_defer``): admissions may wait a
+  few ticks so the fixed-cost chunk half serves a fuller cohort;
+- :meth:`prewarm` captures the session's graphs for every bucket before
+  traffic (in the background if asked);
+- full-occupancy decode: every poll fills freed slots first; a starved
+  :meth:`run` (every slot held by work this engine does not own) expires
+  the longest-held foreign slot (``stall_evictions``);
 - speculative sessions (``session.spec_k > 1``): the poll's tick is
   ``spec_tick`` / ``spec_step`` and a row may emit several tokens, cut at
   eos and at the request's budget; ``submit(temperature=, seed=)`` sets a
@@ -24,14 +33,15 @@ paddle_tpu/serving/engine.py:
   request (``need_tokens``); page exhaustion requeues like slot
   exhaustion.
 
-The resilience plane (load shedding, retries, the crash journal), tenant
-metering and tracing belong to later slices and raise
-``NotImplementedError``.
+The resilience plane (load shedding, retries and the requeue of a
+stall-evicted request, the crash journal), tenant metering and request
+tracing belong to later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import heapq
 import os
+import threading
 import time
 
 from ..device import resolve_device
@@ -53,6 +63,22 @@ class QueueFull(RuntimeError):
             "max_queue")
 
 
+class _Prewarm(threading.Thread):
+    """``session.prewarm_programs(**kw)`` on a daemon thread, keeping its
+    result or the exception it raised for the engine's next poll."""
+
+    def __init__(self, session, kw):
+        super().__init__(name="paddle-tpu-prewarm", daemon=True)
+        self.session, self.kw = session, kw
+        self.result = self.error = None
+
+    def run(self):
+        try:
+            self.result = self.session.prewarm_programs(**self.kw)
+        except Exception as e:  # noqa: BLE001 — re-raised by the next poll
+            self.error = e
+
+
 class ServingEngine:
     """Iteration-level request scheduler over a ``GenerationSession``.
 
@@ -70,8 +96,9 @@ class ServingEngine:
     def __init__(self, session, max_queue: int = 64,
                  prefill_chunk: int = 0, clock=time.perf_counter,
                  device=None, prefix_cache_blocks: int = 0,
-                 prefix_promote_after: int = 2, resilience=None,
-                 metering=None):
+                 width_buckets=None, prefix_promote_after: int = 2,
+                 prefill_min_batch: int = 1, prefill_max_defer: int = 4,
+                 resilience=None, metering=None):
         # the reference arms the crash journal through ``resilience`` and
         # tracing / metering also through the environment
         for what, armed, later in (
@@ -82,7 +109,7 @@ class ServingEngine:
                  in ("1", "true", "on"), "tenant-metering"),
                 ("PADDLE_TPU_TRACING=1",
                  os.environ.get("PADDLE_TPU_TRACING", "0") == "1",
-                 "telemetry")):
+                 "request-tracing")):
             if armed:
                 raise NotImplementedError(
                     f"ServingEngine: {what} belongs to the {later} slice of "
@@ -104,6 +131,30 @@ class ServingEngine:
         if self.width < 1:
             raise ValueError(f"prefill chunk width must be >= 1, got "
                              f"{self.width}")
+        # each tick's chunk batch runs at the SMALLEST bucket that fits its
+        # longest piece: one captured graph per bucket, so keep the set
+        # small
+        buckets = {int(b) for b in (width_buckets or ())}
+        bad = [b for b in buckets if not 0 < b <= self.width]
+        if bad:
+            raise ValueError(
+                f"width_buckets {sorted(bad)} invalid: every bucket "
+                f"must be in [1, {self.width}] (the admission width — "
+                "wider programs would never be picked)")
+        buckets.add(self.width)
+        self.width_buckets = tuple(sorted(buckets))
+        # prefill batching: the chunk half of a tick costs the same for 1
+        # or max_slots rows (fixed shapes), so admissions may DEFER their
+        # first chunk until prefill_min_batch partials wait, for at most
+        # prefill_max_defer ticks, and never when the decode batch has
+        # nothing else to do. 1 = every poll runs the chunk half
+        if prefill_min_batch < 1 or prefill_max_defer < 0:
+            raise ValueError(
+                f"need prefill_min_batch >= 1 (got {prefill_min_batch}) "
+                f"and prefill_max_defer >= 0 (got {prefill_max_defer})")
+        self.prefill_min_batch = int(prefill_min_batch)
+        self.prefill_max_defer = int(prefill_max_defer)
+        self._defer_ticks = 0   # polls the oldest pending partial waited
         self.prefix_cache = None
         if prefix_cache_blocks > 0:
             # a paged session's entries are by-reference PageSpans: LRU
@@ -121,6 +172,35 @@ class ServingEngine:
         self._by_slot: dict[int, Request] = {}  # slot -> decoding req
         self._requests: list[Request] = []
         self._closed = False
+        self._prewarm_thread = None
+
+    def prewarm(self, background: bool = False):
+        """Capture the session's tick graphs for every width bucket (the
+        decode or spec tick, and per bucket the chunk tick and the fused
+        one) before traffic, so no request pays a warm-up tick or a
+        capture (``session.prewarm_programs``; no stream changes). The
+        reference warms its chunk programs in chunked mode only; the port
+        warms the buckets in both modes, since a whole-prompt tick runs
+        them too. Returns the session's ``{"programs", "loaded"}`` dict,
+        or with ``background=True`` the thread that captures; the next
+        :meth:`poll` joins it first (no capture overlaps a replay) and
+        raises what it raised."""
+        if self._prewarm_thread is not None:
+            self._join_prewarm()
+        blocks = ((self.session.cfg.decode_block,)
+                  if self.prefix_cache is not None else ())
+        kw = dict(widths=self.width_buckets, blocks=blocks)
+        if not background:
+            return self.session.prewarm_programs(**kw)
+        self._prewarm_thread = _Prewarm(self.session, kw)
+        self._prewarm_thread.start()
+        return self._prewarm_thread
+
+    def _join_prewarm(self) -> None:
+        t, self._prewarm_thread = self._prewarm_thread, None
+        t.join()
+        if t.error is not None:
+            raise RuntimeError("prewarm failed") from t.error
 
     # ------------------------------------------------------------ submit
     def submit(self, tokens, max_new_tokens: int = 32, priority: int = 0,
@@ -221,12 +301,15 @@ class ServingEngine:
 
     def _collect_chunks(self):
         """This tick's chunk batch: every partial prompt advances one
-        chunk; last chunks finalize."""
+        chunk; last chunks finalize. The width is the smallest bucket
+        that fits the longest piece."""
         chunks, arrivals, waits, fins = [], {}, {}, []
+        wmax = 1
         for slot, (req, off) in self._partials.items():
             end = min(off + self.width, req.prompt_len)
             fin = end == req.prompt_len
             chunks.append((slot, req.tokens[off:end], off, fin))
+            wmax = max(wmax, end - off)
             if fin:
                 # TTFT runs in the perf_counter domain
                 arrivals[slot] = req.arrival_perf
@@ -234,7 +317,19 @@ class ServingEngine:
                 fins.append((slot, req))
             else:
                 self._partials[slot][1] = end
-        return chunks, arrivals, waits, fins
+        width = next((b for b in self.width_buckets if b >= wmax),
+                     self.width)
+        return chunks, width, arrivals, waits, fins
+
+    def _absorb_fins(self, fins) -> None:
+        """Finalized prompts start decoding; their full blocks are
+        offered to the prefix pool."""
+        for slot, req in fins:
+            del self._partials[slot]
+            req.state = RequestState.DECODING
+            self._by_slot[slot] = req
+            if self.prefix_cache is not None:
+                self._pool_prompt(req, slot)
 
     def _finish(self, req: Request, now: float,
                 state: RequestState = RequestState.DONE) -> None:
@@ -252,6 +347,8 @@ class ServingEngine:
         "emitted": n}."""
         if self._closed:
             raise RuntimeError("engine is closed")
+        if self._prewarm_thread is not None:
+            self._join_prewarm()
         now = self.clock()
         admitted: list[Request] = []
         finished: list[Request] = []
@@ -284,29 +381,35 @@ class ServingEngine:
         # 2. one chunk for every partial prompt and one decode tick over
         # every live row (a spec tick on a spec session); rows the chunk
         # half finalizes emit in the same tick. The engine only starts a
-        # tick when it owns decodable work (ticks are communal)
+        # tick when it owns decodable work (ticks are communal). The chunk
+        # half may wait for a fuller cohort (prefill_min_batch), at most
+        # prefill_max_defer polls, and never when nothing else would run
         own_active = any(sess.is_active(s) for s in self._by_slot)
-        chunks, arrivals, waits, fins = (
-            self._collect_chunks() if self._partials else ([], {}, {}, []))
+        run_chunks = bool(self._partials) and (
+            len(self._partials) >= self.prefill_min_batch
+            or self._defer_ticks >= self.prefill_max_defer
+            or not own_active or not self._queued)
+        if self._partials and not run_chunks:
+            self._defer_ticks += 1
+        else:
+            self._defer_ticks = 0
+        chunks, width, arrivals, waits, fins = (
+            self._collect_chunks() if run_chunks
+            else ([], self.width, {}, {}, []))
         spec = sess.spec_k > 1
         if chunks and (fins or own_active):
             tick = sess.spec_tick if spec else sess.fused_tick
-            emitted = tick(chunks, self.width, arrivals=arrivals,
+            emitted = tick(chunks, width, arrivals=arrivals,
                            queue_waits=waits)
         elif chunks:
-            sess.prefill_chunks(chunks, self.width, arrivals=arrivals,
+            sess.prefill_chunks(chunks, width, arrivals=arrivals,
                                 queue_waits=waits)
             emitted = {}
         elif own_active:
             emitted = sess.spec_step() if spec else sess.step()
         else:
             emitted = {}
-        for slot, req in fins:
-            del self._partials[slot]
-            req.state = RequestState.DECODING
-            self._by_slot[slot] = req
-            if self.prefix_cache is not None:
-                self._pool_prompt(req, slot)
+        self._absorb_fins(fins)
 
         emitted_n = 0
         if emitted:
@@ -341,13 +444,34 @@ class ServingEngine:
         return {"admitted": admitted, "finished": finished,
                 "emitted": emitted_n}
 
+    def _stall_evict(self) -> bool:
+        """Graceful degradation at the stall limit: expire the
+        longest-held slot this engine does not own, freeing one slot for
+        the queue; counted in ``stall_evictions`` and logged as a
+        ``serving_stall_evict`` event. A direct ``session.admit()`` user's
+        row forfeits its record. (The reference's other engines on the
+        session reclaim a victim of theirs through the requeue of the
+        resilience slice.) Returns False when nothing is evictable."""
+        sess = self.session
+        held = [s for s in range(sess.max_slots)
+                if sess._occupied[s]
+                and s not in self._partials and s not in self._by_slot]
+        if not held:
+            return False
+        victim = min(held, key=lambda s: sess._admit_t[s])
+        sess.evict(victim)
+        self._tm.stall_evicted(victim)
+        return True
+
     def run(self, max_ticks: int | None = None,
             deadline: float | None = None) -> int:
         """Tick until every submitted request is terminal (or
         ``max_ticks``). Returns the tick count. ``deadline`` (seconds of
         wall clock) bounds the drain with a TimeoutError naming the stuck
-        requests. Raises RuntimeError when starved: requests queued but
-        every slot held by work this engine does not own."""
+        requests. When starved (requests queued, every slot held by work
+        this engine does not own) it expires the longest-held foreign
+        slot after ``STALL_LIMIT`` zero-progress polls and serves on; it
+        raises RuntimeError only when that frees nothing."""
         n = stalls = 0
         t_end = None if deadline is None else time.monotonic() + deadline
         while self._queued or self._partials or self._by_slot:
@@ -366,10 +490,14 @@ class ServingEngine:
             else:
                 stalls += 1
                 if stalls >= self.STALL_LIMIT:
+                    if self._stall_evict():
+                        stalls = 0
+                        continue
                     raise RuntimeError(
                         f"engine starved: {self._queued} queued request(s) "
-                        "but no free slots and no engine-owned work for "
-                        f"{stalls} consecutive polls")
+                        "but no free slots, no engine-owned work, and "
+                        f"nothing evictable for {stalls} consecutive polls "
+                        "— serve this queue from a session with capacity")
             if max_ticks is not None and n >= max_ticks:
                 break
         return n
@@ -382,6 +510,8 @@ class ServingEngine:
         produced. The session stays usable."""
         if self._closed:
             return
+        if self._prewarm_thread is not None:
+            self._join_prewarm()
         if drain:
             ticks = self.run(max_ticks=max_ticks, deadline=deadline)
             if self._queued or self._partials or self._by_slot:

@@ -117,13 +117,15 @@ def test_tensor_key_split_and_categorical_equal_host_and_jax(seed):
 @pytest.mark.parametrize("case", list(CASES))
 def test_tick_state_keeps_its_storage_across_a_trace(models, case):
     """Whole and chunked admission, freeze, evict, page grants and frees,
-    prefix copies (the engine's prefix pool), plain or spec ticks: every
-    tick-state tensor and cache leaf keeps its data_ptr."""
+    prefix copies (the engine's prefix pool), plain or spec ticks, chunk
+    ticks at two width buckets: every tick-state tensor and cache leaf
+    (the chunk batch's storage too) keeps its data_ptr."""
     sess = _session(models, **CASES[case])
     ptrs = {n: t.data_ptr() for n, t in sess._tick_state().items()}
     assert "_key" in ptrs and "_dump_dev" in ptrs
     assert ("_ptab_dev" in ptrs) == sess.kv_paged
     assert ("_pend_tok" in ptrs) == sess.spec_sample
+    assert "_chunk_dev" in ptrs
 
     def same(where):
         now = {n: t.data_ptr() for n, t in sess._tick_state().items()}
@@ -144,13 +146,20 @@ def test_tick_state_keeps_its_storage_across_a_trace(models, case):
     trace = [np.concatenate([shared, rng.integers(0, VOCAB, n)])
              for n in (3, 5, 2)]
     eng = ServingEngine(sess, max_queue=8, prefill_chunk=4,
-                        prefix_cache_blocks=8, device="cpu")
+                        width_buckets=(2,), prefix_cache_blocks=8,
+                        device="cpu")
+    widths = []
+    tick = sess.spec_tick if sess.spec_k else sess.fused_tick
+    sess.spec_tick = sess.fused_tick = \
+        lambda chunks, width, **kw: widths.append(width) or tick(
+            chunks, width, **kw)
     reqs = []
     for p in trace:             # one at a time: the pool promotes, then hits
         reqs.append(eng.submit(p, max_new_tokens=6))
         eng.run()
     assert all(len(r.output) == 6 for r in reqs)
     assert eng.metrics()["prefix_cache"]["hits"] > 0
+    assert set(widths) == {2, 4}
     same("chunked admission, prefix copies, page grants and frees")
     eng.close()
 
@@ -203,6 +212,42 @@ def test_tick_body_makes_no_host_read(models, case, monkeypatch):
     np.testing.assert_array_equal(out.numpy(), want)
     for n, t in twin._tick_state().items():
         assert torch.equal(sess._tick_state()[n], t), n
+
+
+@pytest.mark.parametrize("kind", ["chunk", "tick"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_chunk_bodies_make_no_host_read(models, case, kind, monkeypatch):
+    """The chunk tick's body and the fused (or fused spec) tick's body,
+    at a width bucket, under the host-read guard: one row mid-prefill and
+    one finalizing beside two live rows. The tick state and caches equal
+    a twin session's after the same tick through the public call."""
+    monkeypatch.setenv("PADDLE_TPU_DECODE_ATTN", "full")
+    sess, twin = _session(models, **CASES[case]), _session(models,
+                                                           **CASES[case])
+    prompts, lengths = _prompts(seed=6)
+    W = 4
+    for s in (sess, twin):
+        s.admit(prompts[:2], lengths[:2])
+        mid, fin = s.alloc_slot(need_tokens=20), s.alloc_slot(need_tokens=12)
+        if s.spec_sample:
+            s.set_sampling(fin, 0.7, 99)
+        _tick(s)
+    chunks = [(mid, prompts[2, :W], 0, False), (fin, prompts[2, :3], 0, True)]
+    sess._assemble_chunks(chunks, W)
+    if sess.kv_paged:
+        sess._sync_ptab()
+    body = {"chunk": sess._chunk_body, "tick": sess._spec_fused_body
+            if sess.spec_k else sess._fused_body}[kind]
+    with _no_host_reads(sess):
+        body(W)
+    if kind == "chunk":
+        twin.prefill_chunks(chunks, W)
+    else:
+        (twin.spec_tick if twin.spec_k else twin.fused_tick)(chunks, W)
+    for n, t in twin._tick_state().items():
+        assert torch.equal(sess._tick_state()[n], t), n
+    assert twin._activ[fin] and not twin._activ[mid]
+    assert twin._dump_dev[mid] == W and not twin._dump_dirty
 
 
 # ------------------------------------------------- (d) the warm-up tick
