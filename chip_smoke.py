@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,spec
     python3 chip_smoke.py --phases build,graph
     python3 chip_smoke.py --phases build,buckets
+    python3 chip_smoke.py --phases build,resil,fleet
 
 Phases, each fatal on failure:
 
@@ -187,6 +188,40 @@ Phases, each fatal on failure:
               tables or a decode tick the dump positions when they
               changed), one device-to-host copy each.
 
+17. resil   — the serving resilience, metering and tracing planes at full
+              gpt3_1p3b width (bf16, 8 slots x 512 positions), on the
+              12-request replay with prefill_chunk=128, width_buckets=(32,
+              64), prefill_min_batch=6, prefill_max_defer=4, one prewarmed
+              session: plain; under ResiliencePolicy() with no fault; with
+              metering=True and a tenant on every request (the meter's
+              decode tokens equal tokens_emitted); with
+              PADDLE_TPU_TRACING=1; all three at once. Each run's streams,
+              tick sequence (kind and width), polls and captured graphs
+              equal the plain run's; tokens/s and TTFT p50/p99 of each.
+              Then a child process (this script, --resil-child) replays
+              the same trace on the same weights with the crash journal
+              and PADDLE_TPU_CHAOS=kill@tick=N, N half the replay's polls:
+              its return code must be -9; replay_journal on a fresh engine
+              here ends every journaled request DONE, each stream equal
+              to the uninterrupted run's, or parted where the margin rule
+              explains it (_streams_check: at the first differing token
+              the top-two gap is within d, the difference between a
+              decode-written and a prefill-written context, and d within
+              SPEC_D_LIMIT, with the GEMM kernels of both printed).
+18. fleet   — two replicas on one card sharing one set of weights, each
+              with its own session, caches and graph pool: prefix
+              affinity against round-robin on a three-group shared-prefix
+              trace (256-token system prompts, in rounds), hit tokens of
+              each; prefill/decode disaggregation (a paged prefill replica
+              whose handoffs materialize device tensors, a dense decode
+              replica) against a monolithic engine on the 12-request
+              replay: streams (the margin rule as in resil), TTFT,
+              tokens/s, handoff bytes and ms; a replica killed after 4
+              polls and recovered from its journal: no request lost,
+              streams as before. Train also runs remat_policy "dots"
+              beside "full" (bitwise equal, step ms, peak), and generate
+              the scan prefill mode beside full (B=2 x P=64 +16).
+
 Every other phase runs the session's ticks and generate()'s steps as
 captured graphs too (each session's first tick is the warm-up, run
 eagerly; the second captures; later ticks replay). The kernel counters
@@ -217,7 +252,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "generate", "server", "parity", "quant",
           "quant_parity", "paged", "paged_parity", "train", "train_parity",
-          "incubate", "sampling", "spec", "graph", "buckets")
+          "incubate", "sampling", "spec", "graph", "buckets", "resil",
+          "fleet")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -262,6 +298,15 @@ SPEC_E_LIMIT = 0.09
 # that differ by summation-order ulps, which can move a code across a
 # rounding tie by one step
 QUANT_PARITY_TOL = 1e-3
+# the resil phase's engine: the buckets phase's chunk=128 replay (the
+# reference's serving runs use min batch 6, defer 4)
+RESIL_ENGINE = dict(prefill_chunk=128, width_buckets=(32, 64),
+                    prefill_min_batch=6, prefill_max_defer=4)
+# the fleet phase's replicas: chunked prefill with prefix reuse on blocks of
+# decode_block = 128 tokens; a replica dies after this many fleet polls
+FLEET_ENGINE = dict(prefill_chunk=128, width_buckets=(32, 64),
+                    prefix_cache_blocks=16)
+FLEET_KILL_AFTER_POLLS = 4
 # fused bias-dropout-residual LayerNorm against its plain version, relative
 # to max(|plain|, 1): the same f32 math in another summation order, so one
 # bf16 step of the output (2^-7) in bf16 and 1e-5 in f32; one dropout mask
@@ -1550,6 +1595,60 @@ class Smoke:
         self._read_counts("generate", ("flash_attention_fwd",
                                        "decode_attention"))
         self._profile(cfg, params, prompts[0])
+        self._scan_generate(cfg, params)
+
+    def _scan_generate(self, cfg, params, B=2, P=64, N=16):
+        """The scan prefill A/B mode beside full on B x P (+N): prefill ms
+        and logits of both (bf16 tolerance TOL), greedy streams of
+        generate() in each mode equal (or parted where the full path's
+        top-two gap is within the two paths' logits difference, the
+        margin rule of _streams_check), and exact launches: scan runs the
+        decode kernel once a layer a prompt token and a decode step (the
+        last new token takes no forward), full the flash forward once a
+        layer."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.models import gpt
+        L = cfg.n_layers
+        prompt = np.random.default_rng(11).integers(0, cfg.vocab_size, (B, P))
+        tok = torch.as_tensor(prompt, device=self.dev)
+        line, logits = dict(batch=B, prompt=P, new_tokens=N), {}
+        for mode, fn in (("full", gpt.prefill), ("scan", gpt.scan_prefill)):
+            ms = []
+            for _ in range(3):
+                kc, vc = gpt.init_kv_cache(cfg, B, gpt.pad_cache_len(
+                    P + N, cfg.decode_block), device=self.dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits[mode], _, _ = fn(params, cfg, tok, kc, vc)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            line[f"{mode}_prefill_ms"] = round(min(ms[1:]), 3)
+        err = float((logits["full"] - logits["scan"]).abs().max())
+        line.update(prefill_logits_max_abs_err=err, tol=TOL["bf16"],
+                    scan_over_full=round(line["scan_prefill_ms"]
+                                         / line["full_prefill_ms"], 2))
+        outs = {}
+        for mode, want in (
+                ("scan", {"decode_attention": L * (P + N - 1)}),
+                ("full", {"flash_attention_fwd": L,
+                          "decode_attention": L * (N - 1)})):
+            self._zero_counts()
+            outs[mode] = gpt.generate(params, cfg, prompt, N,
+                                      prefill_mode=mode, device=self.dev)
+            torch.cuda.synchronize()
+            counts = self._read_counts(f"generate prefill_mode={mode}",
+                                       tuple(want))
+            self._expect_counts(f"generate prefill_mode={mode}", counts,
+                                want)
+        line["streams"] = self._streams_check(
+            "generate scan", params, cfg, [p for p in prompt],
+            [o[P:].tolist() for o in outs["full"].cpu()],
+            [o[P:].tolist() for o in outs["scan"].cpu()])
+        log("[generate] " + json.dumps(line))
+        if not err <= TOL["bf16"] * max(1.0, float(
+                logits["full"].abs().max())):
+            raise AssertionError(f"scan prefill logits differ by {err}")
 
     def _profile(self, cfg, params, prompt):
         """Where the time of the main path goes: torch.profiler over one
@@ -2365,6 +2464,93 @@ class Smoke:
                                  "after training failed")
         del opt
         self.torch.cuda.empty_cache()
+        self._remat_policies(tokens, labels)
+
+    def _remat_policies(self, tokens, labels, steps=3):
+        """remat_policy "dots" beside "full" on the train phase's batch:
+        each from its own copy of the same weights with fresh moments, a
+        warm-up step, then ``steps`` timed with the counters zeroed just
+        before and read just after (exact launches: the flash forward runs
+        twice a layer under both, dots keeps only the weight products).
+        Losses and updated params must be bitwise equal (the saved
+        products are the values the recompute makes), else within the
+        train_parity tolerances with the difference printed. Prints step
+        ms, tokens/s, the peak and the peak above what was resident before
+        the timed steps."""
+        torch = self.torch
+        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.ops.kernels.fused_adamw import tree_flatten
+        _, base = self._model()
+        B, S = tokens.shape
+        runs = {}
+        for policy in ("full", "dots"):
+            cfg = gpt.gpt3_1p3b(remat=True, fused_adamw=True, xent_chunks=4,
+                                remat_policy=policy)
+            params = {k: ({n: t.clone() for n, t in v.items()}
+                          if isinstance(v, dict) else v.clone())
+                      for k, v in base.items()}
+            opt = gpt.adamw_init(params, dtype=cfg.opt_dtype, device=self.dev)
+            step = gpt.build_train_step(cfg, device=self.dev)
+            params, opt, loss = step(params, opt, tokens, labels)
+            losses = [float(loss)]
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            self._zero_counts()
+            times = []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, loss = step(params, opt, tokens, labels)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+            peak = torch.cuda.max_memory_allocated()
+            counts = self._read_counts(f"train remat_policy={policy}", (
+                "flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv", "fused_adamw"))
+            L = cfg.n_layers
+            self._expect_counts(f"train remat_policy={policy}", counts, {
+                "flash_attention_fwd": 2 * L * steps,
+                "flash_attention_bwd_dq": L * steps,
+                "flash_attention_bwd_dkv": L * steps,
+                "fused_adamw": 16 * steps})
+            step_s = sum(times) / len(times)
+            runs[policy] = dict(
+                losses=losses, params=[t.cpu() for t in tree_flatten(params)],
+                line=dict(remat_policy=policy, batch=B, seq=S,
+                          step_ms=[round(t * 1e3, 3) for t in times],
+                          step_ms_mean=round(step_s * 1e3, 3),
+                          tokens_per_s=round(B * S / step_s, 1),
+                          losses=losses,
+                          max_memory_allocated_gib=round(peak / 2 ** 30, 3),
+                          above_resident_gib=round(
+                              (peak - resident) / 2 ** 30, 3)))
+            del params, opt, step
+            torch.cuda.empty_cache()
+        full, dots = runs["full"], runs["dots"]
+        bitwise = full["losses"] == dots["losses"] and all(
+            torch.equal(a, b) for a, b in zip(full["params"], dots["params"]))
+        loss_err = max(abs(a - b) for a, b in zip(full["losses"],
+                                                   dots["losses"]))
+        param_err = max(float((a.float() - b.float()).abs().max())
+                        for a, b in zip(full["params"], dots["params"]))
+        for policy in ("full", "dots"):
+            log("[train] " + json.dumps(runs[policy]["line"]))
+        log("[train] " + json.dumps(dict(
+            remat_dots_vs_full=dict(bitwise=bitwise, max_loss_err=loss_err,
+                                    max_param_err=param_err),
+            dots_minus_full_step_ms=round(
+                dots["line"]["step_ms_mean"] - full["line"]["step_ms_mean"],
+                3),
+            dots_minus_full_peak_gib=round(
+                dots["line"]["above_resident_gib"]
+                - full["line"]["above_resident_gib"], 3))))
+        # train_parity's tolerances: losses 1e-4, params 2 lr a step
+        if not bitwise and (loss_err > 1e-4
+                            or param_err > 2 * 3e-4 * (steps + 1)):
+            raise AssertionError("remat dots and full disagree: losses "
+                                 f"{loss_err}, params {param_err}")
 
     def phase_train_parity(self):
         torch = self.torch
@@ -3749,6 +3935,458 @@ class Smoke:
         log("[buckets] " + json.dumps(dict(summary=summary)))
 
 
+    # ------------------------------------------------ streams across paths
+    def _flip_finding(self, params, cfg, prompt, agreed):
+        """Why two greedy streams part after ``agreed`` (the tokens both
+        emitted): the next position's logits through a prefill of the
+        prompt and one decode step a token (A, K/V of the generated tokens
+        written by decode steps, as in an uninterrupted run), and through
+        one prefill of prompt + agreed (B, written by a prefill, as in a
+        resume, a replay or a handoff). Returns the top-two gap of A, d =
+        max|A - B|, and the GEMM kernels each path ran."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from paddle_tpu_torch.models import gpt
+        prompt = torch.as_tensor(prompt, device=self.dev).long()[None]
+        agreed = torch.as_tensor(agreed, device=self.dev).long()
+        n = prompt.shape[1] + agreed.shape[0]
+        cache = lambda: gpt.init_kv_cache(cfg, 1, gpt.pad_cache_len(
+            n + 1, cfg.decode_block), device=self.dev)
+        kernels = {}
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            kc, vc = cache()
+            a, _, _ = gpt.prefill(params, cfg, prompt, kc, vc)
+            for i, t in enumerate(agreed.tolist()):
+                a, _, _ = gpt.decode_one_token(
+                    params, cfg, torch.tensor([t], device=self.dev),
+                    prompt.shape[1] + i, kc, vc)
+            torch.cuda.synchronize()
+        kernels["decode_path"] = sorted({e.key[:48] for e in p.key_averages()
+                                         if "gemm" in e.key.lower()
+                                         or "nvjet" in e.key})
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            kc, vc = cache()
+            b, _, _ = gpt.prefill(params, cfg, torch.cat(
+                [prompt, agreed[None]], 1), kc, vc)
+            torch.cuda.synchronize()
+        kernels["prefill_path"] = sorted({e.key[:48] for e in p.key_averages()
+                                          if "gemm" in e.key.lower()
+                                          or "nvjet" in e.key})
+        top = torch.topk(a[0].float(), 2).values
+        return dict(position=int(agreed.shape[0]),
+                    top2_gap=float(top[0] - top[1]),
+                    d=float((a.float() - b.float()).abs().max()),
+                    gemm_kernels=kernels)
+
+    def _streams_check(self, tag, params, cfg, prompts, want, got):
+        """Greedy streams of two serving paths over the same prompts:
+        equal, or each pair parted where a rounding flip explains it (PR
+        11's margin rule): at the first differing position the
+        uninterrupted path's top-two gap is no larger than d, the
+        difference between a decode-written and a prefill-written context
+        (_flip_finding), and d stays within SPEC_D_LIMIT. Anything else
+        fails. Returns a summary with every finding."""
+        findings = []
+        for i, (p, a, b) in enumerate(zip(prompts, want, got)):
+            if a == b:
+                continue
+            if len(a) != len(b):
+                raise AssertionError(f"{tag}: request {i} has {len(b)} "
+                                     f"tokens, the reference {len(a)}")
+            j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+            f = self._flip_finding(params, cfg, p, a[:j])
+            f.update(request=i, tokens=(a[j], b[j]))
+            f["explained"] = f["top2_gap"] <= f["d"] <= SPEC_D_LIMIT
+            findings.append(f)
+        out = dict(equal=len(want) - len(findings), of=len(want),
+                   findings=findings)
+        if not all(f["explained"] for f in findings):
+            raise AssertionError(f"{tag}: streams part without a rounding "
+                                 f"flip to explain it: {json.dumps(out)}")
+        return out
+
+    # ------------------------------------------------------------ resil
+    def _plane_run(self, tag, sess, trace, ekw, tenants=False):
+        """The 12-request replay through ServingEngine(**ekw) on ``sess``
+        (prewarmed, a warm-up request, the counters and the meter reset,
+        then the trace at once, request ids r0..r11, each with a tenant
+        when ``tenants``). Returns (streams, tick kinds, polls, line)."""
+        torch = self.torch
+        from paddle_tpu_torch.serving import RequestState, ServingEngine
+        eng = ServingEngine(sess, max_queue=64, device=self.dev, **ekw)
+        eng.prewarm()
+        warm = eng.submit(trace[0][0][:64], max_new_tokens=2,
+                          request_id="warm")
+        eng.run()
+        if warm.state is not RequestState.DONE:
+            raise AssertionError(f"{tag}: warm-up request did not finish")
+        sess.reset_metrics()
+        if eng.meter is not None:
+            eng.meter.reset()
+        ticks = []
+        undo = self._tick_spy(sess, ticks)
+        self._zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=m, request_id=f"r{i}",
+                           **({"tenant": f"tenant{i % 3}"} if tenants
+                              else {}))
+                for i, (p, m) in enumerate(trace)]
+        polls = eng.run(deadline=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        undo()
+        counts = self._read_counts(f"resil {tag}", ("decode_attention",))
+        for r, (_, m) in zip(reqs, trace):
+            if r.state is not RequestState.DONE or len(r.output) != m:
+                raise AssertionError(f"{tag} {r.request_id}: {r.state} with "
+                                     f"{len(r.output)} of {m} tokens")
+        met = eng.metrics()
+        toks = sum(len(r.output) for r in reqs)
+        line = dict(run=tag, requests=len(reqs), new_tokens=toks,
+                    polls=polls, ticks=len(ticks), wall_s=round(wall, 4),
+                    ms_per_poll=round(wall / polls * 1e3, 3),
+                    tokens_per_s=round(toks / wall, 1),
+                    ttft_ms_p50=met["ttft_ms_p50"],
+                    ttft_ms_p99=met["ttft_ms_p99"],
+                    decode_attention=counts["decode_attention"])
+        if eng.meter is not None:
+            totals = eng.meter.totals()
+            line["meter"] = dict(decode_tokens=totals["decode_tokens"],
+                                 prefill_tokens=totals["prefill_tokens"],
+                                 tokens_emitted=met["tokens_emitted"],
+                                 tenants=len(eng.meter.tenants()))
+            if totals["decode_tokens"] != met["tokens_emitted"]:
+                raise AssertionError(f"{tag}: metered decode tokens "
+                                     f"{totals['decode_tokens']} != "
+                                     f"{met['tokens_emitted']} emitted")
+        eng.close()
+        return ([list(r.output) for r in reqs],
+                [(k, w) for k, w, _, _ in ticks], polls, line)
+
+    def phase_resil(self):
+        """The resilience, metering and tracing planes at full width on
+        the buckets phase's chunk=128 replay (see the module doc)."""
+        torch = self.torch
+        import os
+        import tempfile
+        from paddle_tpu_torch.distributed.ft.chaos import ChaosPlan
+        from paddle_tpu_torch.observability import tracing
+        from paddle_tpu_torch.serving import (RequestJournal, RequestState,
+                                              ResiliencePolicy, ServingEngine,
+                                              replay_journal)
+        cfg, params = self._model()
+        trace = self._server_trace(cfg)
+        ekw = dict(RESIL_ENGINE)
+        sess = self._session(params, cfg, paged=False)
+        base, base_ticks, polls, line = self._plane_run("plain", sess, trace,
+                                                        ekw)
+        graphs = {k: id(g) for k, g in sess._graphs.items()}
+        lines = [line]
+        log("[resil] " + json.dumps(line))
+        # (a) resilience armed, no fault; (c) metering with tenants,
+        # tracing, and all three at once
+        os.environ.pop("PADDLE_TPU_TRACING", None)
+        for tag, kw, traced in (
+                ("resilience", dict(resilience=ResiliencePolicy(
+                    chaos=ChaosPlan())), False),
+                ("metering", dict(metering=True), False),
+                ("tracing", {}, True),
+                ("all_planes", dict(resilience=ResiliencePolicy(
+                    chaos=ChaosPlan()), metering=True), True)):
+            if traced:
+                os.environ["PADDLE_TPU_TRACING"] = "1"
+                tracing.reset()
+            try:
+                out, ticks, n, line = self._plane_run(
+                    tag, sess, trace, dict(ekw, **kw),
+                    tenants="metering" in kw)
+            finally:
+                os.environ.pop("PADDLE_TPU_TRACING", None)
+            if traced:
+                line["spans"] = len(tracing.records())
+                line["live_traces_after_close"] = tracing.live_count()
+                tracing.reset()
+            same = dict(streams=out == base, ticks=ticks == base_ticks,
+                        polls=n == polls,
+                        graphs={k: id(g) for k, g in sess._graphs.items()}
+                        == graphs)
+            line["equal_to_plain"] = same
+            lines.append(line)
+            log("[resil] " + json.dumps(line))
+            if not all(same.values()):
+                raise AssertionError(f"resil {tag}: differs from the plain "
+                                     f"engine: {same}")
+        # (b) a child replays with the journal and dies at poll N (SIGKILL
+        # from the chaos plan); a fresh engine here replays the journal
+        kill_at = polls // 2
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.save(params, os.path.join(tmp, "params.pt"))
+            env = dict(os.environ, PADDLE_TPU_CHAOS=f"kill@tick={kill_at}")
+            t0 = time.perf_counter()
+            child = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--resil-child", tmp], env=env, capture_output=True,
+                text=True, timeout=600)
+            child_s = time.perf_counter() - t0
+            if child.returncode != -9:
+                raise AssertionError(
+                    f"resil crash child exited {child.returncode}, not -9 "
+                    f"(SIGKILL at poll {kill_at}): {child.stderr[-2000:]}")
+            path = os.path.join(tmp, "journal.jsonl")
+            before = RequestJournal.scan(path)
+            eng = ServingEngine(sess, max_queue=64, device=self.dev,
+                                resilience=ResiliencePolicy(
+                                    chaos=ChaosPlan(), journal_path=path),
+                                **ekw)
+            t0 = time.perf_counter()
+            resumed = replay_journal(eng, path)
+            eng.run(deadline=600)
+            torch.cuda.synchronize()
+            replay_s = time.perf_counter() - t0
+            eng.close()
+            after = RequestJournal.scan(path)
+        if any(r.state is not RequestState.DONE for r in resumed) or \
+                set(after) != {f"r{i}" for i in range(len(trace))} or \
+                any(e["state"] != "done" for e in after.values()):
+            raise AssertionError(f"resil replay lost requests: "
+                                 f"{ {k: e['state'] for k, e in after.items()} }")
+        got = [after[f"r{i}"]["out"] for i in range(len(trace))]
+        line = dict(run="crash_replay", kill_at_poll=kill_at, of_polls=polls,
+                    child_returncode=child.returncode,
+                    child_s=round(child_s, 2),
+                    journaled=len(before),
+                    done_before_kill=sum(1 for e in before.values()
+                                         if e["state"] == "done"),
+                    resumed=len(resumed),
+                    resumed_with_tokens=sum(1 for r in resumed
+                                            if r.resumed_len),
+                    replay_s=round(replay_s, 3))
+        line["streams"] = self._streams_check(
+            "resil crash replay", params, cfg, [p for p, _ in trace], base,
+            got)
+        log("[resil] " + json.dumps(line))
+        log("[resil] " + json.dumps(dict(summary=[
+            dict(run=x["run"], tokens_per_s=x["tokens_per_s"],
+                 ttft_ms_p50=x["ttft_ms_p50"], ms_per_poll=x["ms_per_poll"])
+            for x in lines])))
+
+    def resil_child(self, tmp):
+        """The crash victim of phase_resil (a process of its own): the same
+        replay on the same weights with the crash journal, under the
+        PADDLE_TPU_CHAOS plan its parent set (kill@tick=N). Returns only
+        if the plan never fired."""
+        import os
+        from paddle_tpu_torch.serving import ResiliencePolicy, ServingEngine
+        torch = self.torch
+        params = torch.load(os.path.join(tmp, "params.pt"),
+                            map_location=self.dev)
+        from paddle_tpu_torch.models import gpt
+        cfg = gpt.gpt3_1p3b()
+        sess = self._session(params, cfg, paged=False)
+        eng = ServingEngine(sess, max_queue=64, device=self.dev,
+                            resilience=ResiliencePolicy(journal_path=os.path.join(
+                                tmp, "journal.jsonl")), **RESIL_ENGINE)
+        eng.prewarm()
+        for i, (p, m) in enumerate(self._server_trace(cfg)):
+            eng.submit(p, max_new_tokens=m, request_id=f"r{i}")
+        eng.run(deadline=600)
+        return 1
+
+    # ------------------------------------------------------------ fleet
+    def _fleet_trace(self, cfg, groups=3, per_group=4, prefix=256):
+        """Rounds of a multi-tenant trace: in each round one request of
+        each group (its own ``prefix``-token system prompt and a unique
+        16-96-token tail), then a round of two cold requests; budgets
+        16-32. Three groups over two replicas: round-robin alternates each
+        group between them."""
+        import numpy as np
+        rng = np.random.default_rng(12)
+        V = cfg.vocab_size
+        shared = [rng.integers(0, V, (prefix,)) for _ in range(groups)]
+        rounds = [[(np.concatenate([sp, rng.integers(0, V, (int(t),))]),
+                    int(m)) for sp, t, m in zip(
+                        shared, rng.integers(16, 97, groups),
+                        rng.integers(16, 33, groups))]
+                  for _ in range(per_group)]
+        rounds.append([(rng.integers(0, V, (int(n),)), int(m)) for n, m in
+                       zip(rng.integers(64, 200, 2), rng.integers(16, 33, 2))])
+        return rounds
+
+    def phase_fleet(self):
+        """Two replicas on one card (see the module doc)."""
+        torch = self.torch
+        import os
+        import tempfile
+        from paddle_tpu_torch.distributed.ft.chaos import ChaosPlan
+        from paddle_tpu_torch.serving import (RequestState, ResiliencePolicy,
+                                              ServingEngine, ServingFleet)
+        cfg, params = self._model()
+        sessions = [self._session(params, cfg, paged=False)
+                    for _ in range(3)]
+        paged = self._session(params, cfg, paged=True)
+
+        def engine(sess, promote=2, resil=None):
+            eng = ServingEngine(sess, max_queue=64, device=self.dev,
+                                prefix_promote_after=promote,
+                                resilience=resil, **FLEET_ENGINE)
+            eng.prewarm()
+            return eng
+
+        def drain(engines):
+            while any(e.pending for e in engines):
+                for e in engines:
+                    e.poll()
+
+        # affinity against round-robin, round by round
+        rounds = self._fleet_trace(cfg)
+        fleet = ServingFleet([("r0", engine(sessions[0])),
+                              ("r1", engine(sessions[1]))])
+        for k, wave in enumerate(rounds):
+            for i, (p, m) in enumerate(wave):
+                fleet.submit(p, max_new_tokens=m, request_id=f"a{k}.{i}")
+            fleet.run(deadline=600)
+        aff = fleet.metrics()
+        fleet.close()
+        engines = [engine(sessions[0]), engine(sessions[1])]
+        n = 0
+        for k, wave in enumerate(rounds):
+            for i, (p, m) in enumerate(wave):
+                engines[n % 2].submit(p, max_new_tokens=m,
+                                      request_id=f"b{k}.{i}")
+                n += 1
+            drain(engines)
+        rr_hits = sum(r.prefix_hit_tokens for e in engines
+                      for r in e.requests)
+        for e in engines:
+            e.close()
+        line = dict(run="affinity_vs_round_robin", replicas=2,
+                    requests=n, affinity_hit_tokens=aff[
+                        "prefix_hit_tokens_total"],
+                    affinity_routed=aff["affinity_routed_total"],
+                    round_robin_hit_tokens=rr_hits)
+        log("[fleet] " + json.dumps(line))
+        if not line["affinity_hit_tokens"] > rr_hits:
+            raise AssertionError(f"fleet affinity hit no more than "
+                                 f"round-robin: {line}")
+
+        # prefill/decode disaggregation against a monolithic engine
+        trace = self._server_trace(cfg)
+        prompts = [p for p, _ in trace]
+
+        def serve(submit, run, metrics):
+            for sess in sessions + [paged]:
+                sess.reset_metrics()
+            self._zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reqs = [submit(p, max_new_tokens=m, request_id=f"d{i}")
+                    for i, (p, m) in enumerate(trace)]
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            met = metrics()
+            return reqs, wall, met
+
+        mono = engine(sessions[2])
+        reqs, wall, met = serve(mono.submit,
+                                lambda: mono.run(deadline=600), mono.metrics)
+        want = [list(r.output) for r in reqs]
+        toks = sum(len(o) for o in want)
+        mono_line = dict(tokens_per_s=round(toks / wall, 1),
+                         ttft_ms_p50=met["ttft_ms_p50"],
+                         ttft_ms_p99=met["ttft_ms_p99"])
+        self._read_counts("fleet monolithic", ("decode_attention",))
+        mono.close()
+        fleet = ServingFleet([("pf", engine(paged, promote=1), "prefill"),
+                              ("d0", engine(sessions[0]), "decode")])
+        hand = dict(ms=[], bytes=0)
+        export, apply = fleet._export_handoff, fleet._apply_handoff
+
+        def timed_export(rep, req, budget):
+            out = export(rep, req, budget)
+            if out is not None:
+                hand["bytes"] += sum(
+                    t.numel() * t.element_size()
+                    for kv in (out.k, out.v)
+                    for t in (kv if isinstance(kv, tuple) else (kv,)))
+                if not all(isinstance(t, torch.Tensor)
+                           and t.device.type == self.dev.type
+                           for kv in (out.k, out.v)
+                           for t in (kv if isinstance(kv, tuple) else (kv,))):
+                    raise AssertionError("a handoff shipped no device tensor")
+            return out
+
+        def timed_apply(src, req):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = apply(src, req)
+            torch.cuda.synchronize()
+            hand["ms"].append((time.perf_counter() - t0) * 1e3)
+            return ok
+
+        fleet._export_handoff, fleet._apply_handoff = timed_export, timed_apply
+        reqs, wall, met = serve(fleet.submit,
+                                lambda: fleet.run(deadline=600),
+                                fleet.metrics)
+        outs = fleet.outputs()
+        got = [outs[f"d{i}"] for i in range(len(trace))]
+        self._read_counts("fleet disaggregated", ("decode_attention_paged",
+                                                  "decode_attention"))
+        line = dict(run="disaggregated", replicas="prefill (paged) + decode",
+                    requests=len(trace),
+                    tokens_per_s=round(sum(len(o) for o in got) / wall, 1),
+                    ttft_ms_p50=met["merged"]["ttft_ms_p50"],
+                    ttft_ms_p99=met["merged"]["ttft_ms_p99"],
+                    handoffs=met["handoffs_total"],
+                    handoff_bytes=hand["bytes"],
+                    handoff_ms_mean=round(sum(hand["ms"]) / max(1, len(
+                        hand["ms"])), 3),
+                    handoff_ms_max=round(max(hand["ms"], default=0.0), 3),
+                    monolithic=mono_line)
+        fleet.close()
+        line["streams"] = self._streams_check(
+            "fleet disaggregated", params, cfg, prompts, want, got)
+        log("[fleet] " + json.dumps(line))
+        if met["handoffs_total"] != len(trace):
+            raise AssertionError(f"{met['handoffs_total']} handoffs for "
+                                 f"{len(trace)} requests")
+
+        # a replica killed mid-trace, recovered from its journal
+        with tempfile.TemporaryDirectory() as tmp:
+            pol = lambda name: ResiliencePolicy(
+                chaos=ChaosPlan(), journal_path=os.path.join(tmp, name))
+            fleet = ServingFleet([("k0", engine(sessions[0],
+                                                resil=pol("k0.jsonl"))),
+                                  ("k1", engine(sessions[1],
+                                                resil=pol("k1.jsonl")))])
+            for i, (p, m) in enumerate(trace):
+                fleet.submit(p, max_new_tokens=m, request_id=f"d{i}")
+            for _ in range(FLEET_KILL_AFTER_POLLS):
+                fleet.poll()
+            victim = max(fleet.replicas, key=lambda r: r.engine.pending)
+            t0 = time.perf_counter()
+            resumed = fleet.kill_replica(victim.name)
+            failover_ms = (time.perf_counter() - t0) * 1e3
+            fleet.run(deadline=600)
+            outs = fleet.outputs()
+            states = [r.state for r in fleet.requests]
+            fleet.close()
+        lost = sum(1 for s in states if s is not RequestState.DONE)
+        got = [outs[f"d{i}"] for i in range(len(trace))]
+        line = dict(run="kill_replica", victim=victim.name,
+                    after_polls=FLEET_KILL_AFTER_POLLS,
+                    resumed=len(resumed),
+                    resumed_with_tokens=sum(1 for r in resumed
+                                            if r.resumed_len),
+                    failover_ms=round(failover_ms, 3), lost=lost)
+        line["streams"] = self._streams_check(
+            "fleet kill_replica", params, cfg, prompts, want, got)
+        log("[fleet] " + json.dumps(line))
+        if lost or not resumed:
+            raise AssertionError(f"fleet failover: {line}")
+
+
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3761,6 +4399,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    # the resil phase's crash victim, run as a process of its own
+    ap.add_argument("--resil-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -3782,6 +4422,8 @@ def main(argv=None) -> int:
     # f32 comparisons are against full-f32 products, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.resil_child:
+        return Smoke(torch).resil_child(args.resil_child)
     card = gpu_line()
     log(f"[device] {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | python {sys.version.split()[0]}")

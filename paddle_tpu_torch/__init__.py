@@ -1,9 +1,13 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu.
 
 It serves the flagship GPT on one NVIDIA H100 (``generate()``,
-``GenerationSession`` and ``ServingEngine`` over the dense KV cache, with
-fp or weight-only int8/int4 weights and an fp or scaled-int8 cache) and
-trains it there (``models.gpt.build_train_step``), with hand-written CUDA
+``GenerationSession`` and ``ServingEngine`` over a dense or paged KV
+cache, with fp or weight-only int8/int4 weights and an fp or scaled-int8
+cache, speculative decoding, captured tick graphs, the resilience plane
+with its crash journal, tenant metering, request tracing, and
+``ServingFleet`` replicas with prefill/decode handoff) and trains it
+there (``models.gpt.build_train_step``, ``remat_policy`` "full" or
+"dots"), with hand-written CUDA
 kernels for flash attention forward and backward, decode attention (fp
 and scaled-int8 caches), the weight-only dequant-matmul, fused AdamW and
 the fused bias-dropout-residual LayerNorm of ``incubate.nn``

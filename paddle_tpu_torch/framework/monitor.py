@@ -2,18 +2,22 @@
 registry of paddle_tpu/framework/monitor.py (the reference's
 ``StatRegistry`` after ``paddle/fluid/platform/monitor.h``), copied so the
 port stands alone. The serving plane publishes its gauges here
-(``observability.serving``, ``observability.quant``) when telemetry is on;
-:func:`stats_report` reads them and :func:`stats_prom` renders them in the
-Prometheus text format.
+(``observability.serving``, ``quant``, ``resilience``, ``fleet`` and
+``metering``) when telemetry is on; :func:`stats_report` reads them,
+:func:`stats_prom` renders them in the Prometheus text format and
+:func:`write_stats_snapshot` writes either form to a file atomically.
 """
 from __future__ import annotations
 
+import json
+import os
 import threading
 from typing import Callable
 
 __all__ = ["StatRegistry", "stat_registry", "STAT_INT64", "STAT_FLOAT",
            "stat_get", "stat_set", "stat_add", "stat_reset",
-           "stats_report", "stats_prom", "prom_labeled_name"]
+           "stats_report", "stats_prom", "prom_labeled_name",
+           "write_stats_snapshot"]
 
 
 class _Stat:
@@ -203,3 +207,21 @@ def stats_prom(prefix: str = "paddle_tpu_") -> str:
             last_family = family
         lines.append(f"{sample} {v}")
     return "\n".join(lines) + ("\n" if lines else "")
+
+
+def write_stats_snapshot(path: str, fmt: str = "prom") -> str:
+    """Write the registry snapshot to ``path`` atomically (tmp + rename, so
+    a scraper never reads a torn file) as Prometheus text (``fmt="prom"``)
+    or JSON (``fmt="json"``). Returns the path."""
+    if fmt == "prom":
+        payload = stats_prom()
+    elif fmt == "json":
+        payload = json.dumps(stats_report(), indent=2, sort_keys=True) + "\n"
+    else:
+        raise ValueError(f"fmt must be 'prom' or 'json', got {fmt!r}")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(payload)
+    os.replace(tmp, path)
+    return path

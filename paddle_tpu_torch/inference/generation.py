@@ -69,8 +69,23 @@ temperatures=, seeds=)``, :meth:`set_sampling`), every draw keyed by
 resample, pending into the next tick's window row 0. The physical cache
 keeps ``spec_k`` positions of headroom past ``max_len`` for the window.
 
-Meshes and the fleet's span export/import belong to later slices and
-raise ``NotImplementedError``.
+Prefill modes (``prefill_mode=`` or ``PADDLE_TPU_PREFILL_MODE``):
+``full`` (one batched forward), ``chunked`` (``cfg.prefill_chunk``-token
+attention tiles) and ``scan`` (the A/B mode: one decode step a prompt
+token, ``models.gpt.scan_prefill``) for whole-prompt :meth:`admit`; the
+engine's chunk ticks always run the suffix prefill.
+
+Host-only planes: :meth:`attach_meter` charges every prefill, decode and
+accepted speculative token to the slot's tenant stamp
+(:meth:`stamp_tenant`), and request tracing marks admissions, emits and
+evictions (``observability.tracing``); neither reads the device.
+:meth:`export_kv_span` / :meth:`import_kv_span` / :meth:`materialize_span`
+move a resident K/V span between sessions (the fleet's prefill->decode
+handoff); a paged export materializes its pages into device tensors and
+moves no refcount.
+
+Meshes belong to the multi-device slice and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -84,14 +99,16 @@ import torch
 from ..device import resolve_device
 from ..framework import prng
 from ..framework.cuda_graph import TickGraph, eager_ticks, graphed
-from ..models.gpt import (SPEC_LANE_DRAFT, GPTConfig, _kv_index, _wq_bits,
-                          check_draft_compat, check_params_device,
+from ..models.gpt import (SPEC_LANE_DRAFT, GPTConfig, _kv_index, _kv_leaves,
+                          _wq_bits, check_draft_compat, check_params_device,
                           check_prefill_mode, decode_one_token,
                           early_exit_draft, greedy_acceptance, init_kv_cache,
                           kv_data, pad_cache_len, prefill, prefill_suffix,
-                          sample_logits, spec_draft_sample, spec_sample_key,
-                          stochastic_acceptance, verify_tokens)
+                          sample_logits, scan_prefill, spec_draft_sample,
+                          spec_sample_key, stochastic_acceptance,
+                          verify_tokens)
 from ..observability import ServingMetrics
+from ..observability import tracing as _tracing
 from ..observability.quant import record_session_quant
 from ..ops.kernels.decode_attention import MAX_Q
 from ..quantization.gpt_quant import kv_cache_quantized
@@ -100,12 +117,6 @@ from ..serving.prefix_cache import PageSpan, span_concat
 _SESSION_SEQ = itertools.count()
 
 __all__ = ["GenerationSession", "eager_ticks"]
-
-
-def _leaves(cache):
-    """The tensors of a cache or span: itself, or a scaled-int8 pair's
-    codes and steps."""
-    return cache if isinstance(cache, tuple) else (cache,)
 
 
 class GenerationSession:
@@ -290,6 +301,12 @@ class GenerationSession:
                                          self.max_slots)
         self._admit_t = [0.0] * self.max_slots
         self._await_first = [False] * self.max_slots
+        # per-slot tenant stamps: the engine stamps the admitted request's
+        # tenant (stamp_tenant) so an attached meter charges each token to
+        # it; None = untagged. _meter stays None unless a metering engine
+        # attaches one, and every charge point is then one None check
+        self._slot_tenant: list = [None] * self.max_slots
+        self._meter = None
         # quant byte accounting: weight bytes saved, KV bytes per row
         self._quant_stats = None
         if cfg.weight_quant or kv_cache_quantized(cfg):
@@ -407,9 +424,15 @@ class GenerationSession:
         rows = torch.as_tensor(slots, device=dev)
         lens = torch.as_tensor(lengths, device=dev)
         toks = torch.as_tensor(prompts, device=dev)
-        logits, _, _ = prefill(self._params, self.cfg, toks, self._kc,
-                               self._vc, lengths=lens, mode=self._mode,
-                               rows=rows, page_table=self._ptab_of(rows))
+        if self._mode == "scan":
+            logits, _, _ = scan_prefill(self._params, self.cfg, toks,
+                                        self._kc, self._vc, lengths=lens,
+                                        rows=rows,
+                                        page_table=self._ptab_of(rows))
+        else:
+            logits, _, _ = prefill(self._params, self.cfg, toks, self._kc,
+                                   self._vc, lengths=lens, mode=self._mode,
+                                   rows=rows, page_table=self._ptab_of(rows))
         if self._draft_mode:
             # the separate draft shadows the admission so its cache holds
             # the prompt (positions past a row's length are never read)
@@ -437,10 +460,18 @@ class GenerationSession:
             self._lane_merge([(s, int(prompts[j, lengths[j] - 1]),
                                int(lengths[j]))
                               for j, s in enumerate(slots)])
+        if self._meter is not None:
+            # whole-prompt admissions run outside the engine's stamped
+            # path, so these normally land in the untagged bucket
+            for j, s in enumerate(slots):
+                self._meter.on_prefill(self._slot_tenant[s],
+                                       int(lengths[j]))
         self._telemetry.admitted(
             n, prefill_s=now - t_admit, occupied=sum(self._occupied),
             queue_wait_s=max(0.0, t_admit - arrival_ts)
             if arrival_ts is not None else 0.0)
+        _tracing.on_session_span(self._telemetry.name, "session/admit",
+                                 t_admit, now, rows=n, slots=list(slots))
         return slots
 
     def try_admit(self, prompts, lengths=None, arrival_ts=None):
@@ -467,6 +498,20 @@ class GenerationSession:
     def telemetry(self) -> ServingMetrics:
         """The session's ServingMetrics, shared with the serving engine."""
         return self._telemetry
+
+    def attach_meter(self, meter) -> None:
+        """Attach a ``observability.metering.TenantMeter``: the session's
+        token accounting then charges each prefill, decode and accepted
+        speculative token to the emitting slot's tenant stamp, at the
+        points the untagged counters count them (so the per-tenant sums
+        conserve against those). None detaches."""
+        self._meter = meter
+
+    def stamp_tenant(self, slot: int, tenant) -> None:
+        """Stamp a slot's tenant (the engine does, right after
+        alloc_slot). Stamps clear on alloc, release and evict, so a
+        recycled slot never charges a stale tenant."""
+        self._slot_tenant[slot] = tenant
 
     def kv_row_pages_total(self) -> int:
         """Page grants summed over rows: an aliased (prefix-shared) page
@@ -506,6 +551,7 @@ class GenerationSession:
         self._host_active[s] = False
         self._host_pos[s] = 0
         self._new[s] = []
+        self._slot_tenant[s] = None
         if self.spec_sample:
             # a previous occupant's lane never leaks into the next request:
             # set_sampling overrides before the finalizing chunk merges it
@@ -520,6 +566,7 @@ class GenerationSession:
         if self._host_active[slot]:
             raise ValueError(f"slot {slot} is active — evict() it")
         self._occupied[slot] = False
+        self._slot_tenant[slot] = None
         if self.kv_paged:
             self._release_row_pages(slot)
         self._set_dump(slot, 0)
@@ -673,7 +720,7 @@ class GenerationSession:
             raise ValueError(f"prefix ({n} tokens) exceeds the cache "
                              f"length ({self.max_len})")
         for cache, span in ((self._kc, kb), (self._vc, vb)):
-            for c, b in zip(_leaves(cache), _leaves(span)):
+            for c, b in zip(_kv_leaves(cache), _kv_leaves(span)):
                 c[:, slot, :, :n] = b.to(c.dtype)
         # decode ticks before the next chunk dump their dead-row write
         # PAST the copied prefix, not over it
@@ -740,7 +787,7 @@ class GenerationSession:
                     "— alloc_slot with a need covering the prefix first")
             idx = torch.as_tensor(pages, device=self.device)
             for cache, span in ((self._kc, kb), (self._vc, vb)):
-                for c, b in zip(_leaves(cache), _leaves(span)):
+                for c, b in zip(_kv_leaves(cache), _kv_leaves(span)):
                     # [L, H, n(, hd)] -> [L, pages, H, ps(, hd)]
                     v = b.reshape(b.shape[:2] + (n // ps, ps) + b.shape[3:])
                     c[:, idx] = v.movedim(2, 1).to(c.dtype)
@@ -800,22 +847,65 @@ class GenerationSession:
         self._page_note("page_free", pool=True, pages=int(freed))
 
     def export_kv_span(self, slot: int, length: int, start: int = 0):
-        raise NotImplementedError(
-            "KV span export (prefill->decode handoff) belongs to the fleet "
-            "slice of the port")
+        """Read a resident K/V span out of a slot's cache — ``(k, v)``,
+        each [L, H, length, hd] (scaled-int8: codes and steps) — the
+        slot-level export half of a prefill->decode handoff for a
+        receiver without a prefix pool (the in-process ``ServingFleet``
+        hands off through the pool: ``PrefixCache.peek`` -> ``inject``).
+        A paged session materializes the span (a receiver cannot reach
+        this pool's pages); no refcount moves."""
+        if not self.kv_paged:
+            return self.read_prefix_block(slot, start, length)
+        ps = self._page_size
+        if start % ps or length % ps or length <= 0:
+            raise ValueError(
+                f"paged span exports must be page-aligned: "
+                f"[{start}, {start + length}) vs page size {ps}")
+        if not self._occupied[slot]:
+            raise ValueError(f"slot {slot} is not occupied")
+        i0, n = start // ps, length // ps
+        pages = [int(p) for p in self._ptab[slot, i0:i0 + n]]
+        if len(pages) != n or 0 in pages:
+            raise ValueError(f"slot {slot} holds no pages for "
+                             f"[{start}, {start + length})")
+        return self._read_pages(pages)
 
-    def import_kv_span(self, slot: int, k=None, v=None, blocks=None):
-        raise NotImplementedError(
-            "KV span import (prefill->decode handoff) belongs to the fleet "
-            "slice of the port")
+    def import_kv_span(self, slot: int, k=None, v=None, blocks=None) -> int:
+        """Write a handed-off K/V span into a reserved slot at positions
+        [0, length) — the slot-level import half of a handoff, through
+        the prefix copy (:meth:`copy_prefix_into`). ``k``/``v``: the
+        :meth:`export_kv_span` layout; ``blocks``: pre-split [(k, v)]
+        pairs instead. Returns the resident length; follow with a suffix
+        prefill from there, as after a prefix hit."""
+        if blocks is None:
+            blocks = [(k, v)]
+        return self.copy_prefix_into(slot, blocks)
+
+    def _read_pages(self, pages):
+        """The listed pool pages as one contiguous (k, v) span, [L, H,
+        n * page_size, hd] each: one gather a leaf, a copy."""
+        idx = torch.as_tensor(list(pages), device=self.device)
+
+        def gather(cache):
+            out = []
+            for c in _kv_leaves(cache):
+                g = c[:, idx].movedim(1, 2)   # [L, H, n, ps(, hd)]
+                out.append(g.reshape(g.shape[:2] + (-1,) + g.shape[4:]))
+            return tuple(out) if isinstance(cache, tuple) else out[0]
+
+        return gather(self._kc), gather(self._vc)
 
     def materialize_span(self, k, v=None):
-        raise NotImplementedError(
-            "materializing a by-reference span for transport belongs to "
-            "the fleet slice of the port")
+        """A by-reference :class:`PageSpan` pair as real [L, H, n, hd]
+        tensors on this session's device, for a transport that ships
+        bytes (a fleet handoff); tensor spans pass through. No refcount
+        moves: the pages stay with whoever held them."""
+        if isinstance(k, PageSpan):
+            return self._read_pages(k.pages)
+        return k, v
 
     def prefill_chunks(self, chunks, width: int, arrivals=None,
-                       queue_waits=None) -> None:
+                       queue_waits=None, resumed=None) -> None:
         """Advance in-progress chunked prefills by ONE chunk each, in one
         suffix prefill over the whole slot batch at ``width`` (the
         engine's width bucket: one captured graph per width), the
@@ -824,7 +914,9 @@ class GenerationSession:
         positions [offset, offset + len); ``finalize`` marks the prompt's
         last chunk, after which the row decodes.
         ``arrivals``/``queue_waits``: {slot: perf_counter stamp} /
-        {slot: seconds} for the TTFT and wait metrics."""
+        {slot: seconds} for the TTFT and wait metrics; ``resumed``: the
+        finalizing slots that re-admit already-emitted work (a requeue or
+        a crash replay), which count neither an admission nor a TTFT."""
         if not chunks:
             return
         t0 = time.perf_counter()
@@ -832,10 +924,10 @@ class GenerationSession:
         self._tick("chunk", self._chunk_body, width)
         self._telemetry.prefill_tick(time.perf_counter() - t0,
                                      rows=len(chunks))
-        self._finalize_chunks(chunks, arrivals, queue_waits, t0)
+        self._finalize_chunks(chunks, arrivals, queue_waits, t0, resumed)
 
     def fused_tick(self, chunks, width: int, arrivals=None,
-                   queue_waits=None) -> dict[int, int]:
+                   queue_waits=None, resumed=None) -> dict[int, int]:
         """Both halves of a serving tick in one body (one graph per
         width): every chunk prefill advances one chunk, then every live
         row decodes one token; rows finalized by the chunk half emit
@@ -848,7 +940,7 @@ class GenerationSession:
         toks = self._tick("fused", self._fused_body, width)
         # the chunk half's wall is charged once, to the decode tick
         self._telemetry.prefill_tick(0.0, rows=len(chunks))
-        self._finalize_chunks(chunks, arrivals, queue_waits, t0)
+        self._finalize_chunks(chunks, arrivals, queue_waits, t0, resumed)
         was = list(self._host_active)
         return self._process_emitted(toks, was, t0)
 
@@ -955,13 +1047,23 @@ class GenerationSession:
         return self._spec_body()
 
     def _finalize_chunks(self, chunks, arrivals, queue_waits,
-                         t0: float) -> None:
+                         t0: float, resumed=None) -> None:
         for slot, tk, off, fz in chunks:
+            n = np.asarray(tk).shape[0]
+            if self._meter is not None:
+                # chunks partition [prefix hit, work length), so each
+                # resident prefill token is charged once
+                self._meter.on_prefill(self._slot_tenant[slot], n)
             if not fz:
                 continue
             self._host_active[slot] = True
-            self._host_pos[slot] = int(off + np.asarray(tk).shape[0])
+            self._host_pos[slot] = int(off + n)
             self._admit_t[slot] = (arrivals or {}).get(slot, t0)
+            if resumed is not None and slot in resumed:
+                # re-admitted work that already emitted: no second
+                # admission count and no TTFT sample
+                self._await_first[slot] = False
+                continue
             self._await_first[slot] = True
             self._telemetry.admitted(
                 1, prefill_s=0.0, occupied=sum(self._occupied),
@@ -1057,7 +1159,7 @@ class GenerationSession:
         for name in ("_kc", "_vc", "_dkc", "_dvc"):
             cache = getattr(self, name)
             if cache is not None:
-                for i, t in enumerate(_leaves(cache)):
+                for i, t in enumerate(_kv_leaves(cache)):
                     out[f"{name}{i}"] = t
         return out
 
@@ -1117,7 +1219,13 @@ class GenerationSession:
                 self._host_active[s] = False
             else:
                 self._host_pos[s] += 1
+        if self._meter is not None:
+            for s in emitted:
+                self._meter.on_decode(self._slot_tenant[s], 1)
         self._telemetry.tick(time.perf_counter() - t0, len(emitted))
+        if emitted:
+            _tracing.on_session_mark(self._telemetry.name, "session/emit",
+                                     rows=len(emitted))
         return emitted
 
     # ------------------------------------------------- speculative decode
@@ -1143,7 +1251,7 @@ class GenerationSession:
         return self._process_spec_emitted(self._spec_decode(), was, t0)
 
     def spec_tick(self, chunks, width: int, arrivals=None,
-                  queue_waits=None) -> dict[int, list[int]]:
+                  queue_waits=None, resumed=None) -> dict[int, list[int]]:
         """The speculative :meth:`fused_tick` (one body, one graph per
         width): every chunk prefill advances one chunk, then one spec tick
         runs over every live row; rows the chunk half finalizes join its
@@ -1156,7 +1264,7 @@ class GenerationSession:
         out = self._tick("spec_fused", self._spec_fused_body, width)
         # the chunk half's wall is charged once, to the spec tick
         self._telemetry.prefill_tick(0.0, rows=len(chunks))
-        self._finalize_chunks(chunks, arrivals, queue_waits, t0)
+        self._finalize_chunks(chunks, arrivals, queue_waits, t0, resumed)
         was = list(self._host_active)
         return self._process_spec_emitted(out, was, t0)
 
@@ -1311,6 +1419,7 @@ class GenerationSession:
             if row:
                 emitted[s] = row
                 total += len(row)
+            pend = 1
             if sampled:
                 # a pending row's window token 0 was accepted LAST tick:
                 # this tick it is neither a proposal nor an accept
@@ -1318,6 +1427,13 @@ class GenerationSession:
                 prop += k - pend
                 acc += max(0, len(row) - pend)
                 res += int(out[s, k + 2])
+            if self._meter is not None:
+                # greedy: all past the row's guaranteed first token was an
+                # accepted proposal (the per-row mirror of spec())
+                ten = self._slot_tenant[s]
+                if row:
+                    self._meter.on_decode(ten, len(row))
+                self._meter.on_spec_accepted(ten, max(0, len(row) - pend))
         self._telemetry.tick(time.perf_counter() - t0, total)
         if sampled:
             self._telemetry.spec(proposed=prop, accepted=acc, rows=rows,
@@ -1328,6 +1444,9 @@ class GenerationSession:
             # past its guaranteed first token was an accepted proposal
             self._telemetry.spec(proposed=(k - 1) * rows,
                                  accepted=max(0, total - rows), rows=rows)
+        if emitted:
+            _tracing.on_session_mark(self._telemetry.name, "session/emit",
+                                     rows=rows, tokens=total, spec=True)
         return emitted
 
     def freeze(self, slots) -> None:
@@ -1347,10 +1466,13 @@ class GenerationSession:
         if self._host_active[slot]:
             self.freeze([slot])
         self._occupied[slot] = False
+        self._slot_tenant[slot] = None
         if self.kv_paged:
             self._release_row_pages(slot)
         out, self._new[slot] = self._new[slot], []
         self._telemetry.evicted(sum(self._occupied))
+        _tracing.on_session_mark(self._telemetry.name, "session/evict",
+                                 slot=int(slot), tokens=len(out))
         return out
 
     def reset_metrics(self) -> None:

@@ -17,8 +17,9 @@ dynamic_update_slice under buffer donation — in place keeps one cache
 resident instead of a second [L, B, H, S, hd] copy per step. On the card
 ``generate()``'s decode steps replay one captured CUDA graph
 (``framework.cuda_graph``) where the reference scans them. Training
-maps ``jax.checkpoint`` to ``torch.utils.checkpoint`` and
-``value_and_grad`` to ``torch.autograd.grad``.
+maps ``jax.checkpoint`` to ``torch.utils.checkpoint`` (its ``dots`` policy
+to a selective-checkpoint policy) and ``value_and_grad`` to
+``torch.autograd.grad``.
 
 Attention goes through the hand-written kernels: flash-attention forward
 for whole-prompt prefill and training (its backward kernels under
@@ -47,6 +48,7 @@ reference does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 import warnings
@@ -54,7 +56,8 @@ import warnings
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from ..framework import prng
@@ -97,8 +100,8 @@ class GPTConfig:
     micro_batches: int = 1
     # recompute each block on the backward pass (torch.utils.checkpoint)
     remat: bool = True
-    # "full" recomputes the whole block; the reference's "dots" policy
-    # (save matmul outputs) is not ported yet
+    # "full" recomputes the whole block; "dots" saves the outputs of the
+    # block's weight products and recomputes the rest
     remat_policy: str = "full"
     # > 1 splits the lm-head cross entropy into this many sequence chunks,
     # each recomputed on the backward pass, so the [B, S, V] f32 logits
@@ -140,10 +143,11 @@ class GPTConfig:
                 f"mesh degrees {degrees}, moe_experts={self.moe_experts}: "
                 "the port runs the dense model on one device; MoE and "
                 "multi-device parallelism belong to later slices")
-        if self.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={self.remat_policy!r}: only 'full' is ported; "
-                "the 'dots' policy (save matmul outputs) is a later slice")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(
+                f"remat_policy={self.remat_policy!r} unknown: expected "
+                "'full' (recompute the block) or 'dots' (save the weight "
+                "products' outputs)")
 
     @property
     def head_dim(self) -> int:
@@ -443,6 +447,12 @@ def _kv_index(cache, idx):
     if isinstance(cache, tuple):
         return tuple(c[idx] for c in cache)
     return cache[idx]
+
+
+def _kv_leaves(cache):
+    """The tensors of a cache or span: itself, or a scaled-int8 pair's
+    codes and steps."""
+    return cache if isinstance(cache, tuple) else (cache,)
 
 
 def _kv_write(cache, new, pos, valid=None):
@@ -853,14 +863,51 @@ def prefill_suffix(params, cfg: GPTConfig, tokens, k_cache, v_cache,
     return _lm_logits(last[:, None], params, cfg)[:, 0], k_cache, v_cache
 
 
+def scan_prefill(params, cfg: GPTConfig, tokens, k_cache, v_cache,
+                 lengths=None, rows=None, page_table=None, valid=None):
+    """The per-token prefill kept for A/B (PADDLE_TPU_PREFILL_MODE=scan):
+    P sequential :func:`decode_one_token` steps, each row's next-token
+    logits kept at its own last real position. tokens: [n, P]
+    right-padded; lengths: [n] (None = P); rows: the dense cache rows to
+    write (None = rows 0..n-1; the rows' caches are gathered, stepped and
+    written back); ``page_table``/``valid``: the paged pool layout, as in
+    :func:`prefill`. On the card every step runs the decode attention
+    kernel at Q = 1, one launch a layer a prompt token. Returns (logits
+    [n, V] f32, k_cache, v_cache), :func:`prefill`'s contract."""
+    n, P = tokens.shape
+    dev = tokens.device
+    if P > _row_len(k_cache, page_table):
+        raise ValueError(f"prompt width {P} exceeds the cache length "
+                         f"{_row_len(k_cache, page_table)}")
+    lengths = (torch.full((n,), P, dtype=torch.long, device=dev)
+               if lengths is None
+               else torch.as_tensor(lengths, device=dev).long())
+    kc, vc = k_cache, v_cache
+    if rows is not None and page_table is None:
+        rows = torch.as_tensor(rows, device=dev).long()
+        kc, vc = _kv_index(k_cache, (slice(None), rows)), \
+            _kv_index(v_cache, (slice(None), rows))
+    keep = torch.zeros((n, cfg.vocab_size), dtype=torch.float32, device=dev)
+    for i in range(P):
+        logits, _, _ = decode_one_token(params, cfg, tokens[:, i], i, kc, vc,
+                                        page_table=page_table, valid=valid)
+        keep = torch.where((lengths - 1 == i)[:, None], logits, keep)
+    if kc is not k_cache:
+        for cache, part in ((k_cache, kc), (v_cache, vc)):
+            for c, t in zip(_kv_leaves(cache), _kv_leaves(part)):
+                c[:, rows] = t
+    return keep, k_cache, v_cache
+
+
 def check_prefill_mode(mode: str) -> str:
-    """The prefill modes of this slice: 'full' (one batched forward) and
-    'chunked' (cfg.prefill_chunk-token attention tiles). The reference's
-    per-token 'scan' A/B mode is not ported."""
-    if mode not in ("full", "chunked"):
+    """The prefill modes: 'full' (one batched forward), 'chunked'
+    (cfg.prefill_chunk-token attention tiles) and 'scan' (the per-token
+    A/B mode, :func:`scan_prefill`)."""
+    if mode not in ("full", "chunked", "scan"):
         raise ValueError(
             f"prefill mode {mode!r} unknown: expected 'full' (one batched "
-            "forward) or 'chunked' (cfg.prefill_chunk-token tiles)")
+            "forward), 'chunked' (cfg.prefill_chunk-token tiles) or 'scan' "
+            "(per-token prefill)")
     return mode
 
 
@@ -1141,8 +1188,9 @@ def generate(params, cfg: GPTConfig, prompt_tokens, max_new_tokens=32,
     """Greedy / top-k / top-p generation with a KV cache. prompt_tokens:
     [B, P] ints. Returns [B, P + max_new_tokens] int64 on ``device``.
     The prompt prefills in one batched forward ("full", or "chunked"
-    attention tiles; PADDLE_TPU_PREFILL_MODE sets the default), then one
-    decode step per new token.
+    attention tiles) or, in the "scan" A/B mode, one decode step a prompt
+    token (PADDLE_TPU_PREFILL_MODE sets the default); then one decode step
+    per new token.
 
     A step (split the key, sample, decode the token, position + 1) reads
     and writes only device state: the key (a tensor key), the positions,
@@ -1166,7 +1214,10 @@ def generate(params, cfg: GPTConfig, prompt_tokens, max_new_tokens=32,
             f"positional embedding")
     kc, vc = init_kv_cache(cfg, B, pad_cache_len(P + max_new_tokens,
                                                  cfg.decode_block), dev)
-    logits, kc, vc = prefill(params, cfg, prompt, kc, vc, mode=mode)
+    if mode == "scan":
+        logits, kc, vc = scan_prefill(params, cfg, prompt, kc, vc)
+    else:
+        logits, kc, vc = prefill(params, cfg, prompt, kc, vc, mode=mode)
     key = torch.tensor(prng.PRNGKey(seed), dtype=torch.int64, device=dev)
     pos = torch.full((B,), P, dtype=torch.int64, device=dev)
     toks = torch.empty((B, max_new_tokens), dtype=torch.int64, device=dev)
@@ -1213,21 +1264,45 @@ def _block(x, p, cfg: GPTConfig):
     return _ffn_dense(x, h, p)
 
 
-def _remat(fn, *args):
-    """``jax.checkpoint``: keep only the inputs, recompute the rest on the
-    backward pass. Without grad there is nothing to save and it is a call.
-    Nothing inside draws random numbers, so no RNG state is stashed."""
+# the ops whose outputs the "dots" policy keeps: the block's weight
+# products (``x @ W`` of a [B, S, D] x [D, E] product reaches the dispatcher
+# as one 2-D mm). Batched products (the plain attention's bmm) and the
+# flash kernels, which are not torch ops, are recomputed, as
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable recomputes the
+# batched dots and the pallas_call
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat_policy="dots"``."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, *args, policy: str = "full"):
+    """``jax.checkpoint``: keep only the inputs (``policy="dots"``: also
+    the weight products' outputs, :func:`_dots_policy`) and recompute the
+    rest on the backward pass. Without grad there is nothing to save and
+    it is a call. Nothing inside draws random numbers, so no RNG state is
+    stashed."""
     if not torch.is_grad_enabled():
         return fn(*args)
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
     return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+                      preserve_rng_state=False, **kw)
 
 
 def _stage_fn(params, x, cfg: GPTConfig):
     """The layer stack (the reference's ``lax.scan`` over stacked blocks),
-    each block recomputed on the backward pass when ``cfg.remat``."""
+    each block recomputed on the backward pass when ``cfg.remat`` (all of
+    it, or with ``cfg.remat_policy="dots"`` all but the weight
+    products)."""
     for lp in layer_params(params):
-        x = _remat(_block, x, lp, cfg) if cfg.remat else _block(x, lp, cfg)
+        x = (_remat(_block, x, lp, cfg, policy=cfg.remat_policy)
+             if cfg.remat else _block(x, lp, cfg))
     return x
 
 

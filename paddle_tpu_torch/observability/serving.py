@@ -1,16 +1,16 @@
 """Serving-plane metrics of the port's generation sessions and the
-scheduler above them: paddle_tpu/observability/serving.py without the
-fleet merge and the resilience counters (retries, failures), which come
-with the serving-resilience slice.
+scheduler above them: a copy of paddle_tpu/observability/serving.py.
 
 Host-side only: per-request time-to-first-token, per-token decode
 latency over LIVE rows (eos-frozen and cache-full rows emit pad filler
 but add neither tokens nor samples), admission wait, rejects, expiries,
-queue depth, evictions and stall evictions, the speculative lane's
+queue depth, evictions and stall evictions, the resilience plane's
+retries and failures, the speculative lane's
 proposals, accepts, emitted tokens and residual resamples and, for a
 paged session, the KV page pool (total, free, shared). Latency
 distributions keep a bounded, deterministically seeded reservoir
-(algorithm R) and report p50/p99.
+(algorithm R) and report p50/p99; :meth:`ServingMetrics.merged` folds
+several replicas' metrics into the fleet's view.
 
 Counters accumulate unconditionally (they back ``session.metrics()`` and
 ``engine.metrics()``); with telemetry on (``PADDLE_TPU_TELEMETRY=1``,
@@ -64,6 +64,51 @@ class _Reservoir:
         s = self._sorted
         k = min(len(s) - 1, max(0, int(round(q / 100.0 * (len(s) - 1)))))
         return s[k]
+
+    def __len__(self) -> int:
+        return len(self._samples)
+
+    @classmethod
+    def merged(cls, parts, cap: int = RESERVOIR_CAP,
+               seed: int = 0) -> "_Reservoir":
+        """Deterministic bounded merge of reservoirs (a fleet's
+        percentiles): each part draws in proportion to its ``seen`` count
+        (quotas by largest remainder, subsampled by a PRNG seeded from
+        (seed, total seen)), so the merge is about uniform over the
+        concatenated stream and two identical fleets report identical
+        percentiles."""
+        parts = [p for p in parts if p.seen > 0]
+        out = cls(cap=cap, seed=seed)
+        total = sum(p.seen for p in parts)
+        out.seen = total
+        samples = [s for p in parts for s in p._samples]
+        if len(samples) <= cap:
+            out._samples = samples
+            return out
+        shares = [cap * p.seen / total for p in parts]
+        quotas = [min(len(p._samples), int(s))
+                  for p, s in zip(parts, shares)]
+        rema = sorted(range(len(parts)),
+                      key=lambda i: shares[i] - int(shares[i]),
+                      reverse=True)
+        short = cap - sum(quotas)
+        for i in rema:
+            if short <= 0:
+                break
+            room = len(parts[i]._samples) - quotas[i]
+            if room > 0:
+                take = min(room, short)
+                quotas[i] += take
+                short -= take
+        rng = random.Random((seed << 32) ^ total)
+        merged: list[float] = []
+        for p, q in zip(parts, quotas):
+            if q >= len(p._samples):
+                merged.extend(p._samples)
+            else:
+                merged.extend(rng.sample(p._samples, q))
+        out._samples = merged[:cap]
+        return out
 
     def reset(self) -> None:
         self.seen = 0
@@ -123,6 +168,18 @@ class ServingMetrics:
         self.requests_expired += n
         events.emit("serving_expired", name=self.name, n=n,
                     occupied=self._occupied, max_slots=self.max_slots)
+        self._publish_gauges()
+
+    def retried(self, n: int = 1) -> None:
+        """An in-flight request was evicted and requeued with its
+        generated tokens (stall shed, chaos poison, crash replay)."""
+        self.retries += n
+        self._publish_gauges()
+
+    def failed(self, n: int = 1) -> None:
+        """A request exhausted its retry budget: loudly terminal
+        (FAILED), never a silent hang."""
+        self.requests_failed += n
         self._publish_gauges()
 
     def set_queue_depth(self, depth: int) -> None:
@@ -201,10 +258,41 @@ class ServingMetrics:
                     occupied=self._occupied, max_slots=self.max_slots)
         self._publish_gauges()
 
+    @classmethod
+    def merged(cls, name: str, parts) -> "ServingMetrics":
+        """Deterministic bounded merge of per-replica metrics (the fleet
+        router's view): counters and time accumulators sum, the
+        percentile reservoirs merge through :meth:`_Reservoir.merged`. A
+        read view: it registers no gauges and takes no samples."""
+        parts = list(parts)
+        out = cls(name, max_slots=sum(p.max_slots for p in parts))
+        for attr in ("requests_admitted", "requests_rejected",
+                     "requests_expired", "requests_failed", "retries",
+                     "evictions", "stall_evictions", "tokens_emitted",
+                     "prefill_s", "prefill_chunks", "admissions",
+                     "queue_wait_s", "queue_depth", "decode_s",
+                     "decode_ticks", "spec_proposed_total",
+                     "spec_accepted_total", "spec_ticks",
+                     "spec_rows_total", "spec_emitted_total",
+                     "spec_resample_total", "ttft_sum_s", "ttft_n",
+                     "kv_pages_total", "kv_pages_free",
+                     "kv_pages_shared"):
+            setattr(out, attr, sum(getattr(p, attr) for p in parts))
+        out._paged_seen = any(p._paged_seen for p in parts)
+        out.ttft_last_s = max((p.ttft_last_s for p in parts
+                               if p.ttft_n), default=0.0)
+        out._occupied = sum(p._occupied for p in parts)
+        for attr, seed in (("_ttft_ms", 1), ("_queue_wait_ms", 2),
+                           ("_decode_ms_tok", 3)):
+            setattr(out, attr, _Reservoir.merged(
+                [getattr(p, attr) for p in parts], seed=seed))
+        return out
+
     def reset(self) -> None:
         """Zero the accumulators (occupancy and identity stay) — e.g.
         after a warm-up wave, so TTFT reflects steady state."""
         self.requests_admitted = self.requests_rejected = 0
+        self.requests_failed = self.retries = 0
         self.requests_expired = self.stall_evictions = 0
         self.evictions = self.tokens_emitted = self.admissions = 0
         self.prefill_s = self.queue_wait_s = self.decode_s = 0.0
@@ -250,7 +338,9 @@ class ServingMetrics:
             "queue_wait_ms_p99": rnd(self._queue_wait_ms, 99),
             "requests_admitted": self.requests_admitted,
             "requests_expired": self.requests_expired,
+            "requests_failed": self.requests_failed,
             "requests_rejected": self.requests_rejected,
+            "retries": self.retries,
             "slot_occupancy": round(self._occupied / self.max_slots, 4)
             if self.max_slots else None,
             "slots_occupied": self._occupied,
@@ -283,9 +373,7 @@ class ServingMetrics:
         return dict(sorted(out.items()))
 
     def _publish_gauges(self) -> None:
-        """The ``serving_<name>_*`` gauges (telemetry on only): the
-        reference's set, less the resilience slice's failures and
-        retries."""
+        """The ``serving_<name>_*`` gauges (telemetry on only)."""
         if not events.enabled():
             return
         p = f"serving_{self.name}"
@@ -294,6 +382,8 @@ class ServingMetrics:
                        ("requests_admitted", self.requests_admitted),
                        ("requests_rejected", self.requests_rejected),
                        ("requests_expired", self.requests_expired),
+                       ("requests_failed", self.requests_failed),
+                       ("retries_total", self.retries),
                        ("queue_depth", self.queue_depth),
                        ("evictions", self.evictions),
                        ("stall_evictions", self.stall_evictions),

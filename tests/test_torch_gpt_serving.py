@@ -212,8 +212,10 @@ def test_greedy_generate_streams_equal(models, mode):
 
 def test_mode_and_budget_checks(models):
     _, _, tcfg, tp = models
+    # the scan A/B mode is ported; an unknown mode names the three
+    assert tg.check_prefill_mode("scan") == "scan"
     with pytest.raises(ValueError, match="scan"):
-        tg.check_prefill_mode("scan")
+        tg.check_prefill_mode("bogus")
     with pytest.raises(ValueError, match="max_seq"):
         tg.generate(tp, tcfg, _prompt(8, (1, 60)), 8, device="cpu")
     with pytest.raises(ValueError, match="prefill_chunk"):

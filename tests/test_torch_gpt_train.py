@@ -254,6 +254,12 @@ def test_trained_params_serve_without_conversion():
                                          ("moe_experts", 4),
                                          ("remat_policy", "dots")])
 def test_config_guards(field, value):
+    if field == "remat_policy":
+        # ported: the config takes it, and an unknown policy raises
+        assert tg.gpt_tiny(**{field: value}).remat_policy == value
+        with pytest.raises(ValueError, match="remat_policy"):
+            tg.gpt_tiny(remat_policy="everything")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP|later slice"):
         tg.gpt_tiny(**{field: value})
 

@@ -508,11 +508,27 @@ def test_array_prefix_copies_into_granted_pages(weights):
     assert [s.step()[slot] for _ in range(6)] == want
     with pytest.raises(ValueError, match="page-aligned"):
         s.read_prefix_block(slot, 4, 8)
-    for later in (lambda: s.export_kv_span(slot, 8),
-                  lambda: s.import_kv_span(slot, blocks=blocks),
-                  lambda: s.materialize_span(blocks[0][0])):
-        with pytest.raises(NotImplementedError, match="fleet"):
-            later()
+    # span export and import (the fleet's handoff): a paged export
+    # materializes the row's pages, equal to the bytes copied in, and
+    # moves no refcount; a by-reference span materializes alike; an
+    # import lands like a prefix copy and serves the same stream
+    stats = s.kv_page_stats()
+    k, v = s.export_kv_span(slot, 16)
+    assert s.kv_page_stats() == stats
+    assert torch.equal(k, torch.cat([b[0] for b in blocks], 2))
+    assert torch.equal(v, torch.cat([b[1] for b in blocks], 2))
+    pk, pv = s.read_prefix_block(slot, 0, 16)
+    mk, mv = s.materialize_span(pk, pv)
+    assert torch.equal(mk, k) and torch.equal(mv, v)
+    assert s.materialize_span(k, v) == (k, v)
+    s.release_pooled_entry((pk, pv))
+    assert s.kv_page_stats() == stats
+    with pytest.raises(ValueError, match="page-aligned"):
+        s.export_kv_span(slot, 12)
+    dst = s.alloc_slot(need_tokens=len(prompt) + 6)
+    assert s.import_kv_span(dst, k, v) == 16
+    s.prefill_chunks([(dst, prompt[16:], 16, True)], width=8)
+    assert [s.step()[dst] for _ in range(6)] == want
 
 
 # ================================================================= engine

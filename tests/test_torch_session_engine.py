@@ -18,7 +18,10 @@ from paddle_tpu.serving import ServingEngine as JEngine
 from paddle_tpu_torch.inference import GenerationSession
 from paddle_tpu_torch.models import gpt as tg
 from paddle_tpu_torch.observability.serving import ServingMetrics, _Reservoir
-from paddle_tpu_torch.serving import QueueFull, RequestState, ServingEngine
+from paddle_tpu_torch.distributed.ft.chaos import ChaosPlan
+from paddle_tpu_torch.observability import tracing
+from paddle_tpu_torch.serving import (QueueFull, RequestState,
+                                      ResiliencePolicy, ServingEngine)
 
 torch.set_num_threads(1)
 VOCAB = 256
@@ -175,8 +178,10 @@ def test_admission_control_and_later_slices(setup, monkeypatch):
         assert _session(setup, max_slots=1).kv_paged
     slot = paged.alloc_slot()
     assert paged.copy_prefix_into(slot, []) == 0
-    with pytest.raises(NotImplementedError, match="fleet"):
-        paged.export_kv_span(slot, 8)
+    # span export is ported: a slot holding no prompt yet still has its
+    # granted pages, so an aligned export reads them
+    k, v = paged.export_kv_span(slot, 8)
+    assert k.shape[2] == v.shape[2] == 8
     with pytest.raises(ValueError, match="reserved"):
         sess.copy_prefix_into(0, [])
 
@@ -329,16 +334,28 @@ def test_bounded_queue_rejects_loudly_and_validates(setup, monkeypatch):
     assert eng.metrics()["requests_by_state"]["done"] == 2
     with pytest.raises(RuntimeError, match="closed"):
         eng.submit(_prompt(rng, 4))
-    for kw in ({"resilience": object()}, {"metering": True}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            ServingEngine(sess, device="cpu", **kw)
+    # the resilience, metering and tracing planes are ported: each arms
+    # from its argument, metering and tracing also from the environment
+    armed = ServingEngine(sess, device="cpu", metering=True,
+                          resilience=ResiliencePolicy(chaos=ChaosPlan()))
+    met = armed.metrics()
+    assert met["resilience"]["shed_total"] == 0 and "tenants" in met
+    armed.close()
     reuse = ServingEngine(sess, device="cpu", prefix_cache_blocks=8)
     assert reuse.metrics()["prefix_cache"]["max_blocks"] == 8
-    for env in ("PADDLE_TPU_TRACING", "PADDLE_TPU_TENANT_METERING"):
-        with monkeypatch.context() as mp:
-            mp.setenv(env, "1")
-            with pytest.raises(NotImplementedError, match="slice"):
-                ServingEngine(sess, device="cpu")
+    with monkeypatch.context() as mp:
+        mp.setenv("PADDLE_TPU_TENANT_METERING", "1")
+        metered = ServingEngine(sess, device="cpu")
+        assert metered.meter is not None
+        metered.close()
+    with monkeypatch.context() as mp:
+        mp.setenv("PADDLE_TPU_TRACING", "1")
+        traced = ServingEngine(sess, device="cpu")
+        req = traced.submit(_prompt(rng, 4), max_new_tokens=2)
+        traced.run()
+        assert req.trace_id is not None and tracing.live_count() == 0
+        traced.close()
+    tracing.reset()
 
 
 def test_close_without_drain_cancels(setup):
