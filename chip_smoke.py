@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases build,graph
     python3 chip_smoke.py --phases build,buckets
     python3 chip_smoke.py --phases build,resil,fleet
+    python3 chip_smoke.py --phases build,moe,moe_parity,guards
 
 Phases, each fatal on failure:
 
@@ -221,6 +222,42 @@ Phases, each fatal on failure:
               streams as before. Train also runs remat_policy "dots"
               beside "full" (bitwise equal, step ms, peak), and generate
               the scan prefill mode beside full (B=2 x P=64 +16).
+19. moe     — gpt3_1p3b(moe_experts=8, moe_top_k=2, moe_capacity_factor=
+              2.0) at full width (6.95 B params, bf16, init_params seed 0):
+              a warm-up and 3 timed train steps on one seeded B=4 x S=2048
+              batch (remat, xent_chunks=4, bf16 moments: the plain AdamW,
+              in place; alltoall dispatch), flash launches exact, the aux
+              term, peak memory, the eval step; generate() B=4 x P=256
+              (+32) graphed and under eager_ticks(), bitwise equal, 24
+              decode launches a tick; the 12-request replay paged at
+              prefill_chunk=128, every request DONE, launches exact; w8kv8
+              generate() with 2 E quant_matmul launches a layer a forward
+              (wgmma at prefill, gemv at decode); the device time of one
+              decode tick and one W=128 chunk tick (8 rows) of the MoE
+              model, bf16 and w8kv8, beside the dense model's.
+20. moe_parity — gpt3_1p3b(n_layers=2, f32, moe_experts=8) on the same
+              numpy weights, the CPU (plain versions) against the card
+              (kernels): 3 train steps in each dispatch mode (losses within
+              1e-4); prefill and 4 decode steps in f32 (logits within 1e-3)
+              and w8kv8 (codes equal; logits within 2e-3; printed beside
+              it, the CPU's own spread on ulp-perturbed embeddings and two
+              injected faults, which must exceed the limit); greedy tokens
+              identical.
+21. guards  — the anomaly sentinel on gpt3_1p3b(remat, fused AdamW,
+              xent_chunks=4) at full width: 4 healthy guarded steps bitwise
+              equal to 4 unguarded ones from copies of the same state (the
+              last 3 of each timed side by side), then nan_grad and inf_grad (the
+              chaos plan's corrupted value in the first positional
+              embedding) and spike_loss (through loss_cap) steps, each with
+              its code and params and moments bitwise untouched, fused
+              AdamW launched on applied steps only; run_guarded with a
+              CheckpointManager under $TMPDIR on gpt3_1p3b(n_layers=4):
+              two poisoned steps roll back to the last commit and are
+              quarantined (in the checkpoint aux too), the losses equal a
+              clean run that skips them, bit for bit; save and restore
+              seconds and bytes; a trainer child (--guards-child) run
+              whole, another SIGKILLed after its first commit and a third
+              resumed from it: the resumed losses equal the whole run's.
 
 Every other phase runs the session's ticks and generate()'s steps as
 captured graphs too (each session's first tick is the warm-up, run
@@ -253,7 +290,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "generate", "server", "parity", "quant",
           "quant_parity", "paged", "paged_parity", "train", "train_parity",
           "incubate", "sampling", "spec", "graph", "buckets", "resil",
-          "fleet")
+          "fleet", "moe", "moe_parity", "guards")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -298,6 +335,16 @@ SPEC_E_LIMIT = 0.09
 # that differ by summation-order ulps, which can move a code across a
 # rounding tie by one step
 QUANT_PARITY_TOL = 1e-3
+# the moe_parity phase's w8kv8 logits, CPU against the card: the 8-expert
+# cut's K/V codes cross rounding ties where dense's do not. Readings on an
+# H100 (PERF.md section 6): a sound card 1.26e-3; the CPU forward on
+# positional embeddings scaled by (1 + 1e-7 N(0, 1)), a perturbation of
+# the size of the card's other summation order, 0.94e-3; two faults in
+# the same CPU forward (experts 0 and 1 swapped; expert 0's output
+# dropped) move the prefill logits by 5.07 and 0.143, and the phase fails
+# if either stays within the limit
+MOE_QUANT_PARITY_TOL = 2e-3
+MOE_QUANT_NOISE_REL = 1e-7
 # the resil phase's engine: the buckets phase's chunk=128 replay (the
 # reference's serving runs use min batch 6, defer 4)
 RESIL_ENGINE = dict(prefill_chunk=128, width_buckets=(32, 64),
@@ -1871,15 +1918,17 @@ class Smoke:
                 ((out >= 0) & (out < qcfg.vocab_size)).all()):
             raise AssertionError(f"{tag} generate output bad: {out.shape}")
         L = qcfg.n_layers
+        # two products a layer, each expert's own with MoE
+        per = 2 * L * max(qcfg.moe_experts, 1)
         prefills, ticks = 3, N - 1
         counts = self._read_counts(f"quant {tag} generate", (
             "quant_matmul", "flash_attention_fwd", "decode_attention_q8"))
         self._expect_counts(f"quant {tag} generate", counts, {
-            "quant_matmul": 2 * L * (prefills + ticks),
+            "quant_matmul": per * (prefills + ticks),
             "flash_attention_fwd": L * prefills,
             "decode_attention_q8": L * ticks})
         self._expect_routes(f"quant {tag} generate", {
-            "wgmma": 2 * L * prefills, "gemv": 2 * L * ticks})
+            "wgmma": per * prefills, "gemv": per * ticks})
         ms_tok = (t[1] - t[0]) / (N - 1) * 1e3
         log("[quant] " + json.dumps(dict(
             mode=tag, path="generate", batch=B, prompt=P, new_tokens=N,
@@ -4386,6 +4435,745 @@ class Smoke:
         if lost or not resumed:
             raise AssertionError(f"fleet failover: {line}")
 
+    # ---------------------------------------------------------------- moe
+    def _moe_model(self):
+        """gpt3_1p3b with 8 experts, top-2, capacity factor 2.0 (the
+        repo's MoE example), bf16, on the reference's init_params draw
+        (seed 0): 6.95 B params."""
+        from paddle_tpu_torch.models import gpt
+        cfg = gpt.gpt3_1p3b(moe_experts=8, moe_top_k=2,
+                            moe_capacity_factor=2.0)
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = gpt.init_params(cfg, seed=0, device=self.dev)
+        self.torch.cuda.synchronize()
+        n = sum(t.numel() for t in params["blocks"].values()) \
+            + params["wte"].numel() + params["wpe"].numel()
+        log(f"[moe] gpt3_1p3b(moe_experts=8, moe_top_k=2, "
+            f"moe_capacity_factor=2.0): {n / 1e9:.3f} B params bf16, "
+            f"init_params (seed 0) in {time.perf_counter() - t0:.1f} s")
+        return cfg, params
+
+    def _moe_train(self, cfg, params, tokens, labels, n_timed=3):
+        """A warm-up step, then ``n_timed`` timed with the counters zeroed
+        just before and read just after (flash forward twice a layer under
+        remat, each backward kernel once; bf16 moments take the plain
+        AdamW, so no fused launch); the aux term; the eval step."""
+        torch = self.torch
+        import dataclasses
+        import numpy as np
+        from paddle_tpu_torch.models import gpt
+        tcfg = dataclasses.replace(cfg, remat=True, xent_chunks=4,
+                                   opt_dtype=torch.bfloat16)
+        opt = gpt.adamw_init(params, dtype=tcfg.opt_dtype, device=self.dev)
+        step = gpt.build_train_step(tcfg, device=self.dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens, labels)
+        losses = [float(loss)]
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        self._zero_counts()
+        times = []
+        for _ in range(n_timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, tokens, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated()
+        counts = self._read_counts("moe train", (
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv"))
+        L = tcfg.n_layers
+        self._expect_counts("moe train", counts, {
+            "flash_attention_fwd": 2 * L * n_timed,
+            "flash_attention_bwd_dq": L * n_timed,
+            "flash_attention_bwd_dkv": L * n_timed})
+        with torch.no_grad():
+            _, aux = gpt._stage_fn(params, gpt._embed(params, tokens), tcfg)
+        eval_loss = float(gpt.build_eval_step(tcfg, device=self.dev)(
+            params, tokens, labels))
+        B, S = tokens.shape
+        step_s = sum(times) / len(times)
+        C = gpt.moe_mod.capacity(tcfg.moe_capacity_factor, B * S,
+                                 tcfg.moe_top_k, tcfg.moe_experts)
+        log("[moe] " + json.dumps(dict(
+            path="train", config="remat=True, xent_chunks=4, opt_dtype="
+            "bf16, moe_dispatch=alltoall", batch=B, seq=S,
+            capacity_per_expert=C, bucket_rows_per_layer=C * tcfg.moe_experts,
+            warmup_step_s=round(warm_s, 3),
+            step_ms=[round(t * 1e3, 3) for t in times],
+            step_ms_mean=round(step_s * 1e3, 3),
+            tokens_per_s=round(B * S / step_s, 1), losses=losses,
+            aux_balance_loss=float(aux),
+            aux_term=float(aux) * tcfg.moe_aux_weight, eval_loss=eval_loss,
+            max_memory_allocated_gib=round(peak / 2 ** 30, 3))))
+        if not all(np.isfinite(losses + [eval_loss, float(aux)])):
+            raise AssertionError(f"moe train losses bad: {losses}, eval "
+                                 f"{eval_loss}, aux {float(aux)}")
+        del opt, step
+        torch.cuda.empty_cache()
+        return params
+
+    def _profiled_ms(self, fn, iters):
+        """Device ms of one call of ``fn`` (profiler, kernels summed over
+        ``iters`` calls after one warm call) and the 4 kernels that take
+        the most of it."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ms, top = _device_rows(torch, prof, 4)
+        return ms / iters, [dict(name=k[:60], ms=round(t / iters, 4),
+                                 calls=c // iters) for k, t, c in top]
+
+    def _by_op(self, fn, iters):
+        """``fn`` run eagerly (:func:`eager_ticks`) under torch.profiler
+        with host and device activity, after one warm call: the device ms
+        and kernel launches of one call, and its 8 operators with the most
+        device time (each operator's own kernels, summed over its calls),
+        with their kernels a call."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from paddle_tpu_torch.inference import eager_ticks
+        dev_us = lambda e: getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0))
+        with eager_ticks():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        rows = prof.key_averages()
+        kernels = [e for e in rows if getattr(e, "device_type", None) == cuda
+                   and dev_us(e) > 0]
+        ops = sorted((e for e in rows
+                      if getattr(e, "device_type", None) != cuda
+                      and not e.key.startswith("cuda") and dev_us(e) > 0),
+                     key=dev_us, reverse=True)
+        return dict(
+            device_ms=round(sum(dev_us(e) for e in kernels) / 1e3 / iters, 4),
+            kernels=sum(e.count for e in kernels) // iters,
+            ops=[dict(op=e.key[:40], ms=round(dev_us(e) / 1e3 / iters, 4),
+                      calls=e.count // iters) for e in ops[:8]])
+
+    def _gate_ms(self, cfg, rows):
+        """The serving gate of all L layers at ``rows`` tokens a layer,
+        measured alone: ``softmax_f32`` (XLA's exp, bit for bit) and the
+        top-k of the f32 gate logits [rows, E], as ``_moe_infer_ffn``
+        runs them: device ms and kernel launches a tick (profiler)."""
+        torch = self.torch
+        from paddle_tpu_torch.parallel import moe as moe_mod
+        logits = torch.randn(cfg.n_layers, rows, cfg.moe_experts,
+                             device=self.dev)
+
+        def gate():
+            for li in range(cfg.n_layers):
+                moe_mod.top_k_first(moe_mod.softmax_f32(logits[li]),
+                                    cfg.moe_top_k)
+        got = self._by_op(gate, 2)
+        return dict(device_ms=got["device_ms"], kernels=got["kernels"])
+
+    def _tick_device_ms(self, tag, params, cfg, by_op=False):
+        """Device time (profiler, kernels summed) of one decode tick at 8
+        rows and one W=128 chunk tick over 8 rows (each row's first
+        chunk, not finalized), graphed, on a session of 8 slots x 512
+        positions with 256-token prompts, and each tick's top kernels;
+        ``by_op``: also each tick run eagerly, its device time grouped by
+        operator (:meth:`_by_op`)."""
+        import numpy as np
+        sess = self._session(params, cfg, paged=False)
+        prompt = np.random.default_rng(9).integers(0, cfg.vocab_size,
+                                                   (8, 256))
+        slots = sess.admit(prompt)
+        sess.step()             # the warm-up tick; the next captures
+        decode, dtop = self._profiled_ms(lambda: sess.step(), 10)
+        dops = self._by_op(lambda: sess.step(), 1) if by_op else None
+        for s in slots:
+            sess.evict(s)
+        rows = [sess.alloc_slot(need_tokens=384) for _ in range(8)]
+        chunks = [(r, prompt[i, :128], 0, False) for i, r in enumerate(rows)]
+        sess.prefill_chunks(chunks, 128)
+        chunk, ctop = self._profiled_ms(
+            lambda: sess.prefill_chunks(chunks, 128), 5)
+        cops = (self._by_op(lambda: sess.prefill_chunks(chunks, 128), 1)
+                if by_op else None)
+        for r in rows:
+            sess.evict(r)
+        del sess
+        self.torch.cuda.empty_cache()
+        out = dict(model=tag, decode_tick_device_ms=round(decode, 4),
+                   chunk_tick_w128_device_ms=round(chunk, 4),
+                   decode_top=dtop, chunk_top=ctop)
+        if by_op:
+            out.update(decode_eager_by_op=dops, chunk_eager_by_op=cops)
+        return out
+
+    def phase_moe(self):
+        """MoE at full gpt3_1p3b width on one card: training, bf16 serving
+        (graphed generate() against its eager twin, the 12-request paged
+        replay), w8kv8 serving, and tick device times against the dense
+        model's."""
+        torch = self.torch
+        import contextlib
+        import numpy as np
+        from paddle_tpu_torch.inference import eager_ticks
+        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.quantization import quantize_gpt_params
+        cfg, params = self._moe_model()
+        L, E = cfg.n_layers, cfg.moe_experts
+        tok = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                                (4, 2049))
+        tokens = torch.as_tensor(tok[:, :-1], device=self.dev)
+        labels = torch.as_tensor(tok[:, 1:], device=self.dev)
+        params = self._moe_train(cfg, params, tokens, labels)
+        # bf16 serving: generate() graphed against eager_ticks(), counted
+        prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                   (4, 256))
+        N = 32
+        gpt.generate(params, cfg, prompt[:2, :16], 3, device=self.dev)
+        res = {}
+        for name in ("eager", "graphed"):
+            with (eager_ticks() if name == "eager"
+                  else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                self._zero_counts()
+                t0 = time.perf_counter()
+                out = gpt.generate(params, cfg, prompt, N, device=self.dev)
+                torch.cuda.synchronize()
+                res[name] = (out, (time.perf_counter() - t0) * 1e3)
+                counts = self._read_counts(f"moe generate {name}", (
+                    "flash_attention_fwd", "decode_attention"))
+                self._expect_counts(f"moe generate {name}", counts, {
+                    "flash_attention_fwd": L,
+                    "decode_attention": L * (N - 1)})
+        same = torch.equal(res["eager"][0], res["graphed"][0])
+        log("[moe] " + json.dumps(dict(
+            path="generate bf16", batch=4, prompt=256, new_tokens=N,
+            eager_ms=round(res["eager"][1], 3),
+            graphed_ms=round(res["graphed"][1], 3),
+            graphed_equals_eager=same)))
+        if not same:
+            raise AssertionError("moe generate: graphed output differs "
+                                 "from eager")
+        # the 12-request replay, paged, prefill_chunk=128
+        sess = self._session(params, cfg, paged=True)
+        _, line, counts = self._replay("moe paged chunk=128", sess,
+                                       self._server_trace(cfg), 128)
+        self._expect_tick_counts("moe paged chunk=128", counts, line, L,
+                                 "decode_attention_paged")
+        del sess
+        torch.cuda.empty_cache()
+        # device time of a decode tick and a W=128 chunk tick, MoE
+        # against the dense model
+        dense_cfg, dense = self._model()
+        ticks = [self._tick_device_ms("moe bf16", params, cfg, by_op=True),
+                 self._tick_device_ms("dense bf16", dense, dense_cfg,
+                                      by_op=True)]
+        # w8kv8: the experts' codes through quant_matmul, 2 E a layer
+        qcfg = gpt.gpt3_1p3b(moe_experts=8, moe_top_k=2,
+                             moe_capacity_factor=2.0, weight_quant="int8",
+                             kv_cache_dtype="int8")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qp = quantize_gpt_params(params, qcfg, 8)
+        torch.cuda.synchronize()
+        from paddle_tpu_torch.quantization import quant_param_stats
+        log("[moe] " + json.dumps(dict(
+            path="quantize w8kv8", s=round(time.perf_counter() - t0, 3),
+            **quant_param_stats(qp, qcfg))))
+        del params
+        torch.cuda.empty_cache()
+        self._quant_generate("moe w8kv8", qcfg, qp, prompt)
+        ticks.append(self._tick_device_ms("moe w8kv8", qp, qcfg))
+        log("[moe] " + json.dumps(dict(
+            path="tick device time", ticks=ticks,
+            gate_decode=self._gate_ms(qcfg, 8),
+            gate_chunk_w128=self._gate_ms(qcfg, 8 * 128))))
+        del qp
+        torch.cuda.empty_cache()
+
+    def phase_moe_parity(self):
+        """gpt3_1p3b(n_layers=2, f32, moe_experts=8) on the same numpy
+        weights, the CPU (plain versions) against the card (kernels): 3
+        training steps in each dispatch mode (losses within 1e-4), and
+        prefill plus 4 decode steps in fp and w8kv8 (logits within 1e-3,
+        identical greedy tokens)."""
+        torch = self.torch
+        import dataclasses
+        import numpy as np
+        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.quantization import quantize_gpt_params
+        cfg = gpt.gpt3_1p3b(n_layers=2, dtype=torch.float32, moe_experts=8)
+        weights = self._weights(cfg)
+        tok = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 129))
+        lines = []
+        for mode in ("alltoall", "einsum"):
+            tcfg = dataclasses.replace(cfg, moe_dispatch=mode, remat=True)
+            sides = {}
+            for dev in ("cpu", self.dev):
+                # AdamW updates in place: a copy a mode
+                params = {k: ({n: t.clone() for n, t in v.items()}
+                              if isinstance(v, dict) else v.clone())
+                          for k, v in weights[str(dev)].items()}
+                opt = gpt.adamw_init(params, device=dev)
+                step = gpt.build_train_step(tcfg, device=dev)
+                losses = []
+                for _ in range(3):
+                    params, opt, loss = step(params, opt, tok[:, :-1],
+                                             tok[:, 1:])
+                    losses.append(float(loss))
+                sides[str(dev)] = losses
+                del params, opt
+            err = max(abs(a - b) for a, b in zip(sides["cpu"],
+                                                 sides[str(self.dev)]))
+            lines.append(dict(path=f"train {mode}", batch=[2, 128],
+                              losses_cpu=sides["cpu"],
+                              losses_card=sides[str(self.dev)],
+                              max_loss_err=err, tol=1e-4))
+            log("[moe_parity] " + json.dumps(lines[-1]))
+            if err > 1e-4:
+                raise AssertionError(f"moe {mode} training: CPU and card "
+                                     f"disagree by {err}")
+        prompt = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                                   (2, 100))
+        for tag in ("f32", "w8kv8"):
+            scfg, trees = cfg, weights
+            if tag == "w8kv8":
+                scfg = dataclasses.replace(cfg, weight_quant="int8",
+                                           kv_cache_dtype="int8")
+                trees = {d: quantize_gpt_params(t, scfg, 8)
+                         for d, t in weights.items()}
+                codes_equal = all(torch.equal(
+                    trees["cpu"]["blocks"][n], trees[str(self.dev)]["blocks"][
+                        n].cpu()) for n in ("w_in", "w_out", "w_in_s",
+                                            "w_out_s"))
+                if not codes_equal:
+                    raise AssertionError("moe w8kv8: CPU and card codes "
+                                         "differ")
+            sides = [("cpu", trees["cpu"]),
+                     (str(self.dev), trees[str(self.dev)])]
+            if tag == "w8kv8":
+                # printed beside the limit, on the CPU: the spread of a
+                # forward on perturbed wpe, and two faults the limit must see
+                g = torch.Generator().manual_seed(0)
+                noisy = dict(trees["cpu"])
+                noisy["wpe"] = noisy["wpe"] * (1 + MOE_QUANT_NOISE_REL
+                                               * torch.randn(
+                                                   noisy["wpe"].shape,
+                                                   generator=g))
+                sides.append(("noise", noisy))
+                blocks = trees["cpu"]["blocks"]
+                expert_leaves = [n for n in ("w_in", "w_in_s", "b_in",
+                                             "w_out", "w_out_s", "b_out")
+                                 if n in blocks]
+                order = torch.arange(cfg.moe_experts)
+                order[:2] = torch.tensor([1, 0])
+                sides.append(("fault_swap", dict(trees["cpu"], blocks=dict(
+                    blocks, **{n: blocks[n][:, order]
+                               for n in expert_leaves}))))
+                drop = {n: blocks[n].clone() for n in ("w_out_s", "b_out")}
+                for t in drop.values():
+                    t[:, 0] = 0
+                sides.append(("fault_drop", dict(trees["cpu"], blocks=dict(
+                    blocks, **drop))))
+            logits = {}
+            on_cpu = ("noise", "fault_swap", "fault_drop")
+            for name, params in sides:
+                dev = "cpu" if name in on_cpu else name
+                kc, vc = gpt.init_kv_cache(scfg, 2, 128, device=dev)
+                lg, kc, vc = gpt.prefill(params, scfg, torch.as_tensor(
+                    prompt, device=dev), kc, vc)
+                logits[name] = [lg.cpu()]
+                logits[name + "_state"] = (kc, vc)
+            toks = logits["cpu"][0].argmax(-1)
+            for i in range(4):
+                for name, params in sides:
+                    if name.startswith("fault"):
+                        continue        # a fault shows in the prefill
+                    dev = "cpu" if name in on_cpu else name
+                    kc, vc = logits[name + "_state"]
+                    lg, _, _ = gpt.decode_one_token(
+                        params, scfg, toks.to(dev), 100 + i, kc, vc)
+                    logits[name].append(lg.cpu())
+                toks = logits["cpu"][-1].argmax(-1)
+            errs = [(c - g).abs().max().item() for c, g in
+                    zip(logits["cpu"], logits[str(self.dev)])]
+            tol, spread = 1e-3, {}
+            if tag == "w8kv8":
+                tol = MOE_QUANT_PARITY_TOL
+                spread = {name: max((c - n).abs().max().item() for c, n in
+                                    zip(logits["cpu"], logits[name]))
+                          for name in on_cpu}
+            agree = all(bool((c.argmax(-1) == g.argmax(-1)).all())
+                        for c, g in zip(logits["cpu"],
+                                        logits[str(self.dev)]))
+            lines.append(dict(path=f"serve {tag}", prompt=[2, 100],
+                              max_abs_err_prefill=errs[0],
+                              max_abs_err_decode=max(errs[1:]), tol=tol,
+                              cpu_spread=spread, greedy_tokens_equal=agree))
+            log("[moe_parity] " + json.dumps(lines[-1]))
+            if max(errs) > tol or not agree:
+                raise AssertionError(f"moe {tag} serving: CPU and card "
+                                     f"disagree: {errs}, tokens {agree}")
+            blind = [n for n in on_cpu[1:] if n in spread
+                     and spread[n] <= tol]
+            if blind:
+                raise AssertionError(f"moe {tag} serving: the limit {tol} "
+                                     f"does not see the faults {blind}")
+        del weights
+        torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- guards
+    GUARD_STEPS = 4       # the kill-resume trainer's steps
+    GUARD_BATCH = (2, 1024)
+
+    def _guard_cfg(self, n_layers=4):
+        from paddle_tpu_torch.models import gpt
+        return gpt.gpt3_1p3b(n_layers=n_layers, remat=True, fused_adamw=True,
+                             xent_chunks=4)
+
+    def _guard_data(self, cfg, t, B=4, S=2048):
+        import numpy as np
+        tok = np.random.default_rng(7000 + t).integers(0, cfg.vocab_size,
+                                                       (B, S + 1))
+        return (self.torch.as_tensor(tok[:, :-1], device=self.dev),
+                self.torch.as_tensor(tok[:, 1:], device=self.dev))
+
+    def _snapshot(self, params, opt):
+        from paddle_tpu_torch.models import gpt
+        return {k: v.clone() for k, v in
+                gpt.train_state_arrays(params, opt).items()}
+
+    def _untouched(self, params, opt, snap) -> list:
+        """Names of the train-state tensors whose bits differ from
+        ``snap``."""
+        from paddle_tpu_torch.models import gpt
+        torch = self.torch
+        now = gpt.train_state_arrays(params, opt)
+        bits = lambda t: t.reshape(-1).view(torch.uint8)
+        return [k for k, v in now.items()
+                if not torch.equal(bits(v), bits(snap[k]))]
+
+    def _guards_sentinel(self):
+        """Full-width dense gpt3_1p3b(remat, fused AdamW, xent_chunks=4):
+        a healthy guarded step bitwise equal to the unguarded one from
+        copies of the same state, the sentinel's cost, then the chaos
+        plan's nan_grad and inf_grad (the corrupted value fed through the
+        first positional-embedding element) and spike_loss (through
+        loss_cap) steps: each gives its code and applies nothing."""
+        torch = self.torch
+        import numpy as np
+        from paddle_tpu_torch.distributed.ft import ChaosPlan, chaos
+        from paddle_tpu_torch.distributed.ft.sentinel import (
+            H_APPLIED, H_CODE, H_GNORM, H_LOSS)
+        from paddle_tpu_torch.models import gpt
+        _, base = self._model()
+        cfg = self._guard_cfg(base["blocks"]["w_in"].shape[0])
+        tokens, labels = self._guard_data(cfg, 0)
+        clone = lambda t: {k: ({n: x.clone() for n, x in v.items()}
+                               if isinstance(v, dict) else v.clone())
+                           for k, v in t.items()}
+        pa, pb = clone(base), clone(base)
+        oa, ob = (gpt.adamw_init(p, device=self.dev) for p in (pa, pb))
+        step = gpt.build_train_step(cfg, device=self.dev)
+        guarded = gpt.build_train_step(cfg, device=self.dev, sentinel=True)
+        times = {"plain": [], "guarded": []}
+        health = []
+        self._zero_counts()
+        for i in range(4):
+            for name in ("plain", "guarded"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if name == "plain":
+                    pa, oa, loss = step(pa, oa, tokens, labels)
+                    last = float(loss)
+                else:
+                    pb, ob, h = guarded(pb, ob, tokens, labels, float("inf"))
+                    health.append(h.cpu().tolist())
+                torch.cuda.synchronize()
+                if i:           # the first step of each is the warm-up
+                    times[name].append(time.perf_counter() - t0)
+        counts = self._read_counts("guards healthy", ("fused_adamw",))
+        bad = self._untouched(pb, ob, self._snapshot(pa, oa))
+        ok = not bad and all(h[H_APPLIED] == 1.0 and h[H_CODE] == 0.0
+                             for h in health) and health[-1][H_LOSS] == last
+        plain_ms = 1e3 * sum(times["plain"]) / len(times["plain"])
+        guard_ms = 1e3 * sum(times["guarded"]) / len(times["guarded"])
+        log("[guards] " + json.dumps(dict(
+            path="healthy guarded vs unguarded, 4 steps each",
+            bitwise_equal=not bad, differing=bad[:4], health=health,
+            step_ms_plain=[round(t * 1e3, 3) for t in times["plain"]],
+            step_ms_guarded=[round(t * 1e3, 3) for t in times["guarded"]],
+            sentinel_cost_ms=round(guard_ms - plain_ms, 3),
+            sentinel_cost_share=round(guard_ms / plain_ms - 1, 4))))
+        # 8 applied steps (4 each): remat runs each forward twice
+        self._expect_counts("guards healthy", counts, {
+            "flash_attention_fwd": 16 * cfg.n_layers,
+            "flash_attention_bwd_dq": 8 * cfg.n_layers,
+            "flash_attention_bwd_dkv": 8 * cfg.n_layers,
+            "fused_adamw": 16 * 8})
+        if not ok:
+            raise AssertionError(f"guards: healthy guarded step differs: "
+                                 f"{bad[:4]}, {health}")
+        del pa, oa
+        torch.cuda.empty_cache()
+        plan = ChaosPlan.parse("nan_grad@step=1,inf_grad@step=2,"
+                               "spike_loss@step=3:x40")
+        want = {1: 3, 2: 3, 3: 4}
+        self._zero_counts()
+        for t in (1, 2, 3):
+            snap = self._snapshot(pb, ob)
+            probe = pb["wpe"][:1, :1].clone()
+            x, _, kinds = chaos.corrupt_batch(plan, t, probe, labels)
+            cap = float("inf")
+            if "spike_loss" in kinds:
+                cap = health[-1][H_LOSS] / 40.0
+            pb["wpe"][:1, :1] = x
+            poisoned = self._snapshot(pb, ob)
+            pb, ob, h = guarded(pb, ob, tokens, labels, cap)
+            h = h.cpu().tolist()
+            bad = self._untouched(pb, ob, poisoned)
+            pb["wpe"][:1, :1] = probe
+            bad += self._untouched(pb, ob, snap)
+            log("[guards] " + json.dumps(dict(
+                path="anomalous step", step=t, faults=kinds, loss_cap=cap,
+                health=h, params_and_moments_untouched=not bad)))
+            if h[H_APPLIED] != 0.0 or int(h[H_CODE]) != want[t] or bad:
+                raise AssertionError(f"guards step {t} ({kinds}): health "
+                                     f"{h}, changed {bad[:4]}")
+        counts = self._read_counts("guards anomalous", ())
+        self._expect_counts("guards anomalous", counts, {
+            "flash_attention_fwd": 6 * cfg.n_layers,
+            "flash_attention_bwd_dq": 3 * cfg.n_layers,
+            "flash_attention_bwd_dkv": 3 * cfg.n_layers})
+        del pb, ob, base
+        torch.cuda.empty_cache()
+
+    def _guarded_run(self, cfg, n_steps, mask=(), plan=None, mgr=None,
+                     guard=None):
+        """run_guarded over gpt3_1p3b(n_layers=4) at full width from
+        init_params seed 0, batches from the step index, nan_grad faults
+        fed through the first positional-embedding element; with ``mgr``
+        a save every 2 applied steps and restores from the last commit.
+        Returns (losses, guard, save/restore timings)."""
+        torch = self.torch
+        from paddle_tpu_torch.distributed.ft import (ChaosPlan, StepGuard,
+                                                     chaos, latest_step,
+                                                     run_guarded)
+        from paddle_tpu_torch.models import gpt
+        plan = plan or ChaosPlan()
+        guard = guard or StepGuard(name="chip")
+        guard.quarantined.update(mask)
+        params = gpt.init_params(cfg, seed=0, device=self.dev)
+        opt = gpt.adamw_init(params, device=self.dev)
+        guarded = gpt.build_train_step(cfg, device=self.dev, sentinel=True)
+        timing = {"save_blocked_s": [], "restore_s": []}
+
+        def data_for(t):
+            tokens, labels = self._guard_data(cfg, t, *self.GUARD_BATCH)
+            probe = torch.zeros((1, 1), dtype=cfg.dtype, device=self.dev)
+            x, _, kinds = chaos.corrupt_batch(plan, t, probe, labels)
+            return (tokens, x if kinds else None), labels
+
+        def step_fn(state, x, y, cap):
+            p, o = state
+            tokens, poison = x
+            if poison is None:
+                p, o, h = guarded(p, o, tokens, y, cap)
+                return (p, o), h
+            keep = p["wpe"][:1, :1].clone()
+            p["wpe"][:1, :1] = poison
+            p, o, h = guarded(p, o, tokens, y, cap)
+            p["wpe"][:1, :1] = keep     # nothing else moved: masked
+            return (p, o), h
+
+        saver = restorer = None
+        if mgr is not None:
+            def saver(nxt, state, g):
+                t0 = time.perf_counter()
+                mgr.save(nxt, gpt.train_state_arrays(*state),
+                         {"train": {"next_step": int(nxt)},
+                          "guard": g.state_dict()})
+                timing["save_blocked_s"].append(time.perf_counter() - t0)
+
+            def restorer(g):
+                if latest_step(mgr.directory) is None:
+                    return None
+                t0 = time.perf_counter()
+                arrays, aux, _ = mgr.restore()
+                state = gpt.restore_train_state(arrays, cfg, device=self.dev)
+                torch.cuda.synchronize()
+                timing["restore_s"].append(time.perf_counter() - t0)
+                return state, int(aux["train"]["next_step"])
+
+        _, losses = run_guarded(step_fn, guard, (params, opt), data_for,
+                                n_steps, save_every=2 if mgr else 0,
+                                saver=saver, restorer=restorer)
+        if mgr is not None:
+            t0 = time.perf_counter()
+            mgr.wait()
+            timing["final_wait_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return losses, guard, timing
+
+    def _guards_rollback(self, tmp):
+        """run_guarded with a CheckpointManager under ``tmp``: a burst of
+        two poisoned steps rolls back to the last commit, quarantines
+        them, and the run ends on the trajectory of a clean run that
+        skips them, bit for bit."""
+        import os
+        from paddle_tpu_torch.distributed.ft import (ChaosPlan,
+                                                     CheckpointManager,
+                                                     StepGuard)
+        cfg = self._guard_cfg()
+        mgr = CheckpointManager(os.path.join(tmp, "rollback"), keep=2,
+                                name="chip")
+        guard = StepGuard(max_consecutive=2, name="chip")
+        la, ga, timing = self._guarded_run(
+            cfg, 7, plan=ChaosPlan.parse("nan_grad@step=3-4"), mgr=mgr,
+            guard=guard)
+        lb, _, _ = self._guarded_run(cfg, 7, mask={3, 4})
+        _, aux, _ = mgr.restore()
+        st = mgr.stats
+        line = dict(
+            path="run_guarded rollback", config="gpt3_1p3b(n_layers=4)",
+            batch=list(self.GUARD_BATCH), losses=la, clean_losses=lb,
+            rollbacks=ga.rollbacks, quarantined=sorted(ga.quarantined),
+            restored_step=ga.last_restored_step,
+            aux_quarantine=aux["guard"]["quarantined"],
+            bytes_per_commit=st["bytes_last"], commits=st["commits"],
+            save_blocked_s=[round(t, 3) for t in timing["save_blocked_s"]],
+            bg_write_ms_total=round(st["bg_write_ms_total"], 1),
+            commit_ms_last=round(st["commit_ms_last"], 1),
+            restore_s=[round(t, 3) for t in timing["restore_s"]])
+        log("[guards] " + json.dumps(line))
+        if ga.rollbacks != 1 or sorted(ga.quarantined) != [3, 4] or \
+                ga.last_restored_step != 4 or \
+                aux["guard"]["quarantined"] != [3, 4] or \
+                sorted(la) != [0, 1, 2, 5, 6] or la != lb:
+            raise AssertionError(f"guards rollback: {line}")
+
+    def _guards_kill_resume(self, tmp):
+        """A trainer child (this script, --guards-child) runs
+        uninterrupted; a second is SIGKILLed after its first commit; a
+        third resumes from that commit. The resumed losses equal the
+        uninterrupted run's, bit for bit."""
+        import os
+        import signal
+        from paddle_tpu_torch.distributed.ft import latest_step
+
+        def child(mode, d):
+            return [sys.executable, str(ROOT / "chip_smoke.py"),
+                    "--guards-child", d, mode]
+
+        def run(mode, d):
+            t0 = time.perf_counter()
+            out = subprocess.run(child(mode, d), capture_output=True,
+                                 text=True, timeout=600)
+            if out.returncode != 0:
+                raise AssertionError(f"guards {mode} child exited "
+                                     f"{out.returncode}: {out.stderr[-2000:]}")
+            res = json.loads([ln for ln in out.stdout.splitlines()
+                              if ln.startswith("{")][-1])
+            res["wall_s"] = round(time.perf_counter() - t0, 2)
+            return res
+
+        full = run("full", os.path.join(tmp, "full"))
+        kill_dir = os.path.join(tmp, "killed")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(child("slow", kill_dir),
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            while latest_step(kill_dir) is None:
+                if proc.poll() is not None:
+                    raise AssertionError("guards: the trainer exited before "
+                                         "a commit: "
+                                         + proc.stderr.read()[-2000:])
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError("guards: no commit in 600 s")
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGKILL)
+        finally:
+            proc.wait()
+            proc.stdout.close()
+            proc.stderr.close()
+        committed = latest_step(kill_dir)
+        resumed = run("resume", kill_dir)
+        line = dict(path="kill and resume", config="gpt3_1p3b(n_layers=4)",
+                    steps=self.GUARD_STEPS, batch=list(self.GUARD_BATCH),
+                    killed_returncode=proc.returncode,
+                    committed_at_kill=committed,
+                    resumed_from=resumed["start_step"],
+                    losses_full=full["losses"],
+                    losses_resumed=resumed["losses"],
+                    child_wall_s=dict(full=full["wall_s"],
+                                      resume=resumed["wall_s"]),
+                    restore_s=resumed["restore_s"])
+        log("[guards] " + json.dumps(line))
+        if proc.returncode != -signal.SIGKILL or committed is None or \
+                resumed["start_step"] != committed or \
+                resumed["losses"] != full["losses"][committed:]:
+            raise AssertionError(f"guards kill/resume: {line}")
+
+    def guards_child(self, d, mode):
+        """The trainer of _guards_kill_resume (a process of its own):
+        GUARD_STEPS steps of gpt3_1p3b(n_layers=4) from init_params seed
+        0, a blocking-free save every 2 steps. ``slow`` sleeps 2 s a step
+        so the parent can kill it mid-run; ``resume`` restores the newest
+        commit first. Prints the losses as one JSON line."""
+        torch = self.torch
+        from paddle_tpu_torch.distributed.ft import (CheckpointManager,
+                                                     latest_step)
+        from paddle_tpu_torch.models import gpt
+        cfg = self._guard_cfg()
+        params = gpt.init_params(cfg, seed=0, device=self.dev)
+        opt = gpt.adamw_init(params, device=self.dev)
+        step = gpt.build_train_step(cfg, device=self.dev)
+        mgr = CheckpointManager(d, keep=1, name="chip_child")
+        start, restore_s = 0, None
+        if mode == "resume" and latest_step(d) is not None:
+            t0 = time.perf_counter()
+            arrays, aux, s = mgr.restore()
+            params, opt = gpt.restore_train_state(arrays, cfg, device=self.dev)
+            torch.cuda.synchronize()
+            restore_s = round(time.perf_counter() - t0, 3)
+            start = int(aux["train"]["next_step"])
+        losses = []
+        for t in range(start, self.GUARD_STEPS):
+            params, opt, loss = step(params, opt, *self._guard_data(
+                cfg, t, *self.GUARD_BATCH))
+            losses.append(float(loss))
+            if (t + 1) % 2 == 0:
+                mgr.save(t + 1, gpt.train_state_arrays(params, opt),
+                         {"train": {"next_step": t + 1}})
+            if mode == "slow":
+                time.sleep(2.0)
+        mgr.wait()
+        print(json.dumps(dict(start_step=start, losses=losses,
+                              restore_s=restore_s)), flush=True)
+        return 0
+
+    def phase_guards(self):
+        """The training sentinel at full width, run_guarded with a
+        checkpoint manager (rollback and quarantine), and a SIGKILLed
+        trainer resumed on its uninterrupted trajectory."""
+        import tempfile
+        self._guards_sentinel()
+        with tempfile.TemporaryDirectory() as tmp:
+            self._guards_rollback(tmp)
+            self._guards_kill_resume(tmp)
+
 
 def gpu_line() -> str:
     return subprocess.run(
@@ -4401,6 +5189,9 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ",".join(PHASES))
     # the resil phase's crash victim, run as a process of its own
     ap.add_argument("--resil-child", default=None, help=argparse.SUPPRESS)
+    # the guards phase's trainer (DIR MODE), run as a process of its own
+    ap.add_argument("--guards-child", nargs=2, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -4424,6 +5215,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.resil_child:
         return Smoke(torch).resil_child(args.resil_child)
+    if args.guards_child:
+        return Smoke(torch).guards_child(*args.guards_child)
     card = gpu_line()
     log(f"[device] {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | python {sys.version.split()[0]}")

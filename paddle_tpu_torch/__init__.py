@@ -7,7 +7,9 @@ cache, speculative decoding, captured tick graphs, the resilience plane
 with its crash journal, tenant metering, request tracing, and
 ``ServingFleet`` replicas with prefill/decode handoff) and trains it
 there (``models.gpt.build_train_step``, ``remat_policy`` "full" or
-"dots"), with hand-written CUDA
+"dots", the anomaly sentinel, ``distributed.ft``'s guard, rollback and
+checkpoint manager), dense or as a mixture of experts
+(``parallel.moe``), with hand-written CUDA
 kernels for flash attention forward and backward, decode attention (fp
 and scaled-int8 caches), the weight-only dequant-matmul, fused AdamW and
 the fused bias-dropout-residual LayerNorm of ``incubate.nn``

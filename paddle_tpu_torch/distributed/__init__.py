@@ -1,1 +1,2 @@
-"""Fault-tolerance pieces of the port that serving uses (``ft.chaos``)."""
+"""Distributed pieces of the port: checkpoints (``checkpoint``) and fault
+tolerance (``ft``: checkpoint manager, training sentinel, chaos plan)."""

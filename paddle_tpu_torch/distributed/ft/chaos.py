@@ -1,5 +1,6 @@
 """Deterministic chaos injection of the port: the fault-plan DSL of
-paddle_tpu/distributed/ft/chaos.py and its serving faults.
+paddle_tpu/distributed/ft/chaos.py, its training faults and its serving
+faults.
 
     PADDLE_TPU_CHAOS="slow_tick@tick=3:x120,queue_flood@tick=5-9:x4,kill@tick=11"
 
@@ -14,7 +15,19 @@ Grammar (comma-separated faults)::
                                        queue_flood only)
 
 The whole grammar parses, so a plan written for the reference reads the
-same here. The serving faults are injected by
+same here. The training faults:
+
+- ``nan_grad@step=N`` / ``inf_grad@step=N`` — :func:`corrupt_batch`
+  writes NaN / +Inf into element 0 of the step's float input batch ``x``
+  (a copy), so loss and gradients turn non-finite;
+- ``spike_loss@step=N:xM`` — :func:`corrupt_batch` scales the targets by
+  M, a finite loss spike for the sentinel's ``loss_cap`` test;
+- ``ckpt_write_fail@save=N`` — :func:`install_ckpt_faults` arms
+  ``atomic.set_fault_hook`` so the N-th checkpoint commit of the process
+  dies between the staging write and the rename;
+- ``kill@step=N`` — :func:`maybe_kill` SIGKILLs the trainer at step N.
+
+The serving faults are injected by
 ``serving/resilience.py``'s ``ResiliencePolicy.on_poll_start``:
 
 - ``kill@tick=N`` — :func:`maybe_kill` SIGKILLs the process at the
@@ -26,11 +39,8 @@ same here. The serving faults are injected by
   through the retry path every time it reaches a decode slot, until its
   retry budget ends in a loud FAILED.
 
-The training faults (``nan_grad``, ``inf_grad``, ``spike_loss``,
-``ckpt_write_fail``, ``kill@step``) parse but have no injection point in
-the port yet: the batch corruption and checkpoint hooks come with the
-training guards. Every injection is exact and seed-free — the plan is the
-seed — so a chaos run replays bit for bit.
+Every injection is exact and seed-free — the plan is the seed — so a
+chaos run replays bit for bit.
 """
 from __future__ import annotations
 
@@ -38,7 +48,13 @@ import os
 import re
 import signal
 
-__all__ = ["Fault", "ChaosPlan", "plan_from_env", "maybe_kill",
+import numpy as np
+import torch
+
+from . import atomic
+
+__all__ = ["Fault", "ChaosPlan", "plan_from_env", "corrupt_batch",
+           "maybe_kill", "install_ckpt_faults", "clear_ckpt_faults",
            "BATCH_KINDS", "SERVING_KINDS", "KINDS"]
 
 BATCH_KINDS = ("nan_grad", "inf_grad", "spike_loss")
@@ -157,12 +173,36 @@ def plan_from_env(env_var: str = "PADDLE_TPU_CHAOS") -> ChaosPlan:
 def _record(kind: str, **fields) -> None:
     """A planned fault fired: the ``chaos_inject`` event and the
     ``chaos_injections_total`` counter (telemetry on only)."""
-    from ...observability import events
-    if not events.enabled():
-        return
-    from ...framework.monitor import stat_registry
-    stat_registry.register("chaos_injections_total").add(1)
-    events.emit("chaos_inject", fault=kind, **fields)
+    from ...observability import guard as obs_guard
+    obs_guard.record_chaos(kind, **fields)
+
+
+def _copy(a):
+    return a.clone() if torch.is_tensor(a) else np.array(a, copy=True)
+
+
+def corrupt_batch(plan: ChaosPlan, step: int, x, y):
+    """Apply this step's planned batch faults to ``(x, y)`` (numpy arrays
+    or tensors). Returns ``(x, y, injected_kinds)`` — inputs untouched
+    (the same objects) when no fault fires, else corrupted copies.
+    Poisoning happens on a copy of the batch before it enters the step,
+    so the step under test is the one production runs."""
+    injected = []
+    for fault in plan.matching("nan_grad", step):
+        x = _copy(x)
+        x.reshape(-1)[0] = float("nan")
+        injected.append(fault.kind)
+    for fault in plan.matching("inf_grad", step):
+        x = _copy(x)
+        x.reshape(-1)[0] = float("inf")
+        injected.append(fault.kind)
+    for fault in plan.matching("spike_loss", step):
+        y = y * (torch.tensor(fault.magnitude, dtype=y.dtype)
+                 if torch.is_tensor(y) else np.float32(fault.magnitude))
+        injected.append(fault.kind)
+    for kind in injected:
+        _record(kind, step=int(step))
+    return x, y, injected
 
 def maybe_kill(plan: ChaosPlan, step: int, key: str = "step") -> None:
     """SIGKILL the process if the plan says this counter value dies.
@@ -171,3 +211,35 @@ def maybe_kill(plan: ChaosPlan, step: int, key: str = "step") -> None:
     if plan.matching("kill", step, key=key):
         _record("kill", **{key: int(step)})
         os.kill(os.getpid(), signal.SIGKILL)
+
+
+class _CkptFaultHook:
+    """Counting commit-window hook: raises on the planned save ordinals
+    (1-based — "save=2" is the second commit this process attempts)."""
+
+    def __init__(self, plan: ChaosPlan):
+        self.plan = plan
+        self.commits = 0
+
+    def __call__(self):
+        self.commits += 1
+        if self.plan.matching("ckpt_write_fail", self.commits):
+            _record("ckpt_write_fail", save=self.commits)
+            raise OSError(
+                f"chaos: injected checkpoint write failure at commit "
+                f"#{self.commits}")
+
+
+def install_ckpt_faults(plan: ChaosPlan):
+    """Arm ``atomic.set_fault_hook`` with the plan's ckpt_write_fail
+    faults (no-op, and the hook is NOT disturbed, when the plan has
+    none).  Returns the installed hook (exposes ``.commits``) or None."""
+    if not any(f.kind == "ckpt_write_fail" for f in plan.faults):
+        return None
+    hook = _CkptFaultHook(plan)
+    atomic.set_fault_hook(hook)
+    return hook
+
+
+def clear_ckpt_faults() -> None:
+    atomic.set_fault_hook(None)

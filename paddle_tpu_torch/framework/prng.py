@@ -1,8 +1,8 @@
 """JAX's default PRNG (threefry2x32) in PyTorch, bit for bit.
 
 Port of what jax 0.9 computes for ``jax.random.PRNGKey``, ``split``,
-``fold_in``, ``bits`` (uint32), ``uniform`` and ``normal`` (float32) and
-``categorical`` (gumbel-max, ``mode="low"``) with
+``fold_in``, ``bits`` (uint32), ``uniform``, ``normal`` and ``gumbel``
+(float32, ``mode="low"``) and ``categorical`` (gumbel-max) with
 ``jax_threefry_partitionable`` on (its default): counters are the 64-bit
 flat index of each element, split into (hi, lo) words, and a 32-bit draw
 is the XOR of the two output words. A draw's element depends only on its
@@ -237,18 +237,17 @@ def _fma32(a, b, c) -> torch.Tensor:
     float32, is the fused result unless it landed exactly on a float32
     rounding midpoint (or below float32's normal range). Only then is
     the sum's error (exact by TwoSum) needed: it moves the sum one
-    float64 step toward the exact value, off the midpoint."""
+    float64 step toward the exact value, off the midpoint. The correction
+    is computed everywhere and kept only there, so no element's value is
+    read on the host and a captured CUDA graph may hold the ops."""
     p = a.double() * b
     s = p + c
     si = s.view(torch.int64)
     suspect = ((si & 0x1FFFFFFF) == 0x10000000) | (s.abs() < _F32_TINY)
-    if bool(suspect.any()):
-        bb = s - p
-        err = (p - (s - bb)) + (c - bb)
-        step = torch.sign(err * s).long()
-        si = torch.where(suspect, si + step, si)
-        s = si.view(torch.float64)
-    return s.float()
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    step = torch.sign(err * s).long()
+    return torch.where(suspect, si + step, si).view(torch.float64).float()
 
 
 def _f32(x: float) -> float:
@@ -283,8 +282,8 @@ _ERFINV_GE5 = tuple(_f32(c) for c in (
 
 
 def _log_f32(y: torch.Tensor) -> torch.Tensor:
-    """XLA's float32 ``log`` on the CPU, for finite y > 0 (the only inputs
-    :func:`_log1p_f32` gives it): y = m 2^e with m in [sqrt(1/2),
+    """XLA's float32 ``log`` on the CPU, for finite y > 0 (what
+    :func:`_log1p_f32` and :func:`gumbel` give it): y = m 2^e with m in [sqrt(1/2),
     sqrt(2)), a degree-8 polynomial in m - 1, and e ln 2 added in two
     parts."""
     y = torch.clamp_min(y, _F32_TINY)
@@ -320,6 +319,35 @@ def _log1p_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < _f32(0.41421356237309504880), small, large)
 
 
+# XLA's f32 exp (Cephes): ln 2 in two parts and the polynomial of e^r
+_EXP_LN2 = (_f32(-0.693359375), _f32(2.12194440e-4))
+_EXP_P = tuple(_f32(c) for c in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+    1.6666665459e-1, 5.0000001201e-1))
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``exp`` on the CPU, bit for bit, for x <= 88 (the
+    softmax's inputs are <= 0): n = floor(x log2(e) + 1/2), r = x - n ln 2
+    in two fused steps, a degree-5 polynomial in r, times 2^n; results
+    below float32's normal range flush to 0, as XLA's CPU code does.
+    ``torch.exp`` gives other bits. No device-to-host read, so the same
+    ops run in a captured CUDA graph and give the same bits on every
+    device."""
+    x = x.float()
+    xc = x.clamp(-88.0, 88.0)
+    n = torch.floor(_fma32(xc, _f32(1.44269504088896341), 0.5))
+    r = _fma32(n, _EXP_LN2[0], xc)
+    r = _fma32(n, _EXP_LN2[1], r)
+    c = _EXP_P
+    y = _fma32(r, c[0], c[1])
+    for ci in c[2:]:
+        y = _fma32(y, r, ci)
+    y = _fma32(y, r * r, r) + 1.0
+    y = y * ((n.int() + 127) << 23).view(torch.float32)
+    return torch.where(y < _F32_TINY, torch.zeros_like(y), y)
+
+
 def _erf_inv_f32(u: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``erf_inv`` (Giles' single-precision polynomials in
     ``w = -log1p(-u^2)``), for u in (-1, 1)."""
@@ -347,15 +375,26 @@ def normal(key, shape=(), dtype=torch.float32, device=None,
     return (_erf_inv_f32(u) * _f32(math.sqrt(2.0))).to(dtype)
 
 
+def gumbel(key, shape=(), device=None, exact: bool = True) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` (its default ``mode=
+    "low"``): ``-log(-log(u))`` with u uniform over [tiny, 1) in float32,
+    on ``device`` (default the CUDA card). ``exact``: bit for bit, through
+    XLA's own f32 log (:func:`_log_f32`); ``exact=False`` takes
+    ``torch.log``, within an ulp of it and one fused op, the form the
+    sampling ticks use."""
+    u = uniform(key, shape, _F32_TINY, 1.0, device=device)
+    log = _log_f32 if exact else torch.log
+    return -log(-log(u))
+
+
 def categorical(key, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """``jax.random.categorical(key, logits, axis)``: the argmax of
-    ``logits`` plus gumbel noise ``-log(-log(u))``, u uniform over
-    [tiny, 1) in float32, drawn over the logits' whole shape from a host
-    pair or a tensor key ``[2]`` on the logits' device. Returns int64
-    indices with ``axis`` removed."""
+    ``logits`` plus :func:`gumbel` noise (its ``exact=False`` form, so the
+    captured sampling ticks stay free of host reads) drawn over the
+    logits' whole shape from a host pair or a tensor key ``[2]`` on the
+    logits' device. Returns int64 indices with ``axis`` removed."""
     if logits.dtype != torch.float32:
         raise ValueError(f"categorical draws float32 gumbel noise; got "
                          f"{logits.dtype} logits")
-    u = uniform(key, logits.shape, _F32_TINY, 1.0, device=logits.device)
-    g = -torch.log(-torch.log(u))
+    g = gumbel(key, logits.shape, device=logits.device, exact=False)
     return torch.argmax(g + logits, dim=axis)

@@ -1,8 +1,9 @@
 """GPT on one device — port of the single-chip halves of
-paddle_tpu/models/gpt.py: the serving path (dense FFN; fp or weight-only
-int8/int4 weights, ``cfg.weight_quant``; dense fp or scaled-int8 KV
-cache, ``cfg.kv_cache_dtype``) and the dense train step
-(``build_spmd_train_step`` on a one-device mesh).
+paddle_tpu/models/gpt.py: the serving path (dense or MoE FFN; fp or
+weight-only int8/int4 weights, ``cfg.weight_quant``; dense fp or
+scaled-int8 KV cache, ``cfg.kv_cache_dtype``) and the train step
+(``build_spmd_train_step`` on a one-device mesh, with its anomaly
+sentinel).
 
 Layouts are the reference's, so a weight conversion is only a dtype
 change: weights multiply as ``x @ W`` with ``W`` [D_in, D_out], block
@@ -44,6 +45,14 @@ steps, and ``kv_cache_dtype="int8"`` makes each cache the pair ``(codes
 int8 [L, B, H, S, hd], steps f32 [L, B, H, S])``, one absmax step per
 written position and head. Training ignores ``weight_quant``, as the
 reference does.
+
+MoE (``cfg.moe_experts > 0``): every block's FFN is ``moe_experts``
+experts behind a top-1 or top-2 gate. Training routes tokens through
+``parallel.moe``'s capacity buckets (``moe_dispatch`` "alltoall" or
+"einsum"), each micro-batch on its own, and adds ``moe_aux_weight`` times
+the balance loss; serving (:func:`_moe_infer_ffn`) runs every expert over
+every token and keeps each output only where the token chose that expert,
+so the tick bodies keep static shapes and read nothing back to the host.
 """
 from __future__ import annotations
 
@@ -67,6 +76,7 @@ from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.fused_adamw import (fused_adamw_update, tree_flatten,
                                        tree_unflatten)
 from ..ops.kernels.primitives import f32_mm
+from ..parallel import moe as moe_mod
 from ..quantization.gpt_quant import (W_BITS, dequant_rows,
                                       kv_cache_quantized, quantize_rows,
                                       wq_einsum)
@@ -78,7 +88,8 @@ _BLOCK_KEYS = ("ln1_g", "ln1_b", "w_qkv", "b_qkv", "w_o", "b_o", "ln2_g",
 
 @dataclasses.dataclass
 class GPTConfig:
-    """The dense model, its training schedule and its serving fields."""
+    """The model (dense or MoE), its training schedule and its serving
+    fields."""
     vocab_size: int = 50304
     hidden: int = 2048
     n_layers: int = 24
@@ -88,14 +99,25 @@ class GPTConfig:
     # this one, applies no dropout
     dropout: float = 0.0
     dtype: torch.dtype = torch.bfloat16
-    # mesh degrees and MoE: this slice is the dense single-device model
+    # mesh degrees: the port runs on one device
     dp: int = 1
     pp: int = 1
     mp: int = 1
     sp: int = 1
     sharding: int = 1
     ep: int = 1
+    # MoE: > 0 replaces every block's FFN with this many experts, gated
+    # top-1 (switch) or top-2 (GShard); capacity max(1, int(cf * tokens *
+    # k / E)) slots an expert per micro-batch in training
     moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.5
+    moe_aux_weight: float = 1e-2
+    # "alltoall": sort-based bucket route; "einsum": dense GShard masks
+    moe_dispatch: str = "alltoall"
+    # wire dtype of the (identity, at ep = 1) all_to_all: None, a torch
+    # float dtype, or "int8" (one absmax step a bucket row)
+    moe_dispatch_dtype: torch.dtype | str | None = None
     # schedule
     micro_batches: int = 1
     # recompute each block on the backward pass (torch.utils.checkpoint)
@@ -138,11 +160,24 @@ class GPTConfig:
                 "for a plain narrow cache")
         degrees = {n: getattr(self, n) for n in
                    ("dp", "pp", "mp", "sp", "sharding", "ep")}
-        if any(d != 1 for d in degrees.values()) or self.moe_experts:
+        if any(d != 1 for d in degrees.values()):
             raise NotImplementedError(
-                f"mesh degrees {degrees}, moe_experts={self.moe_experts}: "
-                "the port runs the dense model on one device; MoE and "
-                "multi-device parallelism belong to later slices")
+                f"mesh degrees {degrees}: the port runs on one device; "
+                "multi-device parallelism belongs to later slices")
+        if self.moe_experts > 0:
+            if self.moe_top_k not in (1, 2):
+                raise ValueError(
+                    f"moe_top_k={self.moe_top_k} unsupported: gating is "
+                    "switch (1) or GShard top-2 (2)")
+            if self.moe_experts % self.ep:
+                raise ValueError(
+                    f"moe_experts={self.moe_experts} must divide evenly "
+                    f"over the ep axis, got ep={self.ep}")
+            if self.moe_dispatch not in ("alltoall", "einsum"):
+                raise ValueError(
+                    f"moe_dispatch={self.moe_dispatch!r} unknown: expected "
+                    "'alltoall' (sort-based bucket route) or 'einsum' "
+                    "(dense GShard masks)")
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(
                 f"remat_policy={self.remat_policy!r} unknown: expected "
@@ -185,11 +220,19 @@ def _shapes(cfg: GPTConfig, quantized: bool = False) -> dict:
                          "ln2_g": (L, D), "ln2_b": (L, D),
                          "w_in": (L, D, 4 * D), "b_in": (L, 4 * D),
                          "w_out": (L, 4 * D, D), "b_out": (L, D)}}
+    # MoE: a [L, D, E] gate, and the FFN leaves gain an expert axis
+    ex = (cfg.moe_experts,) if cfg.moe_experts > 0 else ()
+    blocks = shapes["blocks"]
+    if ex:
+        blocks.update({"gate": (L, D, ex[0]), "w_in": (L, *ex, D, 4 * D),
+                       "b_in": (L, *ex, 4 * D), "w_out": (L, *ex, 4 * D, D),
+                       "b_out": (L, *ex, D)})
     if quantized:
         pack = 2 if _wq_bits(cfg) == 4 else 1
-        blocks = shapes["blocks"]
-        blocks.update({"w_in": (L, D // pack, 4 * D), "w_in_s": (L, 4 * D),
-                       "w_out": (L, 4 * D // pack, D), "w_out_s": (L, D)})
+        blocks.update({"w_in": (L, *ex, D // pack, 4 * D),
+                       "w_in_s": (L, *ex, 4 * D),
+                       "w_out": (L, *ex, 4 * D // pack, D),
+                       "w_out_s": (L, *ex, D)})
         shapes.update({"wte": (V, D // pack), "wte_s": (V,)})
     return shapes
 
@@ -198,34 +241,35 @@ def _shapes(cfg: GPTConfig, quantized: bool = False) -> dict:
 _QUANT_LEAVES = ("w_in", "w_out", "wte", "w_in_s", "w_out_s", "wte_s")
 
 
-# elements of one f32 draw: a leaf is drawn this many at a time (one
-# layer of a [L, ...] leaf whenever a layer is larger)
+# elements of one f32 draw: a leaf is drawn this many at a time
 _DRAW_ELEMS = 1 << 24
 # the reference's key of each drawn leaf: split(PRNGKey(seed), 10)[i]
 _INIT_KEYS = {"wte": 0, "wpe": 1, "w_qkv": 2, "w_o": 3, "w_in": 4,
-              "w_out": 5}
+              "w_out": 5, "gate": 6}
 
 
 def init_leaf(key, shape, cfg: GPTConfig, device, div=None,
               rows=None) -> torch.Tensor:
     """One matrix leaf as the reference draws it: ``normal(key, shape) *
     0.02`` in f32, cast to ``cfg.dtype``, then divided by ``div`` in
-    ``cfg.dtype`` (a true division by a 0-dim tensor). Drawn a block of
-    leading rows at a time (a layer of an [L, ...] leaf) through the
-    counter offset, so memory holds one block's f32 draw. ``rows``: only
-    those leading rows (a ``range``), e.g. one layer."""
+    ``cfg.dtype`` (a true division by a 0-dim tensor). Drawn
+    :data:`_DRAW_ELEMS` elements at a time through the counter offset
+    (an element's draw depends only on its flat index), so memory holds
+    one such block's f32 draw. ``rows``: only those leading rows (a
+    ``range``), e.g. one layer."""
     rows = range(shape[0]) if rows is None else rows
     row = math.prod(shape[1:])
-    per = max(1, _DRAW_ELEMS // max(row, 1))
     out = torch.empty((len(rows), *shape[1:]), dtype=cfg.dtype,
                       device=device)
+    flat = out.view(-1)
     divisor = (None if div is None else
                torch.tensor(div, dtype=cfg.dtype, device=device))
-    for i in range(0, len(rows), per):
-        r0, r1 = rows[i], rows[min(i + per, len(rows)) - 1] + 1
-        x = (prng.normal(key, (r1 - r0, *shape[1:]), device=device,
-                         offset=r0 * row) * 0.02).to(cfg.dtype)
-        out[i:i + r1 - r0] = x if divisor is None else x / divisor
+    base = rows[0] * row if len(rows) else 0
+    for i in range(0, flat.numel(), _DRAW_ELEMS):
+        n = min(_DRAW_ELEMS, flat.numel() - i)
+        x = (prng.normal(key, (n,), device=device, offset=base + i)
+             * 0.02).to(cfg.dtype)
+        flat[i:i + n] = x if divisor is None else x / divisor
     return out
 
 
@@ -233,7 +277,8 @@ def init_params(cfg: GPTConfig, seed: int = 0, device=None) -> dict:
     """The reference's weights, bit for bit: ``ks = split(PRNGKey(seed),
     10)``; wte, wpe, w_qkv, w_o, w_in and w_out are ``normal(ks[i]) *
     0.02`` (keys 0-5) cast to ``cfg.dtype``, w_o and w_out then divided
-    by sqrt(2L); unit LayerNorm gains, zero biases. jax's threefry and
+    by sqrt(2L); an MoE gate [L, D, E] from key 6, its w_in/w_out [L, E,
+    ...] from keys 4 and 5; unit LayerNorm gains, zero biases. jax's threefry and
     ``normal`` are ported bit for bit (``framework.prng``), so a seed
     gives the same weights on every device. Each leaf is drawn one layer
     (or 2^24 elements) at a time (:func:`init_leaf`)."""
@@ -307,7 +352,7 @@ def layer_params(params: dict) -> list[dict]:
     layers at once, so under autograd each stacked leaf gets one gradient
     (a stack of the layers'), not one full-size zero-padded add per layer."""
     blocks = params["blocks"]
-    keys = _BLOCK_KEYS + tuple(k for k in ("w_in_s", "w_out_s")
+    keys = _BLOCK_KEYS + tuple(k for k in ("gate", "w_in_s", "w_out_s")
                                if k in blocks)
     per_key = [blocks[k].unbind(0) for k in keys]
     return [dict(zip(keys, views)) for views in zip(*per_key)]
@@ -361,7 +406,10 @@ def _ffn_dense(x, h, p):
 def _ffn_serving(x, h, p, cfg: GPTConfig):
     """The FFN tail of the serving blocks. Quantized: both products run on
     the integer codes through ``wq_einsum`` (the quant_matmul kernel),
-    f32 out, cast back to h's dtype before the bias."""
+    f32 out, cast back to h's dtype before the bias. MoE:
+    :func:`_moe_infer_ffn`."""
+    if cfg.moe_experts > 0:
+        return x + _moe_infer_ffn(h, p, cfg)
     if not cfg.weight_quant:
         return _ffn_dense(x, h, p)
     bits = _wq_bits(cfg)
@@ -370,6 +418,58 @@ def _ffn_serving(x, h, p, cfg: GPTConfig):
     ff = F.gelu(ff, approximate="tanh")
     return x + wq_einsum("bse,ed->bsd", ff, p["w_out"], p["w_out_s"],
                          bits).to(h.dtype) + p["b_out"]
+
+
+def _experts_serving(h2, p, cfg: GPTConfig):
+    """Every expert's FFN over every token row h2 [T, D] -> [E, T, D] in
+    h's dtype: the products with f32 accumulation cast to h's dtype, then
+    the bias. fp: one batched product over E each (h2 broadcast);
+    quantized: ``wq_einsum`` on each expert's 2-D codes and steps, the
+    quant_matmul kernel (2 E launches)."""
+    if not cfg.weight_quant:
+        ff = torch.matmul(h2, p["w_in"]) + p["b_in"][:, None, :]
+        ff = F.gelu(ff, approximate="tanh")
+        return torch.matmul(ff, p["w_out"]) + p["b_out"][:, None, :]
+    bits = _wq_bits(cfg)
+    outs = []
+    for e in range(cfg.moe_experts):
+        ff = wq_einsum("bsd,de->bse", h2[None], p["w_in"][e],
+                       p["w_in_s"][e], bits)[0].to(h2.dtype) + p["b_in"][e]
+        ff = F.gelu(ff, approximate="tanh")
+        outs.append(wq_einsum("bse,ed->bsd", ff[None], p["w_out"][e],
+                              p["w_out_s"][e], bits)[0].to(ff.dtype)
+                    + p["b_out"][e])
+    return torch.stack(outs)
+
+
+def _moe_infer_ffn(h, p, cfg: GPTConfig):
+    """The serving MoE FFN, the function of the reference's
+    ``_moe_infer_ffn``: gate logits in f32, the top-k experts of each
+    token (renormalised over the two for top-2; switch keeps the raw
+    probability), no capacity, and the chosen experts' outputs summed in
+    f32 with those gates. The reference gathers the chosen experts'
+    weights per token ([B, S, k, D, 4D]); here every expert runs over
+    every token and its output is kept (``torch.where``) only where the
+    token chose it, so shapes are static and nothing is read back to the
+    host: the tick bodies stay capturable. The sum over E then holds k
+    non-zero terms and exact zeros, so any order of it gives the k-term
+    sum. At decode (B * k >= E) that reads each expert's weights once, as
+    the gather does; at prefill it computes E / k times the routed
+    products. h: [..., D]; returns [..., D] in h's dtype."""
+    k, E = cfg.moe_top_k, cfg.moe_experts
+    lead, D = h.shape[:-1], h.shape[-1]
+    h2 = h.reshape(-1, D)
+    probs = moe_mod.softmax_f32(h2.float() @ p["gate"].float())
+    top_p, top_i = moe_mod.top_k_first(probs, k)            # [T, k]
+    if k > 1:
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    # [E, T, k]: which of a token's choices is expert e
+    chosen = top_i[None] == torch.arange(E, device=h.device)[:, None, None]
+    gate = torch.where(chosen, top_p[None], torch.zeros_like(top_p[None]))
+    out = _experts_serving(h2, p, cfg).float()               # [E, T, D]
+    mix = torch.where(chosen.any(-1)[..., None], gate.sum(-1)[..., None]
+                      * out, torch.zeros_like(out)).sum(0)
+    return mix.to(h.dtype).reshape(*lead, D)
 
 
 class _LMHead(torch.autograd.Function):
@@ -691,6 +791,10 @@ def _block_prefill(x, p, cfg: GPTConfig, k_cache, v_cache, chunk: int,
     attn = attn.transpose(1, 2).reshape(x.shape[0], P, -1)
     x = x + attn @ p["w_o"] + p["b_o"]
     h = _layer_norm(x, p["ln2_g"], p["ln2_b"])
+    if cfg.moe_experts > 0 and 0 < chunk < P:
+        # the reference bounds its per-token expert gather chunk by chunk
+        return x + torch.cat([_moe_infer_ffn(h[:, c0:c0 + chunk], p, cfg)
+                              for c0 in range(0, P, chunk)], dim=1)
     return _ffn_serving(x, h, p, cfg)
 
 
@@ -1247,12 +1351,67 @@ def generate(params, cfg: GPTConfig, prompt_tokens, max_new_tokens=32,
 
 
 # ==========================================================================
-# Training: the dense single-device branch of build_spmd_train_step
+# Training: the single-device branch of build_spmd_train_step
 # ==========================================================================
-def _block(x, p, cfg: GPTConfig):
+def _expert_ffn(ps, expert_in):
+    """The experts' FFN on token buckets [E, T_e, D] in the model dtype,
+    ONE body for both dispatch modes: two batched products over E (``bmm``,
+    f32 accumulation, cast to the buckets' dtype) each followed by its
+    bias, tanh GELU between. Batched, so the "dots" remat policy recomputes
+    them, as jax's ``dots_with_no_batch_dims_saveable`` recomputes the
+    reference's batched expert einsums."""
+    ff = torch.bmm(expert_in, ps["w_in"]) + ps["b_in"][:, None, :]
+    ff = F.gelu(ff, approximate="tanh")
+    return torch.bmm(ff, ps["w_out"]) + ps["b_out"][:, None, :]
+
+
+def _moe_ffn(h, p, cfg: GPTConfig, groups: int = 1):
+    """The training MoE FFN (the reference's ``_moe_ffn`` at ep = 1). h:
+    [B, S, D]; ``groups`` micro-batches (B % groups == 0), each routed on
+    its own: its own capacity, cumsum positions and balance loss, as the
+    reference's vmap over micro-batches gives. Gating in f32 on the 2-D
+    gate product; the experts on buckets in the model dtype; the combine
+    in f32. ``cfg.moe_dispatch``: "alltoall" routes through
+    ``parallel.moe``'s sort-based buckets (all groups' buckets side by
+    side, [E, groups * C]), "einsum" through the dense masks. Returns (y
+    in h's dtype, the groups' mean balance loss)."""
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    B, S, D = h.shape
+    G = groups
+    tokens = (B // G) * S
+    C = moe_mod.capacity(cfg.moe_capacity_factor, tokens, k, E)
+    hf = h.float()
+    lg = (hf @ p["gate"].float()).reshape(G, tokens, E)
+    if k == 1:
+        experts, slots, gates, valid, aux = moe_mod.switch_assign(lg, C)
+    else:
+        experts, slots, gates, valid, aux = moe_mod.top2_assign(lg, C)
+    if cfg.moe_dispatch == "alltoall":
+        def expert_compute(ps, expert_in):
+            return _expert_ffn(ps, expert_in.to(cfg.dtype)).float()
+
+        route = moe_mod.make_routed_expert(
+            expert_compute, E, G * C, dispatch_dtype=cfg.moe_dispatch_dtype)
+        goff = torch.arange(G, device=h.device)[:, None, None] * C
+        y = route(hf.reshape(G * tokens, D), gates.reshape(-1, k),
+                  experts.reshape(-1, k), (slots + goff).reshape(-1, k),
+                  valid.reshape(-1, k),
+                  {n: p[n] for n in ("w_in", "b_in", "w_out", "b_out")})
+        return y.reshape(B, S, D).to(h.dtype), aux
+    combine, dispatch = moe_mod._dense_from_assign(experts, slots, gates,
+                                                   valid, E, C)
+    expert_in = torch.einsum("gsec,gsm->egcm", dispatch.float(),
+                             hf.reshape(G, tokens, D)).reshape(E, G * C, D)
+    out = _expert_ffn(p, expert_in.to(cfg.dtype)).float()
+    y = torch.einsum("gsec,egcm->gsm", combine, out.reshape(E, G, C, D))
+    return y.reshape(B, S, D).to(h.dtype), aux
+
+
+def _block(x, p, cfg: GPTConfig, groups: int = 1):
     """One transformer block over the whole sequence, x: [B, S, D]; p: one
     layer's weights. Attention is the causal flash kernel (its backward
-    kernels under autograd on the card)."""
+    kernels under autograd on the card). Returns x, or ``(x, aux)`` for
+    MoE (``groups``: :func:`_moe_ffn`'s micro-batches)."""
     h = _layer_norm(x, p["ln1_g"], p["ln1_b"])
     q, k, v = _split_qkv(h @ p["w_qkv"] + p["b_qkv"], cfg)
     attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -1261,6 +1420,9 @@ def _block(x, p, cfg: GPTConfig):
     attn = attn.transpose(1, 2).reshape(B, S, -1)
     x = x + attn @ p["w_o"] + p["b_o"]
     h = _layer_norm(x, p["ln2_g"], p["ln2_b"])
+    if cfg.moe_experts > 0:
+        ff, aux = _moe_ffn(h, p, cfg, groups)
+        return x + ff, aux
     return _ffn_dense(x, h, p)
 
 
@@ -1295,15 +1457,22 @@ def _remat(fn, *args, policy: str = "full"):
                       preserve_rng_state=False, **kw)
 
 
-def _stage_fn(params, x, cfg: GPTConfig):
+def _stage_fn(params, x, cfg: GPTConfig, groups: int = 1):
     """The layer stack (the reference's ``lax.scan`` over stacked blocks),
     each block recomputed on the backward pass when ``cfg.remat`` (all of
     it, or with ``cfg.remat_policy="dots"`` all but the weight
-    products)."""
+    products). Returns the hidden states, or ``(hidden, aux)`` with MoE:
+    the sum over layers of each layer's balance loss."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layer_params(params):
-        x = (_remat(_block, x, lp, cfg, policy=cfg.remat_policy)
-             if cfg.remat else _block(x, lp, cfg))
-    return x
+        out = (_remat(_block, x, lp, cfg, groups, policy=cfg.remat_policy)
+               if cfg.remat else _block(x, lp, cfg, groups))
+        if cfg.moe_experts > 0:
+            x, a = out
+            aux = aux + a
+        else:
+            x = out
+    return (x, aux) if cfg.moe_experts > 0 else x
 
 
 def _embed(params, tokens):
@@ -1317,6 +1486,8 @@ def forward(params, cfg: GPTConfig, tokens):
     forward)."""
     tokens = torch.as_tensor(tokens, device=params["wte"].device).long()
     x = _stage_fn(params, _embed(params, tokens), cfg)
+    if cfg.moe_experts > 0:
+        x = x[0]
     x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
     return _lm_head(x, params["wte"])
 
@@ -1352,21 +1523,31 @@ def _xent_chunked(x, wte, labels, cfg: GPTConfig):
                       for i in range(C)], dim=1)
 
 
-def local_loss(params, cfg: GPTConfig, tokens, labels):
+def local_loss(params, cfg: GPTConfig, tokens, labels, train: bool = True):
     """Mean next-token loss of a batch, tokens/labels [B, S] int.
 
     At pp=1 the reference splits the batch into ``cfg.micro_batches`` only
     to vmap one forward over them, and takes the mean over every token; the
     whole batch in one forward computes the same loss, so the port runs it
     at once (accumulating bf16 gradients micro-batch by micro-batch would
-    round differently from the reference)."""
+    round differently from the reference). MoE routes each micro-batch on
+    its own inside that forward (:func:`_moe_ffn`), and in training
+    (``train``) adds ``cfg.moe_aux_weight`` times the balance loss: per
+    layer the micro-batches' mean, summed over layers. Eval leaves it out,
+    as the reference does."""
     B = tokens.shape[0]
     if B % cfg.micro_batches:
         raise ValueError(f"batch {B} does not split into "
                          f"{cfg.micro_batches} micro-batches")
-    x = _stage_fn(params, _embed(params, tokens), cfg)
+    x = _stage_fn(params, _embed(params, tokens), cfg, cfg.micro_batches)
+    aux = None
+    if cfg.moe_experts > 0:
+        x, aux = x
     x = _layer_norm(x, params["lnf_g"], params["lnf_b"])
-    return _xent_chunked(x, params["wte"], labels, cfg).mean()
+    loss = _xent_chunked(x, params["wte"], labels, cfg).mean()
+    if aux is not None and train:
+        loss = loss + cfg.moe_aux_weight * aux.to(loss.dtype)
+    return loss
 
 
 def adamw_init(params, dtype=torch.float32, device=None) -> dict:
@@ -1380,12 +1561,33 @@ def adamw_init(params, dtype=torch.float32, device=None) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+# elements of one slice of the plain AdamW update: a stacked leaf is
+# updated this many at a time (one layer of the MoE flagship's [24, 8,
+# 2048, 8192] w_in), so each f32 temporary stays near 0.54 GB
+_ADAMW_SLICE = 1 << 27
+
+
+def _row_slices(t: torch.Tensor, limit: int = _ADAMW_SLICE) -> list:
+    """Index slices over t's leading dim holding at most ``limit``
+    elements each (one layer at least); the whole of t (``...``) when it
+    is small or 0-dim."""
+    if t.dim() == 0 or t.numel() <= limit:
+        return [...]
+    per = max(1, limit // max(t[0].numel(), 1))
+    return [slice(i, min(i + per, t.shape[0]))
+            for i in range(0, t.shape[0], per)]
+
+
 def _adamw_update(params, grads, opt, lr, wd=0.1, b1=0.9, b2=0.95, eps=1e-8,
                   fused=False):
     """One AdamW step, decoupled decay ``p - lr (upd + wd p)``, math in f32
     with the moments stored in their own dtype. ``fused`` takes the
-    one-kernel-per-leaf path when every moment is f32 (on the card it
-    updates params and moments in place)."""
+    one-kernel-per-leaf path when every moment is f32. Otherwise the plain
+    update runs a slice of :data:`_ADAMW_SLICE` elements of a leaf at a time
+    (:func:`_row_slices`; elementwise, so bitwise the whole-leaf update).
+    Both paths update params and moments in place, on every device (two
+    copies of the MoE flagship's 6.95 B params and bf16 moments would not
+    fit the card): the returned trees hold the given tensors."""
     step = opt["step"] + 1
     if fused and all(t.dtype == torch.float32
                      for t in tree_flatten(opt["m"])):
@@ -1405,12 +1607,78 @@ def _adamw_update(params, grads, opt, lr, wd=0.1, b1=0.9, b2=0.95, eps=1e-8,
         p2 = pf - lr * (upd_ + wd * pf)
         return p2.to(p.dtype), m2.to(m.dtype), v2.to(v.dtype)
 
-    out = [upd(*leaf) for leaf in zip(*(tree_flatten(t) for t in (
+    def leaf_update(p, g, m, v):
+        for sl in _row_slices(p):
+            for d, new in zip((p, m, v), upd(p[sl], g[sl], m[sl], v[sl])):
+                d[sl] = new
+        return p, m, v
+
+    out = [leaf_update(*leaf) for leaf in zip(*(tree_flatten(t) for t in (
         params, grads, opt["m"], opt["v"])))]
     return (tree_unflatten(params, (o[0] for o in out)),
             {"m": tree_unflatten(params, (o[1] for o in out)),
              "v": tree_unflatten(params, (o[2] for o in out)),
              "step": step})
+
+
+def _flat_paths(tree, prefix: str) -> dict:
+    """``{"prefix/a/b": leaf}`` of a nested dict, in sorted-key order."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(_flat_paths(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = v
+    return out
+
+
+def train_state_arrays(params, opt) -> dict:
+    """A train state as the flat ``{key: tensor}`` dict
+    ``ft.CheckpointManager.save`` takes: ``params/...``, ``opt/m/...``,
+    ``opt/v/...`` and ``opt/step``."""
+    out = _flat_paths(params, "params")
+    out.update(_flat_paths(opt["m"], "opt/m"))
+    out.update(_flat_paths(opt["v"], "opt/v"))
+    out["opt/step"] = opt["step"]
+    return out
+
+
+def restore_train_state(arrays: dict, cfg: GPTConfig, device=None):
+    """``(params, opt)`` on ``device`` from :func:`train_state_arrays`'
+    dict (e.g. ``CheckpointManager.restore``'s tensors), checked against
+    the model: every key, shape and dtype must be the ones ``cfg`` makes
+    (params in ``cfg.dtype``, moments in ``cfg.opt_dtype``), else a
+    ValueError names the first difference — a checkpoint of another
+    model never loads half-way."""
+    dev = resolve_device(device)
+    shapes = _shapes(cfg)
+    want = {}
+    for prefix, dt in (("params", cfg.dtype), ("opt/m", cfg.opt_dtype),
+                       ("opt/v", cfg.opt_dtype)):
+        for key, shape in _flat_paths(shapes, prefix).items():
+            want[key] = (tuple(shape), dt)
+    want["opt/step"] = ((), torch.int32)
+    if set(arrays) != set(want):
+        extra = sorted(set(arrays) - set(want))
+        missing = sorted(set(want) - set(arrays))
+        raise ValueError(f"checkpoint holds another model: keys missing "
+                         f"{missing[:4]}, unexpected {extra[:4]}")
+    for key, (shape, dt) in want.items():
+        t = arrays[key]
+        if tuple(t.shape) != shape or t.dtype != dt:
+            raise ValueError(
+                f"checkpoint {key}: {tuple(t.shape)} {t.dtype}, the model "
+                f"wants {shape} {dt}")
+    moved = {k: torch.as_tensor(v).to(dev) for k, v in arrays.items()}
+
+    def tree(prefix, like):
+        return {k: (tree(f"{prefix}/{k}", v) if isinstance(v, dict)
+                    else moved[f"{prefix}/{k}"]) for k, v in like.items()}
+
+    params = tree("params", shapes)
+    return params, {"m": tree("opt/m", shapes), "v": tree("opt/v", shapes),
+                    "step": moved["opt/step"]}
 
 
 def _batch(tokens, dev):
@@ -1425,15 +1693,23 @@ def build_train_step(cfg: GPTConfig, lr=3e-4, wd=0.1, device=None,
     cfg.fused_adamw)``. ``opt`` comes from :func:`adamw_init` with
     ``cfg.opt_dtype``. Gradients are taken with respect to detached copies
     of the leaves, so the params stay plain tensors that ``generate()``
-    takes as they are. With ``cfg.fused_adamw`` on the card the returned
-    params and moments are the given tensors, updated in place."""
-    if sentinel:
-        raise NotImplementedError(
-            "sentinel=True: the in-program anomaly sentinel belongs to "
-            "the training-guards slice, not ported yet")
+    takes as they are. The returned params and moments are the given
+    tensors, updated in place.
+
+    ``sentinel=True`` arms the anomaly sentinel
+    (``distributed/ft/sentinel.py``): the step becomes ``(params, opt,
+    tokens, labels, loss_cap) -> (params, opt, health)`` with ``health =
+    [loss, applied, code, grad_norm]`` f32 on the device. A step whose
+    loss or global grad square-sum is not finite, or whose loss exceeds
+    ``loss_cap``, applies no update: params, moments and the step counter
+    stay as they were, bit for bit. The reference masks the update with a
+    ``lax.cond`` on the device; here the host reads the verdict once a
+    step and skips the update (AdamW writes in place, so it must not
+    run at all), which makes a guarded step one device-to-host
+    read longer. A healthy guarded step is the unguarded step."""
     dev = resolve_device(device)
 
-    def step(params, opt, tokens, labels):
+    def loss_and_grads(params, tokens, labels):
         check_params_device(params, dev)
         tokens, labels = _batch(tokens, dev), _batch(labels, dev)
         leaves = [t.detach().requires_grad_() for t in tree_flatten(params)]
@@ -1441,12 +1717,25 @@ def build_train_step(cfg: GPTConfig, lr=3e-4, wd=0.1, device=None,
             loss = local_loss(tree_unflatten(params, leaves), cfg, tokens,
                               labels)
             grads = torch.autograd.grad(loss, leaves)
-        new_params, new_opt = _adamw_update(
-            params, tree_unflatten(params, grads), opt, lr, wd,
-            fused=cfg.fused_adamw)
-        return new_params, new_opt, loss.detach()
+        return loss.detach(), tree_unflatten(params, grads)
 
-    return step
+    def update(params, opt, grads):
+        return _adamw_update(params, grads, opt, lr, wd,
+                             fused=cfg.fused_adamw)
+
+    def step(params, opt, tokens, labels):
+        loss, grads = loss_and_grads(params, tokens, labels)
+        new_params, new_opt = update(params, opt, grads)
+        return new_params, new_opt, loss
+
+    def guarded_step(params, opt, tokens, labels, loss_cap):
+        from ..distributed.ft.sentinel import guarded_update
+        loss, grads = loss_and_grads(params, tokens, labels)
+        out, health = guarded_update(loss, grads, loss_cap,
+                                     lambda: update(params, opt, grads))
+        return (*(out or (params, opt)), health)
+
+    return guarded_step if sentinel else step
 
 
 def build_eval_step(cfg: GPTConfig, device=None):
@@ -1458,6 +1747,6 @@ def build_eval_step(cfg: GPTConfig, device=None):
     def eval_step(params, tokens, labels):
         check_params_device(params, dev)
         return local_loss(params, cfg, _batch(tokens, dev),
-                          _batch(labels, dev))
+                          _batch(labels, dev), train=False)
 
     return eval_step

@@ -3,10 +3,11 @@ PyTorch version.
 
 Port of paddle_tpu/ops/pallas/fused_adamw.py. One launch per leaf reads
 p, g, m and v once and writes p, m and v, in f32 math whatever p's dtype
-(bf16 params keep f32 moments). On CUDA the kernel updates p, m and v IN
-PLACE, where the reference returned new arrays and relied on buffer
-donation to reuse their memory: in place keeps one copy of the optimizer
-state resident instead of two during the update.
+(bf16 params keep f32 moments). The kernel updates p, m and v IN PLACE
+(and on the CPU the plain version's result is written back into them),
+where the reference returned new arrays and relied on buffer donation to
+reuse their memory: in place keeps one copy of the optimizer state
+resident instead of two during the update.
 """
 from __future__ import annotations
 
@@ -110,9 +111,9 @@ def fused_adamw_update(params, grads, m, v, step, lr, wd=0.01, b1=0.9,
 
     ``step`` is the int step counter before this update (a tensor on the
     device or an int); ``grad_scale`` (a number or a 0-d tensor) multiplies
-    the gradient inside the kernel. CPU leaves run
-    :func:`reference_update` and get new tensors; CUDA leaves launch the
-    kernel once each and are updated in place; anything else raises."""
+    the gradient inside the kernel. Every leaf is updated in place: CUDA
+    leaves launch the kernel once each, CPU leaves run
+    :func:`reference_update` and take its result; anything else raises."""
     dev = resolve_device(device)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_adamw_update: no kernel for {dev}")
@@ -127,7 +128,8 @@ def fused_adamw_update(params, grads, m, v, step, lr, wd=0.01, b1=0.9,
             p2, m2, v2 = reference_update(p.reshape(-1), g.reshape(-1),
                                           mm.reshape(-1), vv.reshape(-1),
                                           scalars, wd)
-            p2, m2, v2 = (t.reshape(p.shape) for t in (p2, m2, v2))
+            for t, new in ((p, p2), (mm, m2), (vv, v2)):
+                t.copy_(new.reshape(t.shape))
         else:
             err = _lib()(p.data_ptr(), g.data_ptr(), mm.data_ptr(),
                          vv.data_ptr(), scalars.data_ptr(), float(wd),
@@ -135,10 +137,9 @@ def fused_adamw_update(params, grads, m, v, step, lr, wd=0.01, b1=0.9,
                          torch.cuda.current_stream(dev).cuda_stream)
             _build.check(err, "fused_adamw")
             fused_adamw_update.launches += 1
-            p2, m2, v2 = p, mm, vv
-        out_p.append(p2)
-        out_m.append(m2)
-        out_v.append(v2)
+        out_p.append(p)
+        out_m.append(mm)
+        out_v.append(vv)
     return (tree_unflatten(params, out_p), tree_unflatten(params, out_m),
             tree_unflatten(params, out_v))
 

@@ -20,8 +20,13 @@ leaf       shape               out-ch axis   int4 pack axis
 =========  ==================  ============  =====================
 w_in       [L, D, 4D]          -1 (4D)       -2 (D, contraction)
 w_out      [L, 4D, D]          -1 (D)        -2 (4D, contraction)
+moe w_in   [L, E, D, 4D]       -1            -2
+moe w_out  [L, E, 4D, D]       -1            -2
 wte        [V, D]              0  (V rows)   -1 (D, contraction)
 =========  ==================  ============  =====================
+
+Leading stack dims (layer, expert) keep their own steps; an MoE expert's
+two products run through the kernel on that expert's 2-D codes.
 
 The codes equal the reference's bit for bit: the range is symmetric
 (±127, ±7), the absmax is divided by qmax and the weight by its step
@@ -141,9 +146,13 @@ def quantize_gpt_params(params, cfg, bits: int = 8):
     out = dict(params)
     blocks = dict(params["blocks"])
     for name in ("w_in", "w_out"):
-        q, step = quantize_weight(blocks[name], bits, axis=-1)
-        blocks[name] = _maybe_pack(q, bits, axis=-2)
-        blocks[name + "_s"] = step
+        # a layer at a time: stack dims keep their own steps, so this is
+        # the whole-leaf quantization, with one layer's f32 temporaries
+        layers = [quantize_weight(w, bits, axis=-1)
+                  for w in blocks[name].unbind(0)]
+        blocks[name] = torch.stack([_maybe_pack(q, bits, axis=-2)
+                                    for q, _ in layers])
+        blocks[name + "_s"] = torch.stack([st for _, st in layers])
     out["blocks"] = blocks
     q, step = quantize_weight(params["wte"], bits, axis=0)
     out["wte"] = _maybe_pack(q, bits, axis=-1)

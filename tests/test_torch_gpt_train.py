@@ -260,19 +260,40 @@ def test_config_guards(field, value):
         with pytest.raises(ValueError, match="remat_policy"):
             tg.gpt_tiny(remat_policy="everything")
         return
+    if field == "moe_experts":
+        # ported: the config builds, and the reference's MoE errors raise
+        assert tg.gpt_tiny(**{field: value}).moe_experts == value
+        with pytest.raises(ValueError, match="moe_top_k"):
+            tg.gpt_tiny(moe_experts=value, moe_top_k=3)
+        with pytest.raises(ValueError, match="moe_dispatch"):
+            tg.gpt_tiny(moe_experts=value, moe_dispatch="sorted")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP|later slice"):
         tg.gpt_tiny(**{field: value})
 
 
 def test_sentinel_is_not_ported():
-    with pytest.raises(NotImplementedError, match="training-guards"):
-        tg.build_train_step(tg.gpt_tiny(), device="cpu", sentinel=True)
+    """Ported now (the name is kept): the guarded step takes a loss cap
+    and returns the health vector; a healthy step is the plain step."""
+    cfg = tg.gpt_tiny(n_layers=2, remat=False)
+    tokens, labels = _batch(6, B=2, S=16)
+    fresh = lambda: (lambda p: (p, tg.adamw_init(p, device="cpu")))(
+        tg.init_params(cfg, seed=0, device="cpu"))
+    p1, _, loss = tg.build_train_step(cfg, device="cpu")(*fresh(), tokens,
+                                                         labels)
+    p2, _, health = tg.build_train_step(cfg, device="cpu", sentinel=True)(
+        *fresh(), tokens, labels, float("inf"))
+    assert health.shape == (4,) and float(health[0]) == float(loss)
+    assert float(health[1]) == 1.0 and float(health[2]) == 0.0
+    assert all(torch.equal(a, b) for a, b in zip(tree_flatten(p1),
+                                                 tree_flatten(p2)))
 
 
 def test_config_defaults_match_reference():
     j, t = jg.GPTConfig(), tg.GPTConfig()
     for f in ("micro_batches", "remat", "remat_policy", "xent_chunks",
               "fused_adamw", "dropout", "dp", "pp", "mp", "sp", "sharding",
-              "ep", "moe_experts"):
+              "ep", "moe_experts", "moe_top_k", "moe_capacity_factor",
+              "moe_aux_weight", "moe_dispatch", "moe_dispatch_dtype"):
         assert getattr(t, f) == getattr(j, f), f
     assert t.opt_dtype == torch.float32 and j.opt_dtype == jnp.float32

@@ -62,7 +62,7 @@ def test_init_draws_in_blocks_and_by_layer(monkeypatch):
     offset, a leaf equals its whole draw; ``rows`` draws one layer."""
     cfg = tg.gpt_tiny(dtype=torch.bfloat16)
     whole = tg.init_params(cfg, 2, device="cpu")
-    monkeypatch.setattr(tg, "_DRAW_ELEMS", 1000)   # wte: 15 rows a draw
+    monkeypatch.setattr(tg, "_DRAW_ELEMS", 1000)   # 1000 elements a draw
     blocked = tg.init_params(cfg, 2, device="cpu")
     for (name, a), (_, b) in zip(_leaves(whole), _leaves(blocked)):
         assert torch.equal(a, b), name

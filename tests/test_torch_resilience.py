@@ -694,8 +694,7 @@ class TestShutdownDeadlines:
     # test_ckpt_manager_wait_timeout_names_step and
     # test_module_wait_all_timeout_requeues_pending of the reference's file
     # drive the checkpoint manager's and distributed.checkpoint's wait
-    # deadlines, which the port has not yet (the training guards and
-    # checkpoints come later): they are left out here.
+    # deadlines: they run in tests/test_torch_checkpoint_ft.py.
 
 
 # ===================================================================
