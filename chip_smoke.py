@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,buckets
     python3 chip_smoke.py --phases build,resil,fleet
     python3 chip_smoke.py --phases build,moe,moe_parity,guards
+    python3 chip_smoke.py --phases build,eager,eager_parity
 
 Phases, each fatal on failure:
 
@@ -259,6 +260,26 @@ Phases, each fatal on failure:
               whole, another SIGKILLed after its first commit and a third
               resumed from it: the resumed losses equal the whole run's.
 
+22. eager   — the eager framework surface (``import paddle_tpu_torch as
+              paddle``: Tensor on torch autograd, nn.Layer, the optimizers)
+              on the card. LeNet after seed(0): 50 Adam steps at B=64 on
+              synthetic 1x28x28 digits (numpy, one recipe a class, from a
+              seed here), the loss must fall; steps/s and the final
+              training accuracy. The eager GPT at gpt3_1p3b width in f32
+              (24 layers, d 2048, 16 heads, vocab 50304, dropout 0): its
+              weights set from the functional face's init_params draw
+              (models.gpt.eager_state_dict), its logits held against the
+              functional forward's (1e-3); then 3 AdamW steps on one B=1 x
+              S=2048 batch with the counters zeroed just before and read
+              just after: exactly 24 flash forwards, 24 dq and 24 dk/dv a
+              step (the f32 CUDA-core routes), the loss falls; step ms,
+              tokens/s, max_memory_allocated.
+23. eager_parity — gpt3_1p3b(n_layers=2, f32) as the eager GPT and LeNet on
+              the CPU and on the card from the same numpy weights: the
+              losses of 3 steps (AdamW, Adam) within 1e-4, the card's
+              flash launches exact; one Dropout(0.1) call's mask bitwise
+              equal on the two after seed().
+
 Every other phase runs the session's ticks and generate()'s steps as
 captured graphs too (each session's first tick is the warm-up, run
 eagerly; the second captures; later ticks replay). The kernel counters
@@ -290,7 +311,7 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "generate", "server", "parity", "quant",
           "quant_parity", "paged", "paged_parity", "train", "train_parity",
           "incubate", "sampling", "spec", "graph", "buckets", "resil",
-          "fleet", "moe", "moe_parity", "guards")
+          "fleet", "moe", "moe_parity", "guards", "eager", "eager_parity")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -1458,6 +1479,10 @@ class Smoke:
                              main=True)
         self._flash_bwd_case(2, 16, 200, 200, 128, bf16, True, False)
         self._flash_bwd_case(2, 4, 256, 256, 64, f32, True, False)
+        # the eager phase's attention: the f32 CUDA-core routes at B=1 x
+        # S=2048, d=128 (timed, beside the bf16 rows)
+        self._flash_case(1, 16, 2048, 2048, 128, f32, True, True, True)
+        self._flash_bwd_case(1, 16, 2048, 2048, 128, f32, True, True)
         self._flash_bwd_case(1, 2, 70, 70, 16, f32, False, False)
         self._flash_bwd_case(1, 2, 33, 97, 32, bf16, True, False)
         # the wgmma route's offset diagonal (Sq < Skv) at the model's d
@@ -5173,6 +5198,206 @@ class Smoke:
         with tempfile.TemporaryDirectory() as tmp:
             self._guards_rollback(tmp)
             self._guards_kill_resume(tmp)
+
+    # ------------------------------------------------------------ eager
+    @staticmethod
+    def _digits(rng, n):
+        """Synthetic 1x28x28 digits: one fixed recipe a class (drawn from
+        seed 0) plus noise; (images f32, labels int64)."""
+        import numpy as np
+        recipes = np.random.default_rng(0).standard_normal((10, 1, 28, 28))
+        labels = rng.integers(0, 10, n)
+        imgs = recipes[labels] + 0.5 * rng.standard_normal((n, 1, 28, 28))
+        return imgs.astype(np.float32), labels.astype(np.int64)
+
+    def _eager_lenet(self):
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch.models import LeNet
+        torch = self.torch
+        paddle.seed(0)
+        model = LeNet()
+        opt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                    parameters=model.parameters())
+        loss_fn = paddle.nn.CrossEntropyLoss()
+        rng = np.random.default_rng(6)
+        data = [self._digits(rng, 64) for _ in range(50)]
+        losses, accs, marks = [], [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x, y in data:
+            marks.append(time.perf_counter())
+            img, label = paddle.to_tensor(x), paddle.to_tensor(y)
+            out = model(img)
+            loss = loss_fn(out, label)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+            accs.append(float((paddle.argmax(out, axis=1) == label)
+                              .astype("float32").mean()))
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        # the first step also pays the card's lazy set-up (cuDNN, cuBLAS)
+        log("[eager] " + json.dumps(dict(
+            model="LeNet", batch=64, steps=len(data),
+            steps_per_s=round(len(data) / (end - t0), 2),
+            steps_per_s_after_first=round((len(data) - 1)
+                                          / (end - marks[1]), 2),
+            first_step_ms=round((marks[1] - t0) * 1e3, 3),
+            losses_first3=losses[:3], losses_last3=losses[-3:],
+            train_accuracy_last3=round(float(np.mean(accs[-3:])), 4))))
+        if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            raise AssertionError(f"LeNet loss did not fall: {losses}")
+
+    def phase_eager(self):
+        torch = self.torch
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch.models import gpt
+        paddle.set_device("gpu")
+        self._eager_lenet()
+        # the eager GPT at full width, f32, on the functional face's draw
+        cfg = gpt.gpt3_1p3b(dtype=torch.float32)
+        t0 = time.perf_counter()
+        paddle.seed(0)
+        model = gpt.GPT(cfg)
+        params = gpt.init_params(cfg, seed=0, device=self.dev)
+        missing, unexpected = model.set_state_dict(
+            gpt.eager_state_dict(params))
+        torch.cuda.synchronize()
+        n = sum(p.size for p in model.parameters())
+        log(f"[eager] GPT(gpt3_1p3b, f32): {n / 1e9:.3f} B params, built "
+            f"and set from init_params in {time.perf_counter() - t0:.1f} s")
+        if missing or unexpected:
+            raise AssertionError(f"eager_state_dict keys: missing {missing}"
+                                 f", unexpected {unexpected}")
+        B, S = 1, 2048
+        tok = np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                                (B, S + 1))
+        with torch.no_grad():
+            got = model(paddle.to_tensor(tok[:, :-1]))._value
+            want = gpt.forward(params, cfg, torch.as_tensor(
+                tok[:, :-1], device=self.dev))
+            err = (got - want).abs().max().item()
+        log("[eager] " + json.dumps(dict(
+            eager_vs_functional_logits_max_abs_err=err, tol=1e-3,
+            logits_shape=list(got.shape))))
+        if not err <= 1e-3:
+            raise AssertionError(f"eager and functional logits differ: {err}")
+        del params, got, want
+        torch.cuda.empty_cache()
+        opt = paddle.optimizer.AdamW(learning_rate=3e-5,
+                                     parameters=model.parameters())
+        tokens = paddle.to_tensor(tok[:, :-1])
+        labels = paddle.to_tensor(tok[:, 1:].reshape(-1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self._zero_counts()
+        losses, times = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            logits = model(tokens)
+            loss = paddle.nn.functional.cross_entropy(
+                paddle.reshape(logits, [-1, cfg.vocab_size]), labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+        counts = self._read_counts("eager", names)
+        self._expect_counts("eager", counts,
+                            {n: 3 * cfg.n_layers for n in names})
+        step_s = sum(times[1:]) / len(times[1:])
+        log("[eager] " + json.dumps(dict(
+            model="GPT(gpt3_1p3b, f32, dropout 0)", batch=B, seq=S,
+            optimizer="AdamW(3e-5)", losses=losses,
+            step_ms=[round(t * 1e3, 3) for t in times],
+            step_ms_mean_after_first=round(step_s * 1e3, 3),
+            tokens_per_s=round(B * S / step_s, 1),
+            max_memory_allocated_gib=round(peak / 2 ** 30, 3))))
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"eager GPT losses bad: {losses}")
+        del model, opt, logits, loss
+        torch.cuda.empty_cache()
+
+    def phase_eager_parity(self):
+        torch = self.torch
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch.models import LeNet, gpt
+        cfg = gpt.gpt3_1p3b(n_layers=2, dtype=torch.float32)
+        weights = self._weights(cfg)
+        tok = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 257))
+        x, y = self._digits(np.random.default_rng(9), 64)
+        paddle.set_device("gpu")
+        paddle.seed(0)
+        lenet = {k: v.numpy() for k, v in LeNet().state_dict().items()}
+        sides = {}
+        for dev in ("cpu", "gpu"):
+            # built on the card (the CPU's threefry draw of 206 M elements
+            # would take minutes), moved, then set from the numpy weights
+            paddle.set_device("gpu")
+            model = gpt.GPT(cfg)
+            net = LeNet()
+            if dev == "cpu":
+                model.to("cpu")
+                net.to("cpu")
+            paddle.set_device(dev)
+            model.set_state_dict(gpt.eager_state_dict(
+                weights["cpu" if dev == "cpu" else str(self.dev)]))
+            net.set_state_dict(lenet)
+            self._zero_counts()
+            runs = {}
+            for name, m, opt, batch in (
+                    ("gpt", model, paddle.optimizer.AdamW(
+                        3e-4, parameters=model.parameters()),
+                     (tok[:, :-1], tok[:, 1:].reshape(-1))),
+                    ("lenet", net, paddle.optimizer.Adam(
+                        1e-3, parameters=net.parameters()), (x, y))):
+                losses = []
+                for _ in range(3):
+                    out = m(paddle.to_tensor(batch[0]))
+                    loss = paddle.nn.functional.cross_entropy(
+                        paddle.reshape(out, [-1, out.shape[-1]]),
+                        paddle.to_tensor(batch[1]))
+                    loss.backward()
+                    opt.step()
+                    opt.clear_grad()
+                    losses.append(float(loss))
+                runs[name] = losses
+            if dev == "gpu":
+                names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv")
+                counts = self._read_counts("eager_parity", names)
+                self._expect_counts("eager_parity", counts,
+                                    {n: 3 * cfg.n_layers for n in names})
+            # one Dropout(0.1) call's mask after seed()
+            paddle.seed(11)
+            drop = paddle.nn.Dropout(0.1)(paddle.ones([64, 2048]))
+            runs["mask"] = (drop.numpy() != 0)
+            sides[dev] = runs
+            del model, net
+        paddle.set_device("gpu")
+        torch.cuda.empty_cache()
+        cpu, card = sides["cpu"], sides["gpu"]
+        errs = {k: max(abs(a - b) for a, b in zip(cpu[k], card[k]))
+                for k in ("gpt", "lenet")}
+        masks_equal = bool(np.array_equal(cpu["mask"], card["mask"]))
+        log("[eager_parity] " + json.dumps(dict(
+            config="GPT(gpt3_1p3b(n_layers=2, f32)) AdamW(3e-4) B=2 x "
+                   "S=256; LeNet Adam(1e-3) B=64", steps=3,
+            losses_cpu={k: cpu[k] for k in ("gpt", "lenet")},
+            losses_card={k: card[k] for k in ("gpt", "lenet")},
+            max_loss_err=errs, loss_tol=1e-4,
+            dropout_mask_bitwise=masks_equal,
+            dropout_kept_share=float(card["mask"].mean()))))
+        if max(errs.values()) > 1e-4 or not masks_equal:
+            raise AssertionError("eager CPU and card disagree")
 
 
 def gpu_line() -> str:

@@ -20,8 +20,34 @@ stream). Every entry point runs on the card
 unless the caller passes ``device="cpu"``; on the CPU each kernel wrapper
 runs its plain PyTorch version. The package imports torch and numpy,
 never jax or paddle_tpu.
-"""
-from .device import resolve_device
-from .framework.random import seed
 
-__all__ = ["resolve_device", "seed"]
+The eager framework surface is the reference's front door, so ``import
+paddle_tpu_torch as paddle`` reads as paddle: ``Tensor`` over torch
+autograd (``to_tensor``, ``no_grad``, ``grad``, ``PyLayer``), the ops,
+``nn`` (``Layer`` is a ``torch.nn.Module``), ``optimizer``, ``save`` /
+``load``, and ``models.LeNet`` / ``models.gpt.GPT``. New tensors go to the
+card unless ``set_device("cpu")`` chose the CPU.
+"""
+from .device import resolve_device  # noqa: F401
+from .framework.dtype import (bfloat16, bool_, complex64,  # noqa: F401
+                              complex128, convert_dtype, finfo, float16,
+                              float32, float64, get_default_dtype, iinfo,
+                              int8, int16, int32, int64, set_default_dtype,
+                              uint8)
+from .framework.dtype import bool_ as bool  # noqa: F401,A001
+from .framework.flags import get_flags, set_flags  # noqa: F401
+from .framework.place import (CPUPlace, CUDAPlace, TPUPlace,  # noqa: F401
+                              device_count, get_device,
+                              is_compiled_with_cuda, set_device)
+from .framework.random import (get_rng_state, seed,  # noqa: F401
+                               set_rng_state)
+from .tensor import (Parameter, Tensor, enable_grad,  # noqa: F401
+                     is_grad_enabled, no_grad, set_grad_enabled,
+                     set_printoptions, to_tensor)
+from .ops import *  # noqa: F401,F403,E402
+from .ops import linalg  # noqa: F401,E402
+from .ops.einsum import einsum  # noqa: F401,E402
+from . import autograd, nn, optimizer  # noqa: F401,E402
+from .autograd import PyLayer, grad  # noqa: F401,E402
+from .framework.io_state import load, save  # noqa: F401,E402
+from . import models  # noqa: F401,E402

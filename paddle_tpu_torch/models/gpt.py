@@ -1750,3 +1750,98 @@ def build_eval_step(cfg: GPTConfig, device=None):
                           _batch(labels, dev), train=False)
 
     return eval_step
+
+
+# ==========================================================================
+# Eager nn.Layer face (the reference's fleet-GPT API), on the eager surface
+# ==========================================================================
+from .. import nn  # noqa: E402
+from ..distributed.fleet.meta_parallel import (  # noqa: E402
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+
+# eager key of each block leaf of the functional tree: per-layer slices of
+# the stacked [L, ...] leaves
+_EAGER_BLOCK_KEYS = {"ln1_g": "ln1.weight", "ln1_b": "ln1.bias",
+                     "w_qkv": "qkv.weight", "b_qkv": "qkv.bias",
+                     "w_o": "proj.weight", "b_o": "proj.bias",
+                     "ln2_g": "ln2.weight", "ln2_b": "ln2.bias",
+                     "w_in": "fc1.weight", "b_in": "fc1.bias",
+                     "w_out": "fc2.weight", "b_out": "fc2.bias"}
+
+
+def eager_state_dict(params: dict) -> dict:
+    """The eager :class:`GPT`'s ``state_dict`` (paddle's keys) holding a
+    dense functional parameter tree's weights: each block leaf's layer
+    slice (a view), ``wte``/``wpe``/``lnf`` as they are. The lm-head is
+    tied to ``wte`` in both faces, and both keep the (head, 3, head_dim)
+    QKV interleave, so ``GPT.set_state_dict(eager_state_dict(params))``
+    gives the eager face the functional face's weights."""
+    out = {"wte.weight": params["wte"], "wpe.weight": params["wpe"],
+           "lnf.weight": params["lnf_g"], "lnf.bias": params["lnf_b"]}
+    for name, key in _EAGER_BLOCK_KEYS.items():
+        for layer, leaf in enumerate(params["blocks"][name].unbind(0)):
+            out[f"blocks.{layer}.{key}"] = leaf
+    return out
+
+
+class GPTBlock(nn.Layer):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        D = cfg.hidden
+        self.ln1 = nn.LayerNorm(D)
+        self.qkv = ColumnParallelLinear(D, 3 * D, gather_output=False)
+        self.proj = RowParallelLinear(D, D, input_is_parallel=True)
+        self.ln2 = nn.LayerNorm(D)
+        self.fc1 = ColumnParallelLinear(D, 4 * D, gather_output=False)
+        self.fc2 = RowParallelLinear(4 * D, D, input_is_parallel=True)
+        self.n_heads = cfg.n_heads
+        self.head_dim = cfg.head_dim
+        self.dropout = nn.Dropout(cfg.dropout)
+
+    def forward(self, x):
+        from ..nn import functional as NF
+        from ..nn.functional.attention import flash_attn_bhsd
+        from ..ops import manipulation as M
+        B, S, D = x.shape
+        h = self.ln1(x)
+        qkv = self.qkv(h)
+        # (head, 3, head_dim) column interleave — as the functional face's
+        # _split_qkv, so state_dicts interchange between the two faces
+        qkv = M.reshape(qkv, [B, S, -1, 3, self.head_dim])
+        q = M.transpose(qkv[:, :, :, 0], [0, 2, 1, 3])
+        k = M.transpose(qkv[:, :, :, 1], [0, 2, 1, 3])
+        v = M.transpose(qkv[:, :, :, 2], [0, 2, 1, 3])
+        attn = flash_attn_bhsd(q, k, v, None, True)
+        attn = M.reshape(M.transpose(attn, [0, 2, 1, 3]), [B, S, -1])
+        x = x + self.dropout(self.proj(attn))
+        h = self.ln2(x)
+        h = self.fc2(NF.gelu(self.fc1(h), approximate=True))
+        return x + self.dropout(h)
+
+
+class GPT(nn.Layer):
+    """Decoder-only LM (eager face): wte + wpe, the blocks, the final
+    LayerNorm and the lm-head tied to wte; f32 logits in the parameters'
+    dtype."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.wte = VocabParallelEmbedding(cfg.vocab_size, cfg.hidden)
+        self.wpe = nn.Embedding(cfg.max_seq, cfg.hidden)
+        self.drop = nn.Dropout(cfg.dropout)
+        self.blocks = nn.LayerList([GPTBlock(cfg)
+                                    for _ in range(cfg.n_layers)])
+        self.lnf = nn.LayerNorm(cfg.hidden)
+
+    def forward(self, tokens):
+        from ..ops.creation import arange
+        from ..ops.linalg import matmul
+        B, S = tokens.shape
+        pos = arange(S, dtype="int32")
+        x = self.wte(tokens) + self.wpe(pos)
+        x = self.drop(x)
+        for blk in self.blocks:
+            x = blk(x)
+        x = self.lnf(x)
+        return matmul(x, self.wte.weight, transpose_y=True)

@@ -36,14 +36,16 @@ FWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda-core f32"}
 BWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda-core f32"}
 
 
-def xla_attention(q, k, v, scale, causal, with_lse=False):
-    """Plain attention, the port of ``_xla_attention``: f32 scores,
-    ``-1e30`` causal mask, softmax, probabilities cast to q's dtype
-    before the PV product (the bf16 kernel rounds them against the running
-    max of each 64-key tile, so the two differ by bf16 rounding in bf16).
-    With ``with_lse`` also returns the per-row log-sum-exp [B, H, Sq] in
-    f32."""
+def xla_attention(q, k, v, scale, causal, with_lse=False, bias=None):
+    """Plain attention, the port of ``_xla_attention``: f32 scores, plus
+    the additive ``bias`` in f32 where given, ``-1e30`` causal mask,
+    softmax, probabilities cast to q's dtype before the PV product (the
+    bf16 kernel rounds them against the running max of each 64-key tile,
+    so the two differ by bf16 rounding in bf16). With ``with_lse`` also
+    returns the per-row log-sum-exp [B, H, Sq] in f32."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()
     if causal:
         logits = causal_mask(logits, 0, 0, k.shape[-2] - q.shape[-2])
     probs = torch.softmax(logits, dim=-1).to(q.dtype)

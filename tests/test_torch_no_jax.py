@@ -109,6 +109,17 @@ def test_package_runs_with_jax_blocked():
         sq = elementwise_kernel(lambda v: v * v, 8)(x)
         assert torch.allclose(reduce_kernel(torch.sum, 0.0, 8)(sq),
                               (x * x).sum())
+        import paddle_tpu_torch as paddle
+        paddle.set_device("cpu")
+        paddle.seed(0)
+        net = paddle.models.LeNet()
+        opt = paddle.optimizer.Adam(1e-3, parameters=net.parameters())
+        loss = paddle.nn.CrossEntropyLoss()(
+            net(paddle.randn([4, 1, 28, 28])), paddle.to_tensor([1, 2, 3, 4]))
+        loss.backward()
+        opt.step()
+        eager = gpt.GPT(gpt.gpt_tiny(n_layers=1))
+        assert eager(paddle.to_tensor(prompt)).shape == [2, 5, 256]
         assert not any(m and m.startswith(("jax", "paddle_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("OK")
@@ -195,3 +206,32 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         gpt.build_train_step(cfg)(params, None, tokens, tokens)
     with pytest.raises(ValueError, match="params live on cpu"):
         gpt.build_eval_step(cfg)(params, tokens, tokens)
+
+
+def test_eager_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    """The eager surface puts new tensors on the current place, the card
+    unless set_device chose the CPU; without a card every entry point
+    raises instead of carrying on on the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.models import gpt
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(place, "_current_place", None)
+    assert place.get_device() == "gpu:0"
+    calls = {
+        "to_tensor": lambda: paddle.to_tensor([1.0, 2.0]),
+        "zeros": lambda: paddle.zeros([2]),
+        "arange": lambda: paddle.arange(4),
+        "randn": lambda: paddle.randn([2]),
+        "Linear": lambda: paddle.nn.Linear(2, 2),
+        "LeNet": lambda: paddle.models.LeNet(),
+        "eager GPT": lambda: gpt.GPT(gpt.gpt_tiny(n_layers=1)),
+        "set_device(gpu)": lambda: paddle.set_device("gpu"),
+        "load": lambda: paddle.load(__file__),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    paddle.set_device("cpu")
+    assert paddle.to_tensor([1.0]).place == place.CPUPlace()
