@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases build,resil,fleet
     python3 chip_smoke.py --phases build,moe,moe_parity,guards
     python3 chip_smoke.py --phases build,eager,eager_parity
+    python3 chip_smoke.py --phases build,kernels,amp,jit,hapi
 
 Phases, each fatal on failure:
 
@@ -257,8 +258,9 @@ Phases, each fatal on failure:
               quarantined (in the checkpoint aux too), the losses equal a
               clean run that skips them, bit for bit; save and restore
               seconds and bytes; a trainer child (--guards-child) run
-              whole, another SIGKILLed after its first commit and a third
-              resumed from it: the resumed losses equal the whole run's.
+              whole, beside it another SIGKILLed after its first commit,
+              then a third resumed from that commit: the resumed losses
+              equal the whole run's.
 
 22. eager   — the eager framework surface (``import paddle_tpu_torch as
               paddle``: Tensor on torch autograd, nn.Layer, the optimizers)
@@ -279,6 +281,56 @@ Phases, each fatal on failure:
               losses of 3 steps (AdamW, Adam) within 1e-4, the card's
               flash launches exact; one Dropout(0.1) call's mask bitwise
               equal on the two after seed().
+
+24. amp     — mixed precision on the eager GPT at gpt3_1p3b width (24
+              layers, init_params seed 0 through eager_state_dict, the
+              eager phase's B=1 x S=2048 batch, AdamW(3e-5)): 3 steps
+              under auto_cast O1 bf16 and with decorate(level="O2",
+              master_weight=True) bf16, beside the eager phase's f32 run
+              (run here when it did not); the losses within
+              AMP_LOSS_VS_F32[level] of f32's; step ms, tokens/s, peak
+              memory; flash launches exactly 24 + 24 + 24 a step, all on
+              the wgmma route. Planted faults at that size (AMP_FAULTS:
+              cross_entropy and layer_norm forced to bf16, an amp_cast
+              whose gradient is dropped) read beside each limit, which
+              must see those in AMP_MUST_SEE. O1 float16 with
+              GradScaler() at its defaults for 6 steps (the scale and
+              found_inf each step, at least one applied), then 2 steps on
+              the same moments under a scaler from 2^40: every f16
+              gradient overflows, and each skipped step's parameters and
+              moments are bitwise those of its start. The operator stats
+              of one O1 step by dtype. The f16 kernels (forward, dq,
+              dk/dv) against their plain versions at [1,16,2048,2048,128]
+              causal and at ragged shapes (TOL["f16"], BWD_TOL["f16"]),
+              timed beside SDPA f16, and bf16 at that shape beside SDPA
+              bf16. The 2-layer f32-weight cut under O1 bf16, the CPU
+              against the card, losses within AMP_CUT_LOSS_TOL, which
+              must see the card's planted faults in AMP_MUST_SEE["cut"].
+25. jit     — LeNet: 20 eager Adam steps, then 20 under to_static
+              (inductor, full graph), losses within JIT_LENET_TOL of an
+              eager twin from the same state, one compile. jit.save of
+              the O2 bf16 GPT with InputSpec([1, 2048], "int64"), served
+              through jit.load and inference.create_predictor(Config(
+              path)): logits within JIT_EXPORT_TOL of the eager layer, 24
+              flash forwards a call, ms a call beside the eager layer's
+              (the predictor's handle form, its outputs on the card; its
+              list form with the logits' copy to the host beside it), the
+              host's time to enqueue a call, device time, the file sizes.
+              to_static(GPT(gpt3_1p3b)) under O1 bf16 for 3 steps: one
+              compile (its seconds, by torch's timers), no graph break
+              (fullgraph), flash launches exact, losses within
+              JIT_GPT_TOL of the amp phase's eager O1 losses, step ms
+              beside the eager one; then the exported forms served again
+              in the same process. jit.save of LeNet served by the
+              predictor equals the eager forward (1e-5).
+26. hapi    — paddle.Model(LeNet()).prepare(Adam(1e-3),
+              CrossEntropyLoss(), Accuracy()).fit on MNIST(mode="train")
+              (the synthetic digits), batch 64, with EarlyStopping and
+              ModelCheckpoint into a temporary directory: 1 epoch with
+              no workers, 2 epochs with num_workers=2 (thread workers:
+              CUDA is up); steps/s of each; evaluate on MNIST(mode="test")
+              must reach HAPI_MIN_ACC (the reference's synthetic digits
+              are faint: see the constant).
 
 Every other phase runs the session's ticks and generate()'s steps as
 captured graphs too (each session's first tick is the warm-up, run
@@ -302,6 +354,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -311,17 +364,20 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "generate", "server", "parity", "quant",
           "quant_parity", "paged", "paged_parity", "train", "train_parity",
           "incubate", "sampling", "spec", "graph", "buckets", "resil",
-          "fleet", "moe", "moe_parity", "guards", "eager", "eager_parity")
+          "fleet", "moe", "moe_parity", "guards", "eager", "eager_parity",
+          "amp", "jit", "hapi")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}
 
 # the kernels against their plain versions on the card: bf16 differs by
 # the bf16 rounding of the probabilities the plain version applies before
 # the PV product (the kernel keeps them in f32) and of the bf16 output;
 # f32 differs only by summation order (TF32 off)
-TOL = {"bf16": 3e-2, "f32": 2e-4}
+# f16 has 3 more mantissa bits than bf16 (2^-11 against 2^-8 a rounding),
+# so its limits are bf16's over 8
+TOL = {"bf16": 3e-2, "f16": 4e-3, "f32": 2e-4}
 DECODE_TOL = {"bf16": 2e-4, "f32": 2e-4}   # decode math is f32 either way
 # flash backward against its plain version, relative to max|grad|: in bf16
 # the wgmma kernels round p and ds to bf16 before the three products that
@@ -329,7 +385,7 @@ DECODE_TOL = {"bf16": 2e-4, "f32": 2e-4}   # decode math is f32 either way
 # dk, dv to bf16 (tests/test_torch_train_kernels_cpu.py models the kernels'
 # rounding on the CPU); in f32 (CUDA-core kernels) only the summation order
 # differs
-BWD_TOL = {"bf16": 2 ** -6, "f32": 1e-4}
+BWD_TOL = {"bf16": 2 ** -6, "f16": 2 ** -9, "f32": 1e-4}
 # fused AdamW against its plain version: f32 moments to a few f32 roundings
 # (the kernel may fuse multiply-adds) relative to max|m|, max|v|; a bf16 p
 # elementwise to one bf16 rounding of the f32 result, relative to |p| plus
@@ -380,6 +436,54 @@ FLEET_KILL_AFTER_POLLS = 4
 # bf16 step of the output (2^-7) in bf16 and 1e-5 in f32; one dropout mask
 # bit off would be an O(1) error
 FLN_TOL = {"bf16": 2 ** -7, "f32": 1e-5}
+# the amp phase's bf16 losses against f32 on the same weights and batch,
+# max over 3 AdamW steps at lr 3e-5, one limit a level, a few times its
+# sound reading (NVIDIA H100 80GB HBM3, 700.00 W; the losses repeat bit
+# for bit from run to run): O1 4.85e-4 (only the white-list inputs round
+# to bf16), O2 0.0431 (every weight and activation outside the black list
+# in bf16). Planted faults read at this size (AMP_FAULTS): O1 sees
+# cross_entropy in bf16 (0.028) and a dropped amp_cast gradient (1.59);
+# O2 sees the dropped gradient (1.59), while cross_entropy in bf16 (0.063)
+# lies inside O2's own bf16 spread; layer_norm in bf16 moves neither
+# (5.0e-4, 0.0431: its output feeds white-list ops, rounded to bf16 anyway)
+AMP_LOSS_VS_F32 = {"O1": 2e-3, "O2": 0.1}
+# the 2-layer f32-weight cut under O1 bf16, the CPU against the card: both
+# round the same white-list inputs to bf16 and sum in f32 in different
+# orders (and the card's flash kernel keeps p in f32); sound reading
+# 3.59e-4; on the card cross_entropy in bf16 reads 3.50e-3, layer_norm in
+# bf16 5.5e-4
+AMP_CUT_LOSS_TOL = 1.5e-3
+# the planted faults the amp phase reads (name -> auto_cast's custom white
+# list, or None for an amp_cast whose gradient is dropped)
+AMP_FAULTS = {"cross_entropy in bf16": {"cross_entropy"},
+              "layer_norm in bf16": {"layer_norm"},
+              "amp_cast without gradient": None}
+# the faults each limit must see (the phase fails if one lies inside)
+AMP_MUST_SEE = {"O1": ("cross_entropy in bf16", "amp_cast without gradient"),
+                "O2": ("amp_cast without gradient",),
+                "cut": ("cross_entropy in bf16",)}
+# to_static LeNet (inductor) against its eager twin over 20 Adam steps in
+# f32 (TF32 off): inductor fuses and reorders reductions, a few f32 ulps
+# a step that Adam carries on
+JIT_LENET_TOL = 1e-4
+# to_static GPT under O1 bf16 against the eager O1 losses: inductor fuses
+# the bf16 casts and reorders the f32 reductions around them
+JIT_GPT_TOL = 2e-2
+# the exported O2 bf16 GPT (jit.load and the predictor) against the eager
+# layer: the same ATen ops on the same bf16 weights; relative to max|logit|
+JIT_EXPORT_TOL = 1e-2
+# the hapi phase's LeNet on MNIST's synthetic digits after 2 epochs. The
+# reference's recipe adds its noise to the 255-valued class blob in uint8,
+# which wraps the blob to 0-29 but for one pixel in 30, so the classes are
+# faint: the port, and the reference with it (tests/test_torch_io_hapi.py
+# holds Model.fit to the reference's losses), reaches 0.72 after 2 epochs
+# and plateaus near 0.73 on the CPU (chance 0.1)
+HAPI_MIN_ACC = 0.6
+
+
+# the limits' names of the flash kernels' dtypes
+_TNAME = {"torch.bfloat16": "bf16", "torch.float16": "f16",
+          "torch.float32": "f32"}
 
 
 # the bool template parameters of the kernels that have them, in order,
@@ -400,11 +504,11 @@ def _kernel_label(line: str) -> str:
     mangled = line.split("'")[1] if "'" in line else line
     name = re.search(r"\d+([a-z_]+_kernel)I", mangled)
     args = re.findall(r"L([ib])(\d+)E", mangled)
-    # a kernel fed by TMA takes tensor maps, and every map of the port's
-    # tensor-core kernels holds bf16 operands (quant_matmul's codes are
-    # converted to bf16 in shared memory)
-    dtype = ("bf16" if "bfloat16" in mangled or "CUtensorMap" in mangled
-             else "f16" if "6__half" in mangled
+    # a kernel fed by TMA takes tensor maps; the flash kernels name their
+    # 16-bit type (bf16 or f16) and quant_matmul's map holds bf16 (its
+    # codes are converted to bf16 in shared memory)
+    dtype = ("f16" if "6__half" in mangled
+             else "bf16" if "bfloat16" in mangled or "CUtensorMap" in mangled
              else "int8" if re.search(r"_kernelIa", mangled) else "f32")
     ints = [v for k, v in args if k == "i"]
     flags = [v == "1" for k, v in args if k == "b"]
@@ -547,7 +651,7 @@ class Smoke:
                                    device=self.dev).to(dtype)
         q, k, v = mk(Sq), mk(Skv), mk(Skv)
         scale = 1.0 / d ** 0.5
-        tname = "bf16" if dtype == torch.bfloat16 else "f32"
+        tname = _TNAME.get(str(dtype), "f32")
         res = fa.flash_attention(q, k, v, scale, causal, with_lse)
         torch.cuda.synchronize()
         ref = fa.xla_attention(q, k, v, scale, causal, with_lse)
@@ -560,7 +664,7 @@ class Smoke:
             raise AssertionError("flash_attention_fwd output not finite")
         case = dict(kernel="flash_attention_fwd", shape=[B, H, Sq, Skv, d],
                     dtype=tname, causal=causal, with_lse=with_lse,
-                    route=fa.FWD_ROUTES[dtype], max_abs_err=err,
+                    route=fa.ROUTES[dtype], max_abs_err=err,
                     tol=TOL[tname])
         log(f"[kernels] {json.dumps(case)}")
         if err > TOL[tname]:
@@ -705,7 +809,7 @@ class Smoke:
                                    device=self.dev).to(dtype)
         q, k, v, do = mk(Sq), mk(Skv), mk(Skv), mk(Sq)
         scale = 1.0 / d ** 0.5
-        tname = "bf16" if dtype == torch.bfloat16 else "f32"
+        tname = _TNAME.get(str(dtype), "f32")
         with torch.no_grad():
             out, lse = fa.flash_attention(q, k, v, scale, causal, True)
         di = fa.softmax_grad_rowsum(out, do)
@@ -722,7 +826,7 @@ class Smoke:
             errs[name] = (a.float() - r.float()).abs().max().item()
             rel[name] = errs[name] / max(r.float().abs().max().item(), 1e-30)
         base = dict(shape=[B, H, Sq, Skv, d], dtype=tname, causal=causal,
-                    route=fa.BWD_ROUTES[dtype],
+                    route=fa.ROUTES[dtype],
                     tol_rel_to_max_grad=BWD_TOL[tname])
         cases = {
             "flash_attention_bwd_dq": dict(
@@ -4739,7 +4843,9 @@ class Smoke:
         from paddle_tpu_torch.models import gpt
         from paddle_tpu_torch.quantization import quantize_gpt_params
         cfg = gpt.gpt3_1p3b(n_layers=2, dtype=torch.float32, moe_experts=8)
+        marks = [("start", time.perf_counter())]
         weights = self._weights(cfg)
+        marks.append(("weights", time.perf_counter()))
         tok = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 129))
         lines = []
         for mode in ("alltoall", "einsum"):
@@ -4759,6 +4865,7 @@ class Smoke:
                     losses.append(float(loss))
                 sides[str(dev)] = losses
                 del params, opt
+                marks.append((f"train {mode} {dev}", time.perf_counter()))
             err = max(abs(a - b) for a, b in zip(sides["cpu"],
                                                  sides[str(self.dev)]))
             lines.append(dict(path=f"train {mode}", batch=[2, 128],
@@ -4850,6 +4957,7 @@ class Smoke:
             if max(errs) > tol or not agree:
                 raise AssertionError(f"moe {tag} serving: CPU and card "
                                      f"disagree: {errs}, tokens {agree}")
+            marks.append((f"serve {tag}", time.perf_counter()))
             blind = [n for n in on_cpu[1:] if n in spread
                      and spread[n] <= tol]
             if blind:
@@ -4857,6 +4965,9 @@ class Smoke:
                                      f"does not see the faults {blind}")
         del weights
         torch.cuda.empty_cache()
+        log("[moe_parity] seconds by part " + json.dumps({
+            name: round(t - marks[i][1], 1)
+            for i, (name, t) in enumerate(marks[1:])}))
 
     # -------------------------------------------------------------- guards
     GUARD_STEPS = 4       # the kill-resume trainer's steps
@@ -5090,9 +5201,9 @@ class Smoke:
 
     def _guards_kill_resume(self, tmp):
         """A trainer child (this script, --guards-child) runs
-        uninterrupted; a second is SIGKILLed after its first commit; a
-        third resumes from that commit. The resumed losses equal the
-        uninterrupted run's, bit for bit."""
+        uninterrupted; a second, started beside it, is SIGKILLed after its
+        first commit; a third resumes from that commit. The resumed
+        losses equal the uninterrupted run's, bit for bit."""
         import os
         import signal
         from paddle_tpu_torch.distributed.ft import latest_step
@@ -5101,40 +5212,63 @@ class Smoke:
             return [sys.executable, str(ROOT / "chip_smoke.py"),
                     "--guards-child", d, mode]
 
-        def run(mode, d):
-            t0 = time.perf_counter()
-            out = subprocess.run(child(mode, d), capture_output=True,
-                                 text=True, timeout=600)
-            if out.returncode != 0:
-                raise AssertionError(f"guards {mode} child exited "
-                                     f"{out.returncode}: {out.stderr[-2000:]}")
-            res = json.loads([ln for ln in out.stdout.splitlines()
+        def start(mode, d):
+            # output to files: a pipe left unread while the parent watches
+            # the other child could fill and stall this one
+            out = open(os.path.join(tmp, f"{mode}.out"), "w+")
+            err = open(os.path.join(tmp, f"{mode}.err"), "w+")
+            return (mode, subprocess.Popen(child(mode, d), stdout=out,
+                                           stderr=err, text=True),
+                    out, err, time.perf_counter())
+
+        def finish(started):
+            mode, proc, out, err, t0 = started
+            try:
+                rc = proc.wait(timeout=600)
+            finally:
+                proc.kill()
+                proc.wait()
+            wall = time.perf_counter() - t0
+            out.seek(0)
+            err.seek(0)
+            stdout, stderr = out.read(), err.read()
+            out.close()
+            err.close()
+            if rc != 0:
+                raise AssertionError(f"guards {mode} child exited {rc}: "
+                                     f"{stderr[-2000:]}")
+            res = json.loads([ln for ln in stdout.splitlines()
                               if ln.startswith("{")][-1])
-            res["wall_s"] = round(time.perf_counter() - t0, 2)
+            res["wall_s"] = round(wall, 2)
             return res
 
-        full = run("full", os.path.join(tmp, "full"))
-        kill_dir = os.path.join(tmp, "killed")
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(child("slow", kill_dir),
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
+        full_child = start("full", os.path.join(tmp, "full"))
         try:
-            while latest_step(kill_dir) is None:
-                if proc.poll() is not None:
-                    raise AssertionError("guards: the trainer exited before "
-                                         "a commit: "
-                                         + proc.stderr.read()[-2000:])
-                if time.perf_counter() - t0 > 600:
-                    raise AssertionError("guards: no commit in 600 s")
-                time.sleep(0.05)
-            proc.send_signal(signal.SIGKILL)
-        finally:
-            proc.wait()
-            proc.stdout.close()
-            proc.stderr.close()
-        committed = latest_step(kill_dir)
-        resumed = run("resume", kill_dir)
+            kill_dir = os.path.join(tmp, "killed")
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(child("slow", kill_dir),
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            try:
+                while latest_step(kill_dir) is None:
+                    if proc.poll() is not None:
+                        raise AssertionError(
+                            "guards: the trainer exited before a commit: "
+                            + proc.stderr.read()[-2000:])
+                    if time.perf_counter() - t0 > 600:
+                        raise AssertionError("guards: no commit in 600 s")
+                    time.sleep(0.05)
+                proc.send_signal(signal.SIGKILL)
+            finally:
+                proc.wait()
+                proc.stdout.close()
+                proc.stderr.close()
+            committed = latest_step(kill_dir)
+            full = finish(full_child)
+        finally:    # stopped on any failure above
+            full_child[1].kill()
+            full_child[1].wait()
+        resumed = finish(start("resume", kill_dir))
         line = dict(path="kill and resume", config="gpt3_1p3b(n_layers=4)",
                     steps=self.GUARD_STEPS, batch=list(self.GUARD_BATCH),
                     killed_returncode=proc.returncode,
@@ -5257,28 +5391,20 @@ class Smoke:
         from paddle_tpu_torch.models import gpt
         paddle.set_device("gpu")
         self._eager_lenet()
-        # the eager GPT at full width, f32, on the functional face's draw
-        cfg = gpt.gpt3_1p3b(dtype=torch.float32)
+        # the eager GPT at full width, f32, on the functional face's draw;
+        # kept with a copy of its initial weights for the amp and jit phases
         t0 = time.perf_counter()
-        paddle.seed(0)
-        model = gpt.GPT(cfg)
-        params = gpt.init_params(cfg, seed=0, device=self.dev)
-        missing, unexpected = model.set_state_dict(
-            gpt.eager_state_dict(params))
+        self.gpt_f32 = None
+        cfg, model, init, params = self._gpt_f32(keep_params=True)
         torch.cuda.synchronize()
         n = sum(p.size for p in model.parameters())
         log(f"[eager] GPT(gpt3_1p3b, f32): {n / 1e9:.3f} B params, built "
             f"and set from init_params in {time.perf_counter() - t0:.1f} s")
-        if missing or unexpected:
-            raise AssertionError(f"eager_state_dict keys: missing {missing}"
-                                 f", unexpected {unexpected}")
-        B, S = 1, 2048
-        tok = np.random.default_rng(7).integers(0, cfg.vocab_size,
-                                                (B, S + 1))
+        tokens, labels = batch = self._gpt_batch(cfg)
+        B, S = tokens.shape
         with torch.no_grad():
-            got = model(paddle.to_tensor(tok[:, :-1]))._value
-            want = gpt.forward(params, cfg, torch.as_tensor(
-                tok[:, :-1], device=self.dev))
+            got = model(tokens)._value
+            want = gpt.forward(params, cfg, tokens._value)
             err = (got - want).abs().max().item()
         log("[eager] " + json.dumps(dict(
             eager_vs_functional_logits_max_abs_err=err, tol=1e-3,
@@ -5289,23 +5415,10 @@ class Smoke:
         torch.cuda.empty_cache()
         opt = paddle.optimizer.AdamW(learning_rate=3e-5,
                                      parameters=model.parameters())
-        tokens = paddle.to_tensor(tok[:, :-1])
-        labels = paddle.to_tensor(tok[:, 1:].reshape(-1))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         self._zero_counts()
-        losses, times = [], []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            logits = model(tokens)
-            loss = paddle.nn.functional.cross_entropy(
-                paddle.reshape(logits, [-1, cfg.vocab_size]), labels)
-            loss.backward()
-            opt.step()
-            opt.clear_grad()
-            losses.append(float(loss))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+        losses, times, _ = self._gpt_steps(model, opt, batch, 3)
         peak = torch.cuda.max_memory_allocated()
         names = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
@@ -5313,16 +5426,17 @@ class Smoke:
         self._expect_counts("eager", counts,
                             {n: 3 * cfg.n_layers for n in names})
         step_s = sum(times[1:]) / len(times[1:])
-        log("[eager] " + json.dumps(dict(
-            model="GPT(gpt3_1p3b, f32, dropout 0)", batch=B, seq=S,
-            optimizer="AdamW(3e-5)", losses=losses,
-            step_ms=[round(t * 1e3, 3) for t in times],
+        self.eager_f32 = dict(
+            losses=losses, step_ms=[round(t * 1e3, 3) for t in times],
             step_ms_mean_after_first=round(step_s * 1e3, 3),
             tokens_per_s=round(B * S / step_s, 1),
-            max_memory_allocated_gib=round(peak / 2 ** 30, 3))))
+            max_memory_allocated_gib=round(peak / 2 ** 30, 3))
+        log("[eager] " + json.dumps(dict(
+            model="GPT(gpt3_1p3b, f32, dropout 0)", batch=B, seq=S,
+            optimizer="AdamW(3e-5)", **self.eager_f32)))
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"eager GPT losses bad: {losses}")
-        del model, opt, logits, loss
+        del opt
         torch.cuda.empty_cache()
 
     def phase_eager_parity(self):
@@ -5400,6 +5514,636 @@ class Smoke:
             raise AssertionError("eager CPU and card disagree")
 
 
+    # ------------------------------------------------------------- amp
+    def _gpt_f32(self, keep_params=False):
+        """GPT(gpt3_1p3b) in f32 with init_params seed 0's weights, and a
+        copy of those weights on the card to reset it from (the peak
+        memory the phases read holds that copy); built once, by the eager
+        phase or by the first of the amp and jit phases that runs. With
+        ``keep_params`` the functional tree is returned too."""
+        params = None
+        if getattr(self, "gpt_f32", None) is None:
+            torch = self.torch
+            import paddle_tpu_torch as paddle
+            from paddle_tpu_torch.models import gpt
+            cfg = gpt.gpt3_1p3b(dtype=torch.float32)
+            paddle.seed(0)
+            model = gpt.GPT(cfg)
+            params = gpt.init_params(cfg, seed=0, device=self.dev)
+            init = {k: v.clone() for k, v in
+                    gpt.eager_state_dict(params).items()}
+            missing, unexpected = model.set_state_dict(init)
+            if missing or unexpected:
+                raise AssertionError(f"eager_state_dict keys: missing "
+                                     f"{missing}, unexpected {unexpected}")
+            if not keep_params:
+                params = None
+            self.gpt_f32 = (cfg, model, init)
+        cfg, model, init = self.gpt_f32
+        self._reset(model, init)
+        if keep_params:
+            return cfg, model, init, params
+        return cfg, model, init
+
+    @staticmethod
+    def _reset(model, init):
+        """The model back to f32 and to its initial weights."""
+        model.to(dtype="float32")
+        model.set_state_dict(init)
+
+    def _gpt_batch(self, cfg):
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        # the eager phase's batch
+        tok = np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                                (1, 2049))
+        return (paddle.to_tensor(tok[:, :-1]),
+                paddle.to_tensor(tok[:, 1:].reshape(-1)))
+
+    def _gpt_steps(self, model, opt, batch, n, amp=None, scaler=None,
+                   snapshot=None):
+        """``n`` training steps; returns (losses, step seconds, per-step
+        scaler records). ``amp``: auto_cast kwargs. With a scaler the
+        step is the reference's: scale, backward, unscale_ (one host
+        read), the optimizer step unless a gradient is not finite,
+        update; ``snapshot(opt)``, taken before each step (outside its
+        time), checks that a skipped step changed no parameter or moment
+        from the step's start."""
+        torch = self.torch
+        import contextlib
+        import paddle_tpu_torch as paddle
+        tokens, labels = batch
+        losses, times, records = [], [], []
+        for _ in range(n):
+            check = snapshot(opt) if snapshot else None
+            t0 = time.perf_counter()
+            ctx = (paddle.amp.auto_cast(**amp) if amp
+                   else contextlib.nullcontext())
+            with ctx:
+                logits = model(tokens)
+                loss = paddle.nn.functional.cross_entropy(
+                    paddle.reshape(logits, [-1, logits.shape[-1]]), labels)
+            if scaler is None:
+                loss.backward()
+                opt.step()
+            else:
+                scale = scaler.get_init_loss_scaling()
+                scaler.scale(loss).backward()
+                scaler.unscale_(opt)
+                found = scaler._found_inf
+                if not found:
+                    opt.step()
+                scaler.update()
+                checked = bool(found and check)
+                if checked:
+                    check()
+                records.append(dict(scale=scale, found_inf=found,
+                                    checked=checked))
+            opt.clear_grad()
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del logits, loss, check
+        return losses, times, records
+
+    def _skip_check(self, model):
+        """A snapshot function for _gpt_steps: copies every parameter and
+        optimizer moment; the check it returns asserts them bitwise
+        equal."""
+        torch = self.torch
+
+        def snap(opt):
+            params = [p._value.detach().clone() for p in model.parameters()]
+            states = {k: {n: v.clone() for n, v in st.items()
+                          if isinstance(v, torch.Tensor)}
+                      for k, st in opt._states.items()}
+
+            def check():
+                for p, b in zip(model.parameters(), params):
+                    if not torch.equal(p._value, b):
+                        raise AssertionError("a skipped step moved a "
+                                             "parameter")
+                if set(opt._states) != set(states):
+                    raise AssertionError("a skipped step made moments")
+                for k, st in states.items():
+                    for n, v in st.items():
+                        if not torch.equal(opt._states[k][n], v):
+                            raise AssertionError(f"a skipped step moved "
+                                                 f"moment {n}")
+            return check
+        return snap
+
+    def _flash_counts(self, path, steps, n_layers, routes=("wgmma",)):
+        """Exact flash launches of ``steps`` training steps: n_layers
+        each a step, forward, dq and dk/dv, all on ``routes``."""
+        from paddle_tpu_torch.ops.kernels import flash_attention as fa
+        names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+        counts = self._read_counts(path, names)
+        self._expect_counts(path, counts,
+                            {n: steps * n_layers for n in names})
+        for fn in (fa.flash_attention, fa.flash_attention_bwd_dq,
+                   fa.flash_attention_bwd_dkv):
+            bad = {r: n for r, n in fn.routes.items()
+                   if n and r not in routes}
+            if bad:
+                raise AssertionError(f"{path}: flash launches on {bad}")
+        return counts
+
+    def _amp_run(self, model, init, level, dtype, steps=3, white=(),
+                 counts=None):
+        """``steps`` AdamW(3e-5) steps of the f32 model from ``init``
+        under auto_cast(level, dtype) (O2: decorate first, master weights
+        on), custom white list ``white``; flash launches checked when
+        ``counts`` names the path. Returns the run's line."""
+        torch = self.torch
+        import paddle_tpu_torch as paddle
+        self._reset(model, init)
+        opt = paddle.optimizer.AdamW(3e-5, parameters=model.parameters())
+        if level == "O2":
+            paddle.amp.decorate(model, opt, level="O2", dtype=dtype,
+                                master_weight=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self._zero_counts()
+        amp = (dict(level=level, dtype=dtype, custom_white_list=set(white))
+               if level else None)
+        losses, times, _ = self._gpt_steps(model, opt, self._gpt_batch(
+            model.cfg), steps, amp)
+        peak = torch.cuda.max_memory_allocated()
+        if counts:
+            self._flash_counts(counts, steps, model.cfg.n_layers)
+        step_s = sum(times[1:]) / len(times[1:])
+        del opt
+        torch.cuda.empty_cache()
+        return dict(losses=losses, step_ms=[round(t * 1e3, 3) for t in times],
+                    step_ms_mean_after_first=round(step_s * 1e3, 3),
+                    tokens_per_s=round(2048 / step_s, 1),
+                    max_memory_allocated_gib=round(peak / 2 ** 30, 3))
+
+    def phase_amp(self):
+        torch = self.torch
+        import contextlib
+        import io
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        import paddle_tpu_torch.amp as pamp
+        from paddle_tpu_torch import tensor as ptensor
+        from paddle_tpu_torch.models import gpt
+        paddle.set_device("gpu")
+        t0 = time.perf_counter()
+        cfg, model, init = self._gpt_f32()
+        batch = self._gpt_batch(cfg)
+        log(f"[amp] GPT(gpt3_1p3b) f32 from init_params seed 0 in "
+            f"{time.perf_counter() - t0:.1f} s")
+        # the f32 run is the eager phase's when it ran (the same model,
+        # weights, batch and steps)
+        f32 = getattr(self, "eager_f32", None)
+        if f32 is None:
+            f32 = self._amp_run(model, init, None, None)
+            log("[amp] f32 " + json.dumps(f32))
+        runs = {}
+        for level in ("O1", "O2"):
+            name = f"{level} bf16"
+            runs[name] = self._amp_run(model, init, level, "bfloat16",
+                                       counts=f"amp {name}")
+            log(f"[amp] {name} " + json.dumps(runs[name]))
+        # planted faults, each read against f32 beside its level's limit
+        sound_cast = pamp._amp_cast
+
+        def cast_without_grad(t, dtype):
+            return ptensor.apply_op("amp_cast",
+                                    lambda v: v.detach().to(dtype), t)
+        for level in ("O1", "O2"):
+            name, limit = f"{level} bf16", AMP_LOSS_VS_F32[level]
+            sound = max(abs(a - b) for a, b in zip(runs[name]["losses"],
+                                                   f32["losses"]))
+            faults = {}
+            for fault, white in AMP_FAULTS.items():
+                if white is None:
+                    pamp._amp_cast = cast_without_grad
+                try:
+                    got = self._amp_run(model, init, level, "bfloat16",
+                                        white=white or ())["losses"]
+                finally:
+                    pamp._amp_cast = sound_cast
+                faults[fault] = max(abs(a - b)
+                                    for a, b in zip(got, f32["losses"]))
+            seen = {k: v > limit for k, v in faults.items()}
+            log("[amp] " + json.dumps(dict(
+                run=name, loss_vs_f32_max_abs=sound, limit=limit,
+                planted_faults_vs_f32_max_abs=faults,
+                faults_outside_limit=seen)))
+            if not all(np.isfinite(runs[name]["losses"])) or sound > limit:
+                raise AssertionError(f"amp {name} losses {runs[name]} far "
+                                     f"from f32 {f32['losses']}")
+            blind = [k for k in AMP_MUST_SEE[level] if not seen[k]]
+            if blind:
+                raise AssertionError(f"amp {name}: the limit {limit} does "
+                                     f"not see the faults {blind}")
+        self.amp_o1 = runs["O1 bf16"]
+        # float16 with the default GradScaler, then the same model and
+        # moments under a scaler from 2^40, where every f16 gradient
+        # overflows: each skipped step is checked bitwise
+        self._reset(model, init)
+        opt = paddle.optimizer.AdamW(3e-5, parameters=model.parameters())
+        self._zero_counts()
+        losses, times, records = self._gpt_steps(
+            model, opt, batch, 6, dict(dtype="float16"),
+            paddle.amp.GradScaler(), self._skip_check(model))
+        self._flash_counts("amp O1 f16", 6, cfg.n_layers)
+        f_losses, _, forced = self._gpt_steps(
+            model, opt, batch, 2, dict(dtype="float16"),
+            paddle.amp.GradScaler(init_loss_scaling=2.0 ** 40),
+            self._skip_check(model))
+        applied = sum(not r["found_inf"] for r in records)
+        checked = sum(r["checked"] for r in records + forced)
+        log("[amp] O1 f16 " + json.dumps(dict(
+            losses=losses, scaler=records, applied_steps=applied,
+            step_ms=[round(t * 1e3, 3) for t in times],
+            forced_overflow=dict(losses=f_losses, scaler=forced),
+            skipped_steps_checked_bitwise=checked)))
+        if not all(np.isfinite(losses)) or applied == 0:
+            raise AssertionError(f"amp f16 applied no step: {records}")
+        if not all(r["found_inf"] for r in forced) or \
+                checked != sum(r["found_inf"] for r in records + forced):
+            raise AssertionError(f"amp f16 forced overflow: {forced}")
+        del opt
+        # the operator stats of one O1 step
+        self._reset(model, init)
+        opt = paddle.optimizer.AdamW(3e-5, parameters=model.parameters())
+        with contextlib.redirect_stdout(io.StringIO()):
+            paddle.amp.enable_operator_stats_collection()
+            try:
+                self._gpt_steps(model, opt, batch, 1,
+                                dict(level="O1", dtype="bfloat16"))
+            finally:
+                stats = paddle.amp.disable_operator_stats_collection()
+        by_dtype = {}
+        for (op, dt), n in stats.items():
+            by_dtype[dt] = by_dtype.get(dt, 0) + n
+        log("[amp] operator stats, one O1 bf16 step: " + json.dumps(dict(
+            calls_by_dtype=by_dtype,
+            ops={f"{op}/{dt}": n for (op, dt), n in sorted(stats.items())})))
+        if stats.get(("flash_attn_bhsd", "bfloat16")) != cfg.n_layers:
+            raise AssertionError(f"operator stats: {stats}")
+        del opt
+        torch.cuda.empty_cache()
+        # the f16 kernels against their plain versions, and bf16 at the
+        # eager GPT's shape beside SDPA
+        for dtype in (torch.float16, torch.bfloat16):
+            self._flash_case(1, 16, 2048, 2048, 128, dtype, True, False,
+                             time_it=True)
+            self._flash_bwd_case(1, 16, 2048, 2048, 128, dtype, True,
+                                 time_it=True)
+        self._flash_bwd_case(2, 4, 130, 130, 64, torch.float16, True,
+                             time_it=False)
+        self._flash_case(2, 4, 200, 328, 32, torch.float16, True, True,
+                         time_it=False)
+        # the 2-layer cut under O1 bf16, the CPU against the card, and the
+        # card with a black-list op planted in bf16
+        cut = gpt.gpt3_1p3b(n_layers=2, dtype=torch.float32)
+        weights = self._weights(cut)
+        tok = np.random.default_rng(8).integers(0, cut.vocab_size, (2, 129))
+        sides = [("cpu", "cpu", ()), ("card", "gpu", ())]
+        sides += [(k, "gpu", w) for k, w in AMP_FAULTS.items() if w]
+        loss = {}
+        for name, dev, white in sides:
+            paddle.set_device("gpu")
+            m = gpt.GPT(cut)
+            if dev == "cpu":
+                m.to("cpu")
+            paddle.set_device(dev)
+            m.set_state_dict(gpt.eager_state_dict(
+                weights["cpu" if dev == "cpu" else str(self.dev)]))
+            with paddle.amp.auto_cast(dtype="bfloat16",
+                                      custom_white_list=set(white)):
+                logits = m(paddle.to_tensor(tok[:, :-1]))
+                loss[name] = float(paddle.nn.functional.cross_entropy(
+                    paddle.reshape(logits, [-1, cut.vocab_size]),
+                    paddle.to_tensor(tok[:, 1:].reshape(-1))))
+            del m, logits
+        paddle.set_device("gpu")
+        err = abs(loss["cpu"] - loss["card"])
+        faults = {k: abs(loss["cpu"] - v) for k, v in loss.items()
+                  if k not in ("cpu", "card")}
+        log("[amp] " + json.dumps(dict(
+            cut="GPT(gpt3_1p3b(n_layers=2)) f32 weights, O1 bf16, B=2 x "
+                "S=128", loss_cpu=loss["cpu"], loss_card=loss["card"],
+            abs_err=err, limit=AMP_CUT_LOSS_TOL,
+            planted_faults_on_the_card_abs_err=faults)))
+        if err > AMP_CUT_LOSS_TOL:
+            raise AssertionError(f"O1 bf16 cut: CPU {loss['cpu']} card "
+                                 f"{loss['card']}")
+        blind = [k for k in AMP_MUST_SEE["cut"]
+                 if faults[k] <= AMP_CUT_LOSS_TOL]
+        if blind:
+            raise AssertionError(f"O1 bf16 cut: the limit does not see "
+                                 f"{blind}")
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- jit
+    def _top_kernels(self, fn, iters=3):
+        """Device ms of one call of ``fn`` under torch.profiler, and its
+        five largest kernel rows (name, ms a call, launches a call)."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, top = _device_rows(torch, prof, 5)
+        return dict(device_ms_a_call=round(total / iters, 3),
+                    top_kernels=[(k[:60], round(ms / iters, 3), c // iters)
+                                 for k, ms, c in top])
+
+    def _lenet_jit(self):
+        torch = self.torch
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch.models import LeNet
+        rng = np.random.default_rng(16)
+        data = [self._digits(rng, 64) for _ in range(40)]
+        nets = []
+        for _ in range(2):      # the same draw twice: net and its twin
+            paddle.seed(0)
+            nets.append(LeNet())
+        net, twin = nets
+        opts = [paddle.optimizer.Adam(1e-3, parameters=m.parameters())
+                for m in (net, twin)]
+        loss_fn = paddle.nn.CrossEntropyLoss()
+
+        def step(m, opt, x, y):
+            loss = loss_fn(m(paddle.to_tensor(x)), paddle.to_tensor(y))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return float(loss)
+        for x, y in data[:20]:
+            step(net, opts[0], x, y)
+            step(twin, opts[1], x, y)
+        paddle.jit.to_static(net)       # inductor, full graph
+        static, eager, t0 = [], [], time.perf_counter()
+        for x, y in data[20:]:
+            static.append(step(net, opts[0], x, y))
+        torch.cuda.synchronize()
+        t_static = time.perf_counter() - t0
+        for x, y in data[20:]:
+            eager.append(step(twin, opts[1], x, y))
+        if not all(np.isfinite(static)) or not static[-1] < static[0]:
+            raise AssertionError(f"to_static LeNet did not train: {static}")
+        sf = net._static_function
+        err = max(abs(a - b) for a, b in zip(static, eager))
+        log("[jit] " + json.dumps(dict(
+            model="LeNet", eager_steps=20, static_steps=20,
+            losses_static=static[-3:], losses_eager=eager[-3:],
+            max_loss_err=err, limit=JIT_LENET_TOL, compiles=sf.compiles,
+            compile_s=[round(t, 2) for t in sf.compile_seconds],
+            static_wall_s=round(t_static, 3))))
+        if err > JIT_LENET_TOL or sf.compiles != 1:
+            raise AssertionError("to_static LeNet differs from eager")
+        return net
+
+    def _host_profile(self, fn, calls=5, n=6):
+        """The ``n`` Python functions with the most own time over
+        ``calls`` calls of ``fn`` (cProfile), as (function, ms a call)."""
+        import cProfile
+        import pstats
+        fn()
+        self.torch.cuda.synchronize()
+        prof = cProfile.Profile()
+        prof.enable()
+        for _ in range(calls):
+            fn()
+        self.torch.cuda.synchronize()
+        prof.disable()
+        stats = pstats.Stats(prof).stats
+        top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:n]
+        return [(f"{Path(f).name}:{line}({name})", round(tt / calls * 1e3, 3))
+                for (f, line, name), (_, _, tt, _, _) in top]
+
+    def _serve(self, runs, want, n_layers):
+        """Each served form of ``runs`` (name -> call returning logits on
+        the card): its flash forward launches a call, ms a call (wall,
+        CUDA events), the host's own time to enqueue one call, the
+        logits' error relative to max|want|, its device time and largest
+        kernels; fails unless a call launches ``n_layers`` flash forwards
+        and the logits hold within JIT_EXPORT_TOL."""
+        torch = self.torch
+        from paddle_tpu_torch.ops.kernels import flash_attention as fa
+        res = {}
+        for name, run in runs.items():
+            self._zero_counts()
+            got = run()
+            torch.cuda.synchronize()
+            n = fa.flash_attention.launches
+            ms = self.time_ms(run, iters=10, warmup=2)
+            host = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            err = ((got.float() - want.float()).abs().max()
+                   / want.float().abs().max()).item()
+            res[name] = dict(flash_fwd_launches_a_call=n,
+                             ms_a_call=round(ms, 3),
+                             host_enqueue_ms_median=round(
+                                 sorted(host)[2], 3),
+                             logits_rel_err=err, **self._top_kernels(run))
+            if n != n_layers or err > JIT_EXPORT_TOL:
+                raise AssertionError(f"{name}: {res[name]}")
+        return res
+
+    def phase_jit(self):
+        torch = self.torch
+        import numpy as np
+        import os
+        import shutil
+        import tempfile
+        import paddle_tpu_torch as paddle
+        paddle.set_device("gpu")
+        lenet = self._lenet_jit()
+        cfg, model, init = self._gpt_f32()
+        batch = self._gpt_batch(cfg)
+        tokens = batch[0]
+        tmp = tempfile.mkdtemp(prefix="jit_save_")
+        try:
+            # the O2 bf16 model exported and served, before and after the
+            # GPT's compile below (one process: the compile slows the
+            # host's dispatch of every later call)
+            paddle.amp.decorate(model, level="O2", dtype="bfloat16")
+            model.eval()
+            path = os.path.join(tmp, "gpt")
+            t0 = time.perf_counter()
+            paddle.jit.save(model, path, input_spec=[
+                paddle.jit.InputSpec([1, 2048], "int64")])
+            save_s = time.perf_counter() - t0
+            with paddle.no_grad():
+                want = model(tokens)._value
+            loaded = paddle.jit.load(path)
+            pred = paddle.inference.create_predictor(
+                paddle.inference.Config(path))
+            tok_np = tokens.numpy()
+            handle = pred.get_input_handle(pred.get_input_names()[0])
+
+            def handles():      # outputs stay on the card
+                handle.copy_from_cpu(tok_np)
+                pred.run()
+                return pred._outputs[0]
+
+            def eager():
+                with paddle.no_grad():
+                    return model(tokens)._value
+            runs = {"jit.load": lambda: loaded(tokens)._value,
+                    "predictor": handles, "eager layer": eager}
+            res = self._serve(runs, want, cfg.n_layers)
+            res["jit.load"]["host_profile"] = self._host_profile(
+                runs["jit.load"])
+            # the list form returns the logits on the host, as the
+            # reference's does (206 MB of bf16 a call)
+            res["predictor"]["list_form_ms_a_call_with_host_copy"] = round(
+                self.time_ms(lambda: pred.run([tok_np]), iters=3, warmup=1),
+                3)
+            line = dict(model="GPT(gpt3_1p3b) O2 bf16, eval", input=[1, 2048],
+                        save_s=round(save_s, 2), limit=JIT_EXPORT_TOL,
+                        pdmodel_bytes=os.path.getsize(path + ".pdmodel"),
+                        pdparams_bytes=os.path.getsize(path + ".pdparams"),
+                        **res)
+            log("[jit] " + json.dumps(line))
+            # to_static of the f32 model under O1 bf16
+            model.train()
+            self._reset(model, init)
+            self._jit_gpt(cfg, model, batch)
+            # the exported forms again, after the compile
+            del runs["eager layer"]
+            res = self._serve(runs, want, cfg.n_layers)
+            res["jit.load"]["host_profile"] = self._host_profile(
+                runs["jit.load"])
+            import threading
+            log("[jit] served after the GPT's compile " + json.dumps(dict(
+                res, threads=[t.name for t in threading.enumerate()])))
+            del loaded, pred, want, runs
+            # LeNet exported and served
+            lenet.eval()
+            paddle.jit.save(lenet, os.path.join(tmp, "lenet"),
+                            input_spec=[paddle.jit.InputSpec(
+                                [64, 1, 28, 28], "float32")])
+            x, _ = self._digits(np.random.default_rng(17), 64)
+            out = paddle.inference.create_predictor(paddle.inference.Config(
+                os.path.join(tmp, "lenet"))).run([x])[0]
+            with paddle.no_grad():
+                want = type(lenet).forward(lenet, paddle.to_tensor(x)).numpy()
+            err = float(np.abs(out - want).max())
+            log("[jit] " + json.dumps(dict(model="LeNet predictor",
+                                           max_abs_err=err, limit=1e-5)))
+            if err > 1e-5:
+                raise AssertionError(f"LeNet predictor differs: {err}")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        self.gpt_f32 = None
+        del model, init
+        torch.cuda.empty_cache()
+
+    def _jit_gpt(self, cfg, model, batch):
+        """to_static(GPT) under O1 bf16 for 3 AdamW steps against the amp
+        phase's eager O1 losses (run here when the amp phase did not):
+        one compile, exact flash launches, its seconds by torch's timers;
+        the model is back to eager after."""
+        torch = self.torch
+        import paddle_tpu_torch as paddle
+        from torch._dynamo.utils import compilation_time_metrics
+        from torch._inductor import config as inductor_config
+        amp = dict(level="O1", dtype="bfloat16")
+        base = getattr(self, "amp_o1", None)
+        if base is None:        # the amp phase did not run: its O1 twin
+            opt = paddle.optimizer.AdamW(3e-5, parameters=model.parameters())
+            losses, times, _ = self._gpt_steps(model, opt, batch, 3, amp)
+            base = dict(losses=losses, step_ms_mean_after_first=round(
+                sum(times[1:]) / 2 * 1e3, 3))
+            del opt
+            self._reset(model, self.gpt_f32[2])
+        compilation_time_metrics.clear()
+        paddle.jit.to_static(model)
+        opt = paddle.optimizer.AdamW(3e-5, parameters=model.parameters())
+        self._zero_counts()
+        losses, times, _ = self._gpt_steps(model, opt, batch, 3, amp)
+        self._flash_counts("jit to_static O1 bf16", 3, cfg.n_layers)
+        sf = model._static_function
+        object.__delattr__(model, "forward")       # back to eager
+        del opt
+        # where the compile's seconds went (torch's own timers; nested
+        # timers repeat their children's time)
+        parts = sorted(((k, round(sum(v), 2)) for k, v in
+                        compilation_time_metrics.items()),
+                       key=lambda kv: -kv[1])[:16]
+        log("[jit] GPT compile seconds by timer " + json.dumps(dict(
+            parts, compile_threads=inductor_config.compile_threads)))
+        step_s = sum(times[1:]) / 2
+        errs = [abs(a - b) for a, b in zip(losses, base["losses"])]
+        line = dict(model="to_static(GPT(gpt3_1p3b)), O1 bf16, inductor, "
+                          "fullgraph", losses=losses,
+                    eager_losses=base["losses"], max_loss_err=max(errs),
+                    limit=JIT_GPT_TOL, compiles=sf.compiles,
+                    compile_s=[round(t, 2) for t in sf.compile_seconds],
+                    step_ms=[round(t * 1e3, 3) for t in times],
+                    step_ms_mean_after_first=round(step_s * 1e3, 3),
+                    eager_step_ms=base["step_ms_mean_after_first"],
+                    tokens_per_s=round(2048 / step_s, 1))
+        log("[jit] " + json.dumps(line))
+        if sf.compiles != 1 or max(errs) > JIT_GPT_TOL:
+            raise AssertionError(f"to_static GPT: {line}")
+
+    # ------------------------------------------------------------ hapi
+    def phase_hapi(self):
+        import shutil
+        import tempfile
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch.models import LeNet
+        from paddle_tpu_torch.vision.datasets import MNIST
+        paddle.set_device("gpu")
+        tmp = tempfile.mkdtemp(prefix="hapi_")
+        res = {}
+        try:
+            for workers, epochs in ((0, 1), (2, 2)):
+                paddle.seed(0)
+                model = paddle.Model(LeNet())
+                model.prepare(paddle.optimizer.Adam(
+                    1e-3, parameters=model.parameters()),
+                    paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+                train = MNIST(mode="train")
+                steps = epochs * len(train) // 64
+                cbs = [paddle.callbacks.EarlyStopping(monitor="loss",
+                                                      patience=2),
+                       paddle.callbacks.ModelCheckpoint(save_dir=tmp)]
+                t0 = time.perf_counter()
+                model.fit(train, batch_size=64, epochs=epochs,
+                          num_workers=workers, callbacks=cbs, verbose=0,
+                          drop_last=True)
+                self.torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                ev = model.evaluate(MNIST(mode="test"), batch_size=64,
+                                    verbose=0)
+                res[f"workers_{workers}"] = dict(
+                    epochs=epochs, steps=steps,
+                    steps_per_s=round(steps / wall, 2), eval=ev)
+            import os
+            saved = sorted(os.listdir(tmp))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        log("[hapi] " + json.dumps(dict(
+            model="paddle.Model(LeNet()) Adam(1e-3) on MNIST(train), "
+                  "batch 64", checkpoints=saved, limit_acc=HAPI_MIN_ACC,
+            **{k: {**v, "eval": {m: float(x) for m, x in v["eval"].items()}}
+               for k, v in res.items()})))
+        acc = float(res["workers_2"]["eval"]["acc"])
+        if acc < HAPI_MIN_ACC or "1.pdparams" not in saved:
+            raise AssertionError(f"hapi: eval accuracy {acc}, saved {saved}")
+
+
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5444,13 +6188,21 @@ def main(argv=None) -> int:
         return Smoke(torch).guards_child(*args.guards_child)
     card = gpu_line()
     log(f"[device] {card} | torch {torch.__version__} cuda "
-        f"{torch.version.cuda} | python {sys.version.split()[0]}")
+        f"{torch.version.cuda} | python {sys.version.split()[0]} | "
+        f"{os.cpu_count()} CPUs, torch threads {torch.get_num_threads()}")
     smoke = Smoke(torch)
     t_all = time.perf_counter()
     for p in phases:
         t0 = time.perf_counter()
         getattr(smoke, f"phase_{p}")()
-        log(f"[{p}] passed in {time.perf_counter() - t0:.1f} s")
+        # what the phase left on the card (a later phase's times read it)
+        mem = torch.cuda.memory_stats() if p != "build" else {}
+        gib = {k: mem.get(f"{k}_bytes.all.current", 0) / 2 ** 30
+               for k in ("allocated", "reserved")}
+        log(f"[{p}] passed in {time.perf_counter() - t0:.1f} s; card "
+            f"memory left allocated {gib['allocated']:.2f} GiB, reserved "
+            f"{gib['reserved']:.2f} GiB, allocator retries "
+            f"{mem.get('num_alloc_retries', 0)}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -26,7 +26,13 @@ paddle_tpu_torch as paddle`` reads as paddle: ``Tensor`` over torch
 autograd (``to_tensor``, ``no_grad``, ``grad``, ``PyLayer``), the ops,
 ``nn`` (``Layer`` is a ``torch.nn.Module``), ``optimizer``, ``save`` /
 ``load``, and ``models.LeNet`` / ``models.gpt.GPT``. New tensors go to the
-card unless ``set_device("cpu")`` chose the CPU.
+card unless ``set_device("cpu")`` chose the CPU. Around it the tools of
+training and deployment: ``amp`` (``auto_cast`` with the reference's op
+lists, ``decorate``, ``GradScaler``, the numerics debugging), ``jit``
+(``to_static`` on ``torch.compile``, ``save``/``load`` of a
+``torch.export`` program), ``inference.create_predictor``, ``io``
+(``DataLoader``, the samplers), ``vision.datasets``, ``metric``, and
+``Model`` / ``callbacks`` / ``summary`` / ``flops`` of the high-level API.
 """
 from .device import resolve_device  # noqa: F401
 from .framework.dtype import (bfloat16, bool_, complex64,  # noqa: F401
@@ -51,3 +57,8 @@ from . import autograd, nn, optimizer  # noqa: F401,E402
 from .autograd import PyLayer, grad  # noqa: F401,E402
 from .framework.io_state import load, save  # noqa: F401,E402
 from . import models  # noqa: F401,E402
+from . import amp, io, jit, metric, vision  # noqa: F401,E402
+from . import inference  # noqa: F401,E402
+from . import hapi  # noqa: F401,E402
+from .hapi import Model, flops, summary  # noqa: F401,E402
+from . import callbacks  # noqa: F401,E402

@@ -25,8 +25,11 @@
 //
 // Two routes, chosen by dtype (a dispatch, not a fallback):
 //
-// bf16 — "wgmma": every product on the tensor cores (wgmma, f32
-//   accumulators in registers), every tile in by TMA. A block is two
+// bf16 and f16 — "wgmma": every product on the tensor cores (wgmma, f32
+//   accumulators in registers), every tile in by TMA; one template on the
+//   16-bit element E (the instruction's type f32.bf16.bf16 or
+//   f32.f16.f16, the same K of 16, swizzle and fragments; p, ds and the
+//   gradients round to E). A block is two
 //   consumer warpgroups (64 rows each) and one producer warpgroup. The
 //   block keeps its own 128 rows' operands (q and dO, or k and v) in shared
 //   memory and the producer streams the other pair, shared by both
@@ -36,20 +39,20 @@
 //   box zero-filled past D). The tensor maps are 3-D (D, S, B*H), so a
 //   ragged last tile zero-fills at its own head's end. Per k tile the dq
 //   kernel runs S = q k^T and dP = dO v^T (both operands from shared
-//   memory), forms p and ds in registers, rounds ds to bf16 and runs
+//   memory), forms p and ds in registers, rounds ds to E and runs
 //   dq += ds k with ds as the register A operand: the f32 accumulator
-//   fragment of one wgmma, packed to bf16x2, is the A fragment of the next,
+//   fragment of one wgmma, packed to E x 2, is the A fragment of the next,
 //   and k (MN-major there) is read through the transpose bit. The dk/dv
 //   kernel runs S^T = k q^T and dP^T = v dO^T, reads lse and di per column
 //   from the stage (the producer warp stages them), and accumulates
-//   dv += bf16(p^T) dO and dk += bf16(ds^T) q the same way. No p or ds
+//   dv += E(p^T) dO and dk += E(ds^T) q the same way. No p or ds
 //   tile touches shared memory. setmaxnreg gives the consumers 232
 //   registers (dk and dv take 128 a thread at D = 128) and the producer
 //   32, out of the 168 a thread the block launches with. Only tiles that
 //   cross the diagonal or a ragged edge are masked; a warpgroup skips a
 //   tile wholly above its part of the diagonal.
 //   Blocks are ordered so that the longest causal loops launch first.
-//   Numerics: p and ds are rounded to bf16 before the three products that
+//   Numerics: p and ds are rounded to E before the three products that
 //   consume them (the plain versions keep them f32).
 // f32 — "cuda-core f32": the first version's kernels, f32 math on the CUDA
 //   cores (a tensor-core f32 product would be TF32, three decimal digits).
@@ -57,6 +60,7 @@
 //   rows x D/16 columns of each accumulator; p and ds stay f32 in shared
 //   memory.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -435,14 +439,14 @@ constexpr size_t dkv_smem_bytes() {
 
 // grid (B*H, 128-row q blocks); the last q blocks (the longest causal
 // loops) launch first. Consumer warpgroup w owns q rows q0 + 64w.
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
               const __grid_constant__ CUtensorMap mk,
               const __grid_constant__ CUtensorMap mv,
               const __grid_constant__ CUtensorMap mdo,
               const float* __restrict__ lse, const float* __restrict__ di,
-              __nv_bfloat16* __restrict__ dq, int Sq, int Skv, float scale,
+              E* __restrict__ dq, int Sq, int Skv, float scale,
               int causal) {
   constexpr int NCH = n_boxes<D>();
   constexpr int STAGE_BYTES = 2 * NCH * BOX_BYTES;
@@ -536,8 +540,8 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
       wgmma_fence();
-      scores<D>(sc, q_addr, k_addr);
-      scores<D>(dp, do_addr, v_addr);
+      scores<D, E>(sc, q_addr, k_addr);
+      scores<D, E>(dp, do_addr, v_addr);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
@@ -560,39 +564,38 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
           }
           v[e] = p * (dp[i + e] - dir[h]) * scale;
         }
-        ds[i / 2] = pack_bf16(v[0], v[1]);
+        ds[i / 2] = pack2<E>(v[0], v[1]);
       }
       wgmma_fence();
-      accumulate<NCH>(acc, ds, k_addr);
+      accumulate<NCH, E>(acc, ds, k_addr);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
       mbar_arrive(&empty[s]);
     }
 
-    __nv_bfloat16* out = dq + static_cast<long long>(bh) * Sq * D;
+    E* out = dq + static_cast<long long>(bh) * Sq * D;
 #pragma unroll
     for (int i = 0; i < 32 * NCH; i += 2) {
       const int row = qw + ra + 8 * ((i >> 1) & 1);
       const int col = 8 * (i / 4) + cl;
       if (row < Sq && col < D)
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * D +
-                                           col) =
-            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+        store2<E>(out + static_cast<long long>(row) * D + col, acc[i],
+                  acc[i + 1]);
     }
   }
 }
 
 // grid (B*H, 128-key blocks); the first key blocks (the longest causal
 // loops) launch first. Consumer warpgroup w owns keys k0 + 64w.
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq,
                const __grid_constant__ CUtensorMap mk,
                const __grid_constant__ CUtensorMap mv,
                const __grid_constant__ CUtensorMap mdo,
                const float* __restrict__ lse, const float* __restrict__ di,
-               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+               E* __restrict__ dk, E* __restrict__ dv,
                int Sq, int Skv, float scale, int causal) {
   constexpr int NCH = n_boxes<D>();
   constexpr int STAGE_BYTES = 2 * NCH * BOX_BYTES;
@@ -695,8 +698,8 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
       wgmma_fence();
-      scores<D>(sc, k_addr, q_addr);
-      scores<D>(dp, v_addr, do_addr);
+      scores<D, E>(sc, k_addr, q_addr);
+      scores<D, E>(dp, v_addr, do_addr);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
@@ -734,15 +737,15 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq,
             pv[e] = p;
             dsv[e] = p * (dp[i + e] - (e ? di2.y : di2.x)) * scale;
           }
-          pf[i / 2] = pack_bf16(pv[0], pv[1]);
-          dsf[i / 2] = pack_bf16(dsv[0], dsv[1]);
+          pf[i / 2] = pack2<E>(pv[0], pv[1]);
+          dsf[i / 2] = pack2<E>(dsv[0], dsv[1]);
         }
         asm volatile("" ::: "memory");
         if (j % 2 == 1) {
           const int kk = j / 2;
           wgmma_fence();
-          accumulate_step<NCH>(dv_acc, pf + 4 * kk, do_addr + kk * 2048);
-          accumulate_step<NCH>(dk_acc, dsf + 4 * kk, q_addr + kk * 2048);
+          accumulate_step<NCH, E>(dv_acc, pf + 4 * kk, do_addr + kk * 2048);
+          accumulate_step<NCH, E>(dk_acc, dsf + 4 * kk, q_addr + kk * 2048);
         }
       }
       wgmma_commit();
@@ -759,10 +762,8 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq,
       const int col = 8 * (i / 4) + cl;
       if (key < Skv && col < D) {
         const long long at = head + static_cast<long long>(key) * D + col;
-        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-            __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-            __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+        store2<E>(dk + at, dk_acc[i], dk_acc[i + 1]);
+        store2<E>(dv + at, dv_acc[i], dv_acc[i + 1]);
       }
     }
   }
@@ -773,70 +774,75 @@ struct Maps {
 };
 
 cudaError_t make_maps(Maps* m, const void* q, const void* k, const void* v,
-                      const void* dout, int BH, int Sq, int Skv, int D) {
+                      const void* dout, int BH, int Sq, int Skv, int D,
+                      CUtensorMapDataType ty) {
   cudaError_t err;
-  if ((err = make_map(&m->q, q, D, Sq, BH)) != cudaSuccess) return err;
-  if ((err = make_map(&m->k, k, D, Skv, BH)) != cudaSuccess) return err;
-  if ((err = make_map(&m->v, v, D, Skv, BH)) != cudaSuccess) return err;
-  return make_map(&m->dout, dout, D, Sq, BH);
+  if ((err = make_map(&m->q, q, D, Sq, BH, ty)) != cudaSuccess) return err;
+  if ((err = make_map(&m->k, k, D, Skv, BH, ty)) != cudaSuccess) return err;
+  if ((err = make_map(&m->v, v, D, Skv, BH, ty)) != cudaSuccess) return err;
+  return make_map(&m->dout, dout, D, Sq, BH, ty);
 }
 
-template <int D>
+template <int D, typename E>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* di,
                       void* dq, int B, int H, int Sq, int Skv, float scale,
                       int causal, cudaStream_t stream) {
   Maps m;
-  cudaError_t err = make_maps(&m, q, k, v, dout, B * H, Sq, Skv, D);
+  cudaError_t err =
+      make_maps(&m, q, k, v, dout, B * H, Sq, Skv, D, map_type<E>());
   if (err != cudaSuccess) return err;
   constexpr size_t smem = dq_smem_bytes<D>();
-  if ((err = prepare(bwd_dq_kernel<D>, smem)) != cudaSuccess) return err;
+  if ((err = prepare(bwd_dq_kernel<D, E>, smem)) != cudaSuccess) return err;
   dim3 grid(B * H, (Sq + BLOCK_ROWS - 1) / BLOCK_ROWS);
-  bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
-      m.q, m.k, m.v, m.dout, lse, di, static_cast<__nv_bfloat16*>(dq), Sq,
-      Skv, scale, causal);
+  bwd_dq_kernel<D, E><<<grid, THREADS, smem, stream>>>(
+      m.q, m.k, m.v, m.dout, lse, di, static_cast<E*>(dq), Sq, Skv, scale,
+      causal);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename E>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* di,
                        void* dk, void* dv, int B, int H, int Sq, int Skv,
                        float scale, int causal, cudaStream_t stream) {
   Maps m;
-  cudaError_t err = make_maps(&m, q, k, v, dout, B * H, Sq, Skv, D);
+  cudaError_t err =
+      make_maps(&m, q, k, v, dout, B * H, Sq, Skv, D, map_type<E>());
   if (err != cudaSuccess) return err;
   constexpr size_t smem = dkv_smem_bytes<D>();
-  if ((err = prepare(bwd_dkv_kernel<D>, smem)) != cudaSuccess) return err;
+  if ((err = prepare(bwd_dkv_kernel<D, E>, smem)) != cudaSuccess) return err;
   dim3 grid(B * H, (Skv + BLOCK_ROWS - 1) / BLOCK_ROWS);
-  bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
-      m.q, m.k, m.v, m.dout, lse, di, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), Sq, Skv, scale, causal);
+  bwd_dkv_kernel<D, E><<<grid, THREADS, smem, stream>>>(
+      m.q, m.k, m.v, m.dout, lse, di, static_cast<E*>(dk),
+      static_cast<E*>(dv), Sq, Skv, scale, causal);
   return cudaGetLastError();
 }
 
+template <typename E>
 cudaError_t dispatch_dq(const void* q, const void* k, const void* v,
                         const void* dout, const float* lse, const float* di,
                         void* dq, int B, int H, int Sq, int Skv, int D,
                         float scale, int causal, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_dq<16>(q, k, v, dout, lse, di, dq, B, H, Sq, Skv, scale, causal, s);
-    case 32: return launch_dq<32>(q, k, v, dout, lse, di, dq, B, H, Sq, Skv, scale, causal, s);
-    case 64: return launch_dq<64>(q, k, v, dout, lse, di, dq, B, H, Sq, Skv, scale, causal, s);
-    case 128: return launch_dq<128>(q, k, v, dout, lse, di, dq, B, H, Sq, Skv, scale, causal, s);
+    case 16: return launch_dq<16, E>(q, k, v, dout, lse, di, dq, B, H, Sq, Skv, scale, causal, s);
+    case 32: return launch_dq<32, E>(q, k, v, dout, lse, di, dq, B, H, Sq, Skv, scale, causal, s);
+    case 64: return launch_dq<64, E>(q, k, v, dout, lse, di, dq, B, H, Sq, Skv, scale, causal, s);
+    case 128: return launch_dq<128, E>(q, k, v, dout, lse, di, dq, B, H, Sq, Skv, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <typename E>
 cudaError_t dispatch_dkv(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse, const float* di,
                          void* dk, void* dv, int B, int H, int Sq, int Skv,
                          int D, float scale, int causal, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_dkv<16>(q, k, v, dout, lse, di, dk, dv, B, H, Sq, Skv, scale, causal, s);
-    case 32: return launch_dkv<32>(q, k, v, dout, lse, di, dk, dv, B, H, Sq, Skv, scale, causal, s);
-    case 64: return launch_dkv<64>(q, k, v, dout, lse, di, dk, dv, B, H, Sq, Skv, scale, causal, s);
-    case 128: return launch_dkv<128>(q, k, v, dout, lse, di, dk, dv, B, H, Sq, Skv, scale, causal, s);
+    case 16: return launch_dkv<16, E>(q, k, v, dout, lse, di, dk, dv, B, H, Sq, Skv, scale, causal, s);
+    case 32: return launch_dkv<32, E>(q, k, v, dout, lse, di, dk, dv, B, H, Sq, Skv, scale, causal, s);
+    case 64: return launch_dkv<64, E>(q, k, v, dout, lse, di, dk, dv, B, H, Sq, Skv, scale, causal, s);
+    case 128: return launch_dkv<128, E>(q, k, v, dout, lse, di, dk, dv, B, H, Sq, Skv, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -844,22 +850,25 @@ cudaError_t dispatch_dkv(const void* q, const void* k, const void* v,
 }  // namespace wgmma_route
 
 // q, dout, dq: [B, H, Sq, D]; k, v: [B, H, Skv, D], contiguous, one dtype
-// (is_bf16 = 1 for bf16: the wgmma route; 0 for f32: the CUDA-core route);
-// lse, di: [B, H, Sq] f32. Returns the cudaError_t of the launch (0 on
-// success; 500 when the driver has no cuTensorMapEncodeTiled, 716 when a
-// bf16 pointer is not 16-byte aligned, 9 when the kernel was built with too
-// few registers for setmaxnreg).
+// (dtype = 1 for bf16 and 2 for f16: the wgmma route; 0 for f32: the
+// CUDA-core route); lse, di: [B, H, Sq] f32. Returns the cudaError_t of
+// the launch (0 on success; 500 when libcuda has no
+// cuTensorMapEncodeTiled, 716 when a 16-bit pointer is not 16-byte
+// aligned, 9 when the kernel was built with too few registers for
+// setmaxnreg).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* di,
                                       void* dq, int B, int H, int Sq, int Skv,
-                                      int D, int is_bf16, float scale,
+                                      int D, int dtype, float scale,
                                       int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
-  if (is_bf16)
-    return (int)wgmma_route::dispatch_dq(q, k, v, dout, l, d, dq, B, H, Sq, Skv, D, scale, causal, s);
+  if (dtype == 1)
+    return (int)wgmma_route::dispatch_dq<__nv_bfloat16>(q, k, v, dout, l, d, dq, B, H, Sq, Skv, D, scale, causal, s);
+  if (dtype == 2)
+    return (int)wgmma_route::dispatch_dq<__half>(q, k, v, dout, l, d, dq, B, H, Sq, Skv, D, scale, causal, s);
   return (int)cuda_core::dispatch_dq<float>(q, k, v, dout, l, d, dq, B, H, Sq, Skv, D, scale, causal, s);
 }
 
@@ -868,12 +877,14 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* di,
                                        void* dk, void* dv, int B, int H,
-                                       int Sq, int Skv, int D, int is_bf16,
+                                       int Sq, int Skv, int D, int dtype,
                                        float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
-  if (is_bf16)
-    return (int)wgmma_route::dispatch_dkv(q, k, v, dout, l, d, dk, dv, B, H, Sq, Skv, D, scale, causal, s);
+  if (dtype == 1)
+    return (int)wgmma_route::dispatch_dkv<__nv_bfloat16>(q, k, v, dout, l, d, dk, dv, B, H, Sq, Skv, D, scale, causal, s);
+  if (dtype == 2)
+    return (int)wgmma_route::dispatch_dkv<__half>(q, k, v, dout, l, d, dk, dv, B, H, Sq, Skv, D, scale, causal, s);
   return (int)cuda_core::dispatch_dkv<float>(q, k, v, dout, l, d, dk, dv, B, H, Sq, Skv, D, scale, causal, s);
 }

@@ -16,7 +16,10 @@
 //
 // Two routes, chosen by dtype (a dispatch, not a fallback):
 //
-// bf16 — "wgmma": both products on the tensor cores, every tile in by TMA
+// bf16 and f16 — "wgmma": both products on the tensor cores, every tile in
+//   by TMA (one template on the 16-bit element E: the instruction's type
+//   is f32.bf16.bf16 or f32.f16.f16, the same K of 16, swizzle and
+//   fragments; p and o round to E)
 //   (FA3's layout, the backward's building blocks in hopper_sm90.cuh). A
 //   block is two consumer warpgroups of 64 query rows each and one producer
 //   warpgroup; setmaxnreg gives the consumers 232 registers and the
@@ -29,12 +32,12 @@
 //   the accumulator fragment: a thread holds 2 rows, a row's max reduces
 //   over the 4 lanes of a quad with two shuffles, m and l stay in registers
 //   (base-2 units: the scale and log2(e) fold into one multiply), o is
-//   rescaled once a tile; then o += p v with p packed to bf16x2 as the
+//   rescaled once a tile; then o += p v with p packed to E x 2 as the
 //   register A operand and v read MN-major through the transpose bit (p
 //   never touches shared memory). A tile wholly above a warpgroup's part
 //   of the diagonal is skipped; only diagonal and ragged tiles are masked.
 //   The last q blocks (the longest causal loops) launch first. Numerics: p
-//   is rounded to bf16 before p v, against the running max; l sums the
+//   is rounded to E before p v, against the running max; l sums the
 //   f32 p.
 // f32 — "cuda-core f32": the first version's kernel, f32 math on the CUDA
 //   cores (a tensor-core f32 product would be TF32, three decimal digits):
@@ -43,6 +46,7 @@
 //   4 x D/8 accumulator micro-tile over the SAME 4 rows, so the rescale is
 //   local and a row's max and sum reduce over 8 neighbouring lanes.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -260,12 +264,12 @@ constexpr size_t fwd_smem_bytes() {
 
 // grid (B*H, 128-row q blocks); the last q blocks (the longest causal
 // loops) launch first. Consumer warpgroup w owns q rows q0 + 64w.
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(THREADS, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap mq,
            const __grid_constant__ CUtensorMap mk,
            const __grid_constant__ CUtensorMap mv,
-           __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
+           E* __restrict__ o, float* __restrict__ lse, int Sq,
            int Skv, float scale, int causal) {
   constexpr int NCH = n_boxes<D>();
   constexpr int STAGE_BYTES = 2 * NCH * BOX_BYTES;
@@ -350,7 +354,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = 0.f;
       wgmma_fence();
-      scores<D>(sc, q_addr, k_addr);
+      scores<D, E>(sc, q_addr, k_addr);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
@@ -390,14 +394,14 @@ fwd_kernel(const __grid_constant__ CUtensorMap mq,
         const float p0 = exp2_approx(sc[i] - base[h]);
         const float p1 = exp2_approx(sc[i + 1] - base[h]);
         rs[h] += p0 + p1;
-        pf[i / 2] = pack_bf16(p0, p1);
+        pf[i / 2] = pack2<E>(p0, p1);
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
 #pragma unroll
       for (int i = 0; i < 32 * NCH; ++i) acc[i] *= alpha[(i >> 1) & 1];
       wgmma_fence();
-      accumulate<NCH>(acc, pf, v_addr);
+      accumulate<NCH, E>(acc, pf, v_addr);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -411,7 +415,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap mq,
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     }
     const long long head = static_cast<long long>(bh) * Sq;
-    __nv_bfloat16* out = o + head * D;
+    E* out = o + head * D;
 #pragma unroll
     for (int i = 0; i < 32 * NCH; i += 2) {
       const int h = (i >> 1) & 1;
@@ -419,9 +423,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap mq,
       const int col = 8 * (i / 4) + cl;
       const float inv = 1.f / (l[h] == 0.f ? 1.f : l[h]);
       if (row < Sq && col < D)
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * D +
-                                           col) =
-            __floats2bfloat162_rn(acc[i] * inv, acc[i + 1] * inv);
+        store2<E>(out + static_cast<long long>(row) * D + col, acc[i] * inv,
+                  acc[i + 1] * inv);
     }
     if (lse != nullptr && lane % 4 == 0) {
 #pragma unroll
@@ -435,32 +438,33 @@ fwd_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
-template <int D>
+template <int D, typename E>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        float* lse, int B, int H, int Sq, int Skv, float scale,
                        int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   cudaError_t err;
-  if ((err = make_map(&mq, q, D, Sq, B * H)) != cudaSuccess) return err;
-  if ((err = make_map(&mk, k, D, Skv, B * H)) != cudaSuccess) return err;
-  if ((err = make_map(&mv, v, D, Skv, B * H)) != cudaSuccess) return err;
+  constexpr CUtensorMapDataType ty = map_type<E>();
+  if ((err = make_map(&mq, q, D, Sq, B * H, ty)) != cudaSuccess) return err;
+  if ((err = make_map(&mk, k, D, Skv, B * H, ty)) != cudaSuccess) return err;
+  if ((err = make_map(&mv, v, D, Skv, B * H, ty)) != cudaSuccess) return err;
   constexpr size_t smem = fwd_smem_bytes<D>();
-  if ((err = prepare(fwd_kernel<D>, smem)) != cudaSuccess) return err;
+  if ((err = prepare(fwd_kernel<D, E>, smem)) != cudaSuccess) return err;
   dim3 grid(B * H, (Sq + BLOCK_ROWS - 1) / BLOCK_ROWS);
-  fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, scale,
-      causal);
+  fwd_kernel<D, E><<<grid, THREADS, smem, stream>>>(
+      mq, mk, mv, static_cast<E*>(o), lse, Sq, Skv, scale, causal);
   return cudaGetLastError();
 }
 
+template <typename E>
 cudaError_t dispatch_fwd(const void* q, const void* k, const void* v, void* o,
                          float* lse, int B, int H, int Sq, int Skv, int D,
                          float scale, int causal, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_fwd<16>(q, k, v, o, lse, B, H, Sq, Skv, scale, causal, s);
-    case 32: return launch_fwd<32>(q, k, v, o, lse, B, H, Sq, Skv, scale, causal, s);
-    case 64: return launch_fwd<64>(q, k, v, o, lse, B, H, Sq, Skv, scale, causal, s);
-    case 128: return launch_fwd<128>(q, k, v, o, lse, B, H, Sq, Skv, scale, causal, s);
+    case 16: return launch_fwd<16, E>(q, k, v, o, lse, B, H, Sq, Skv, scale, causal, s);
+    case 32: return launch_fwd<32, E>(q, k, v, o, lse, B, H, Sq, Skv, scale, causal, s);
+    case 64: return launch_fwd<64, E>(q, k, v, o, lse, B, H, Sq, Skv, scale, causal, s);
+    case 128: return launch_fwd<128, E>(q, k, v, o, lse, B, H, Sq, Skv, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -468,18 +472,21 @@ cudaError_t dispatch_fwd(const void* q, const void* k, const void* v, void* o,
 }  // namespace wgmma_route
 
 // q, o: [B, H, Sq, D]; k, v: [B, H, Skv, D], contiguous, all of one dtype
-// (is_bf16 = 1 for bf16: the wgmma route; 0 for f32: the CUDA-core route);
-// lse: [B, H, Sq] f32 or null. Returns the cudaError_t of the launch (0 on
-// success; 500 when the driver has no cuTensorMapEncodeTiled, 716 when a
-// bf16 pointer is not 16-byte aligned, 9 when the kernel was built with too
-// few registers for setmaxnreg).
+// (dtype = 1 for bf16 and 2 for f16: the wgmma route; 0 for f32: the
+// CUDA-core route); lse: [B, H, Sq] f32 or null. Returns the cudaError_t
+// of the launch (0 on success; 500 when libcuda has no
+// cuTensorMapEncodeTiled, 716 when a 16-bit pointer is not 16-byte
+// aligned, 9 when the kernel was built with too few registers for
+// setmaxnreg).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int H, int Sq,
-                                   int Skv, int D, int is_bf16, float scale,
+                                   int Skv, int D, int dtype, float scale,
                                    int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (is_bf16)
-    return (int)wgmma_route::dispatch_fwd(q, k, v, o, l, B, H, Sq, Skv, D, scale, causal, s);
+  if (dtype == 1)
+    return (int)wgmma_route::dispatch_fwd<__nv_bfloat16>(q, k, v, o, l, B, H, Sq, Skv, D, scale, causal, s);
+  if (dtype == 2)
+    return (int)wgmma_route::dispatch_fwd<__half>(q, k, v, o, l, B, H, Sq, Skv, D, scale, causal, s);
   return (int)cuda_core::dispatch_d<float>(q, k, v, o, l, B, H, Sq, Skv, D, scale, causal, s);
 }

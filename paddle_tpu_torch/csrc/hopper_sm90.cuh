@@ -10,13 +10,16 @@
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace sm90 {
 
 constexpr int TILE = 64;                    // rows of every tile = wgmma M
-constexpr int BOX_BYTES = TILE * 64 * 2;    // one [64][64] bf16 box, 8 KB
+constexpr int BOX_BYTES = TILE * 64 * 2;    // one [64][64] 16-bit box, 8 KB
 constexpr int STAGES = 2;
 constexpr int WGS = 2;                      // consumer warpgroups
 constexpr int CONSUMERS = 128 * WGS;
@@ -117,113 +120,165 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// wgmma m64nNk16, f32 += bf16 x bf16. ss: A and B from shared memory, both
-// K-major. rs: A from registers (4 bf16x2 a thread), B MN-major (the
+// The flash kernels' 16-bit element E: __nv_bfloat16 or __half. Both have
+// the same wgmma shapes (K = 16), swizzle and fragment layouts; only the
+// instruction's type, the conversions and the tensor map's type differ.
+template <typename E>
+constexpr bool is_half = std::is_same<E, __half>::value;
+
+// two f32 values rounded to E, packed as one register (lo in the low half)
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (is_half<E>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    return pack_bf16(lo, hi);
+  }
+}
+
+// p[0], p[1] = E(a), E(b) in one 4-byte store
+template <typename E>
+__device__ __forceinline__ void store2(E* p, float a, float b) {
+  if constexpr (is_half<E>)
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// wgmma m64nNk16, f32 += E x E (E bf16 by default, or f16; the macro
+// writes one asm statement per type, the bf16 one as it always was). ss: A
+// and B from shared memory, both K-major. rs: A from registers (4 E x 2 a
+// thread), B MN-major (the
 // transpose bit). The accumulator of m64nN holds, in thread t of the
 // warpgroup (warp w, lane l), d[i] at row 16w + l/4 + 8*((i >> 1) & 1) and
 // column 8*(i/4) + 2*(l%4) + (i&1).
+#define SM90_WGMMA_SS_N64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : \
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]) \
+      : "l"(a), "l"(b), "r"(accumulate))
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+  if constexpr (is_half<E>) {
+    SM90_WGMMA_SS_N64("f16");
+  } else {
+    SM90_WGMMA_SS_N64("bf16");
+  }
 }
+#undef SM90_WGMMA_SS_N64
 
+#define SM90_WGMMA_RS_N64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : \
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (is_half<E>) {
+    SM90_WGMMA_RS_N64("f16");
+  } else {
+    SM90_WGMMA_RS_N64("bf16");
+  }
 }
+#undef SM90_WGMMA_RS_N64
 
+#define SM90_WGMMA_RS_N128(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+      "%60, %61, %62, %63}, " \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+      : \
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                              const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (is_half<E>) {
+    SM90_WGMMA_RS_N128("f16");
+  } else {
+    SM90_WGMMA_RS_N128("bf16");
+  }
 }
+#undef SM90_WGMMA_RS_N128
 
 // S (or S^T) = A_tile B_tile^T over depth D, both [64][D] K-major tiles
-template <int D>
+template <int D, typename E = __nv_bfloat16>
 __device__ __forceinline__ void scores(float (&s)[32], uint32_t a,
                                        uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
-    wgmma_ss_n64(s, sw128_desc(a + off, 16, 1024),
+    wgmma_ss_n64<E>(s, sw128_desc(a + off, 16, 1024),
                  sw128_desc(b + off, 16, 1024), kk > 0);
   }
 }
 
-// acc += A (64 x 64, bf16 fragments in registers) @ B, B a [64][D] tile
+// acc += A (64 x 64, E fragments in registers) @ B, B a [64][D] tile
 // read MN-major (N = 64 per box; D = 128 spans two boxes)
 // one k step of 16: A is 4 registers, b the step's first row of B
-template <int NCH>
+template <int NCH, typename E = __nv_bfloat16>
 __device__ __forceinline__ void accumulate_step(float (&acc)[32 * NCH],
                                                 const uint32_t* a,
                                                 uint32_t b) {
   const uint64_t desc = sw128_desc(b, BOX_BYTES, 1024);
   if constexpr (NCH == 2)
-    wgmma_rs_n128(acc, a, desc);
+    wgmma_rs_n128<E>(acc, a, desc);
   else
-    wgmma_rs_n64(acc, a, desc);
+    wgmma_rs_n64<E>(acc, a, desc);
 }
 
-template <int NCH>
+template <int NCH, typename E = __nv_bfloat16>
 __device__ __forceinline__ void accumulate(float (&acc)[32 * NCH],
                                            const uint32_t (&a)[16],
                                            uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    accumulate_step<NCH>(acc, a + 4 * kk, b + kk * 2048);
+    accumulate_step<NCH, E>(acc, a + 4 * kk, b + kk * 2048);
 }
 
 template <int D>
@@ -255,10 +310,19 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a contiguous bf16 [B*H, S, D] as the 3-D map (D, S, B*H) of [64][64]
-// boxes, 128-byte swizzle; rows past S (and columns past D) read as zeros
+// the tensor-map element type of E
+template <typename E>
+constexpr CUtensorMapDataType map_type() {
+  return is_half<E> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// a contiguous 16-bit [B*H, S, D] (bf16 unless `type` says f16) as the 3-D
+// map (D, S, B*H) of [64][64] boxes, 128-byte swizzle; rows past S (and
+// columns past D) read as zeros
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int D, int S,
-                     int BH) {
+                     int BH,
+                     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
@@ -271,7 +335,7 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int D, int S,
   const cuuint32_t box[3] = {64, TILE, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      map, type, 3, const_cast<void*>(ptr), dims,
       strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

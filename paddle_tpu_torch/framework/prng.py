@@ -46,6 +46,8 @@ MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 _F32_TINY = float(np.finfo(np.float32).tiny)
+# the CPU's draws run this many elements at a time (:func:`_cpu_blocks`)
+_CPU_BLOCK = 1 << 18
 
 
 def _rotl(v, r: int):
@@ -133,10 +135,12 @@ def _uniform_from_bits(b, minval, maxval) -> torch.Tensor:
     """float32 uniforms from uint32 draws held in int64 (see
     :func:`uniform`)."""
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    # the common case, exact as it is (tested on Python floats, which a
+    # compiled program reads as constants)
+    if float(minval) == 0.0 and float(maxval) == 1.0:
+        return f
     lo, hi = np.float32(minval), np.float32(maxval)
     scale = float(np.float32(hi - lo))
-    if scale == 1.0 and lo == 0.0:      # the common case: exact as it is
-        return f
     out = (f.double() * scale + float(lo)).float()
     return torch.clamp_min(out, float(lo))
 
@@ -199,6 +203,24 @@ def _bits64(key, shape, device, offset=0) -> torch.Tensor:
     return (y0 ^ y1).reshape(shape)
 
 
+def _cpu_blocks(draw, shape, device, offset, dtype):
+    """On the CPU a draw of more than :data:`_CPU_BLOCK` elements runs one
+    block at a time through the counter offset, so the ~150 passes of
+    threefry and the float math stay in cache (one pass over 4 M
+    elements is several times slower an element); the blocks are the
+    draw's slices, bit for bit. ``draw(shape, device, offset)`` is the
+    one-pass draw; elsewhere it runs as it is."""
+    shape = _shape(shape)
+    n = math.prod(shape)
+    if device.type != "cpu" or n <= _CPU_BLOCK:
+        return draw(shape, device, offset)
+    out = torch.empty(n, dtype=dtype)
+    for i in range(0, n, _CPU_BLOCK):
+        m = min(_CPU_BLOCK, n - i)
+        out[i:i + m] = draw((m,), device, int(offset) + i)
+    return out.reshape(shape)
+
+
 def _bits_host(key) -> int:
     """``bits(key, ())`` as a Python int, computed on the host (no tensor
     ops): the draw of a scalar seed."""
@@ -210,8 +232,9 @@ def bits(key, shape=(), device=None, offset=0) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)``: a torch.uint32 tensor on
     ``device`` (default the CUDA card); ``key``: a host pair or a tensor
     key ``[2]`` on that device; ``offset``: see the module doc."""
-    return _bits64(key, shape, resolve_device(device), offset).to(
-        torch.uint32)
+    return _cpu_blocks(lambda sh, dev, off: _bits64(key, sh, dev, off),
+                       shape, resolve_device(device), offset,
+                       torch.int64).to(torch.uint32)
 
 
 def uniform(key, shape=(), minval=0.0, maxval=1.0, device=None,
@@ -225,8 +248,10 @@ def uniform(key, shape=(), minval=0.0, maxval=1.0, device=None,
     it is formed in float64 (the product of two float32 values is exact
     there) and rounded to float32 once, which gives XLA's bits.
     ``offset``: see the module doc."""
-    return _uniform_from_bits(_bits64(key, shape, resolve_device(device),
-                                      offset), minval, maxval)
+    return _cpu_blocks(
+        lambda sh, dev, off: _uniform_from_bits(_bits64(key, sh, dev, off),
+                                                minval, maxval),
+        shape, resolve_device(device), offset, torch.float32)
 
 
 def _fma32(a, b, c) -> torch.Tensor:
@@ -371,8 +396,11 @@ def normal(key, shape=(), dtype=torch.float32, device=None,
     and square roots, so the card and the CPU give the same bits.
     ``offset``: see the module doc."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, lo, 1.0, device=device, offset=offset)
-    return (_erf_inv_f32(u) * _f32(math.sqrt(2.0))).to(dtype)
+
+    def draw(sh, dev, off):
+        u = uniform(key, sh, lo, 1.0, device=dev, offset=off)
+        return (_erf_inv_f32(u) * _f32(math.sqrt(2.0))).to(dtype)
+    return _cpu_blocks(draw, shape, resolve_device(device), offset, dtype)
 
 
 def gumbel(key, shape=(), device=None, exact: bool = True) -> torch.Tensor:

@@ -8,7 +8,9 @@ draws exactly the reference's keys:
   the reference's (seed, offset) pair.
 * **Scoped**: inside ``with trace_rng(base_key):`` :func:`next_key`
   returns ``fold_in(base_key, counter)`` with a counter per scope, as the
-  reference does under its jit compile boundary.
+  reference does under its jit compile boundary. ``jit.to_static`` passes
+  the base key as a tensor input of the compiled program, so each call
+  draws fresh keys without a recompile.
 """
 from __future__ import annotations
 
@@ -94,8 +96,13 @@ class _TraceRNG:
         self.base_key = base_key
         self.counter = 0
 
-    def next_key(self) -> tuple[int, int]:
-        k = prng.fold_in(self.base_key, self.counter)
+    def next_key(self):
+        """A host pair from a host base key; from a tensor base key [2]
+        (a compiled program's input), the int64 tensor key [2]."""
+        if isinstance(self.base_key, tuple):
+            k = prng.fold_in(self.base_key, self.counter)
+        else:
+            k = prng.fold_in_rows(self.base_key, self.counter)
         self.counter += 1
         return k
 

@@ -1565,6 +1565,9 @@ def adamw_init(params, dtype=torch.float32, device=None) -> dict:
 # updated this many at a time (one layer of the MoE flagship's [24, 8,
 # 2048, 8192] w_in), so each f32 temporary stays near 0.54 GB
 _ADAMW_SLICE = 1 << 27
+# on the CPU the plain update runs flat blocks of this many elements, so
+# its temporaries stay in cache (several times faster than whole slices)
+_ADAMW_CPU_BLOCK = 1 << 18
 
 
 def _row_slices(t: torch.Tensor, limit: int = _ADAMW_SLICE) -> list:
@@ -1584,7 +1587,9 @@ def _adamw_update(params, grads, opt, lr, wd=0.1, b1=0.9, b2=0.95, eps=1e-8,
     with the moments stored in their own dtype. ``fused`` takes the
     one-kernel-per-leaf path when every moment is f32. Otherwise the plain
     update runs a slice of :data:`_ADAMW_SLICE` elements of a leaf at a time
-    (:func:`_row_slices`; elementwise, so bitwise the whole-leaf update).
+    (:func:`_row_slices`), or on the CPU a flat block of
+    :data:`_ADAMW_CPU_BLOCK` (elementwise, so bitwise the whole-leaf
+    update).
     Both paths update params and moments in place, on every device (two
     copies of the MoE flagship's 6.95 B params and bf16 moments would not
     fit the card): the returned trees hold the given tensors."""
@@ -1608,8 +1613,17 @@ def _adamw_update(params, grads, opt, lr, wd=0.1, b1=0.9, b2=0.95, eps=1e-8,
         return p2.to(p.dtype), m2.to(m.dtype), v2.to(v.dtype)
 
     def leaf_update(p, g, m, v):
-        for sl in _row_slices(p):
-            for d, new in zip((p, m, v), upd(p[sl], g[sl], m[sl], v[sl])):
+        ts = (p, g, m, v)
+        if p.device.type == "cpu" and all(t.is_contiguous() for t in ts):
+            ts = tuple(t.view(-1) for t in ts)
+            n, blk = ts[0].numel(), _ADAMW_CPU_BLOCK
+            slices = [slice(i, i + blk) for i in range(0, n, blk)]
+        else:
+            slices = _row_slices(p)
+        fp, fg, fm, fv = ts
+        for sl in slices:
+            for d, new in zip((fp, fm, fv),
+                              upd(fp[sl], fg[sl], fm[sl], fv[sl])):
                 d[sl] = new
         return p, m, v
 

@@ -16,6 +16,9 @@ reference's, and every call counts its route in :data:`routes`:
 * ``"plain_mask"``: an additive mask, which the reference routes to its
   composite.
 
+The counts count runs: inside a ``jit.to_static`` program each call of a
+route is counted when the program runs.
+
 A kernel that fails to build or launch raises; no route falls back.
 """
 from __future__ import annotations
@@ -31,6 +34,30 @@ from ...ops.kernels import flash_attention as _fa
 from ...tensor import def_op
 
 routes = {"kernel": 0, "plain_flag": 0, "plain_shape": 0, "plain_mask": 0}
+
+
+@torch.library.custom_op("paddle_tpu::count_route", mutates_args=())
+def _count_route_op(route: str) -> None:
+    routes[route] += 1
+
+
+@_count_route_op.register_fake
+def _(route):
+    return None
+
+
+# an ordered side effect: a compiled or exported program keeps the call
+# and makes it each time it runs
+_count_route_op.register_effect(torch._library.effects.EffectType.ORDERED)
+
+
+def _count_route(route: str) -> None:
+    """Count one call of ``route``; inside a compiled or exported program
+    the ``paddle_tpu::count_route`` op counts it when the program runs."""
+    if torch.compiler.is_compiling() or torch.compiler.is_exporting():
+        torch.ops.paddle_tpu.count_route(route)
+    else:
+        routes[route] += 1
 
 
 def flash_route(q, k, mask=None) -> str:
@@ -51,7 +78,7 @@ def _attend(q, k, v, scale, causal, mask=None):
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     route = flash_route(q, k, mask)
-    routes[route] += 1
+    _count_route(route)
     if route == "kernel":
         return _fa.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), scale, bool(causal))

@@ -5,17 +5,25 @@ Port of paddle_tpu/ops/pallas/flash_attention.py. Layout ``[B, H, S, d]``;
 the causal mask is aligned bottom-right (query i sees keys
 ``<= i + Skv - Sq``), which chunked prefill relies on when Sq < Skv.
 
-The forward's route depends on the dtype (:data:`FWD_ROUTES`): bf16 runs
-on the tensor cores (wgmma, tiles in by TMA, an online softmax on the
-accumulator fragment), f32 on the CUDA cores.
+The kernels' route depends on the dtype (:data:`ROUTES`): bf16 and
+float16 run on the tensor cores (wgmma, tiles in by TMA, an online
+softmax on the accumulator fragment; one kernel template on the 16-bit
+type), f32 on the CUDA cores.
 
 The backward is the reference's FlashAttention-2 pair: the forward keeps
 the per-row log-sum-exp, and two kernels recompute each probability tile
 from it — one accumulates dq over k tiles, the other dk and dv over q
-tiles. Their route depends on the dtype (:data:`BWD_ROUTES`): bf16 runs
-on the tensor cores (wgmma, TMA), f32 on the CUDA cores. :class:`FlashAttention` is the ``custom_vjp`` of the reference as a
-``torch.autograd.Function``; on the CPU autograd differentiates
-:func:`xla_attention` directly, the reference's own off-TPU route.
+tiles. They take the forward's routes.
+
+The three launches are ``torch.library`` custom ops (``paddle_tpu::
+flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``), each with a fake
+implementation, and the forward with the backward ops as its registered
+autograd: a ``torch.compile`` or ``torch.export`` graph holds each as one
+node, and its body runs, and counts its launch, when the graph runs. On a
+CUDA tensor an op launches its kernel or raises; on a CPU tensor it runs
+the plain version. The wrappers below call the ops on CUDA tensors; on
+the CPU :func:`flash_attention` differentiates :func:`xla_attention`
+directly, the reference's own off-TPU route.
 """
 from __future__ import annotations
 
@@ -27,21 +35,22 @@ import torch
 from . import _build
 from .primitives import causal_mask
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the C entries' dtype codes
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (16, 32, 64, 128)
-# the forward and backward kernels' route by dtype: bf16 products on the
-# tensor cores (wgmma, tiles in by TMA), f32 on the CUDA cores (a
-# tensor-core f32 product would be TF32)
-FWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda-core f32"}
-BWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda-core f32"}
+# the three kernels' route by dtype: bf16 and f16 products on the tensor
+# cores (wgmma, tiles in by TMA), f32 on the CUDA cores (a tensor-core f32
+# product would be TF32)
+ROUTES = {torch.bfloat16: "wgmma", torch.float16: "wgmma",
+          torch.float32: "cuda-core f32"}
 
 
 def xla_attention(q, k, v, scale, causal, with_lse=False, bias=None):
     """Plain attention, the port of ``_xla_attention``: f32 scores, plus
     the additive ``bias`` in f32 where given, ``-1e30`` causal mask,
     softmax, probabilities cast to q's dtype before the PV product (the
-    bf16 kernel rounds them against the running max of each 64-key tile,
-    so the two differ by bf16 rounding in bf16). With ``with_lse`` also
+    16-bit kernels round them against the running max of each 64-key
+    tile, so the two differ by that rounding in bf16 and f16). With ``with_lse`` also
     returns the per-row log-sum-exp [B, H, Sq] in f32."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
@@ -174,43 +183,51 @@ def _launch_fwd(q, k, v, scale, causal, with_lse):
                  d, _DTYPES[q.dtype], float(scale), int(bool(causal)),
                  _stream(q))
     _build.check(err, "flash_attention_fwd")
-    flash_attention.launches += 1
-    return (out, lse) if with_lse else out
+    _count(flash_attention, q.dtype)
+    return out, lse
 
 
-def flash_attention(q, k, v, scale=None, causal=False, with_lse=False):
-    """q: [B, H, Sq, d], k/v: [B, H, Skv, d] -> [B, H, Sq, d] in q's
-    dtype (and the f32 LSE [B, H, Sq] with ``with_lse``).
+def _count(wrapper, dtype):
+    """One launch of ``wrapper``'s kernel, by route (counted in the op's
+    body, so a compiled or exported graph counts its runs)."""
+    wrapper.launches += 1
+    route = ROUTES[dtype]
+    wrapper.routes[route] = wrapper.routes.get(route, 0) + 1
 
-    CPU tensors run :func:`xla_attention` (autograd differentiates it);
-    CUDA tensors launch the kernel (bf16 or f32, d in 16/32/64/128, any Sq
-    and Skv) or raise. On CUDA with grad enabled and an input that
-    requires grad, the call goes through :class:`FlashAttention`, whose
-    backward launches the two backward kernels."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+
+def _on_card(t, what):
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for {t.device}")
+
+
+# ------------------------------------------------------------ custom ops
+@torch.library.custom_op("paddle_tpu::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float, causal: bool, with_lse: bool
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse); lse is empty [0] without ``with_lse``."""
     if q.device.type == "cpu":
-        return xla_attention(q, k, v, scale, causal, with_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if with_lse:
-            raise ValueError("flash_attention: the LSE output has no "
-                             "backward; call it under torch.no_grad()")
-        return FlashAttention.apply(q, k, v, float(scale), bool(causal))
-    return _launch_fwd(q, k, v, scale, causal, with_lse)
+        out, lse = xla_attention(q, k, v, scale, causal, True)
+        return out, (lse if with_lse else lse.new_empty((0,)))
+    _on_card(q, "flash_attention")
+    out, lse = _launch_fwd(q, k, v, scale, causal, with_lse)
+    return out, (lse if with_lse else out.new_empty((0,),
+                                                    dtype=torch.float32))
 
 
-flash_attention.launches = 0
+@_flash_fwd_op.register_fake
+def _(q, k, v, scale, causal, with_lse):
+    lse_shape = tuple(q.shape[:3]) if with_lse else (0,)
+    return torch.empty_like(q), q.new_empty(lse_shape, dtype=torch.float32)
 
 
-def flash_attention_bwd_dq(q, k, v, dout, lse, di, scale, causal):
-    """dq [B, H, Sq, d] in q's dtype. CPU tensors run :func:`bwd_dq_ref`;
-    CUDA tensors launch the dq kernel or raise."""
+@torch.library.custom_op("paddle_tpu::flash_bwd_dq", mutates_args=())
+def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     dout: torch.Tensor, lse: torch.Tensor, di: torch.Tensor,
+                     scale: float, causal: bool) -> torch.Tensor:
     if q.device.type == "cpu":
         return bwd_dq_ref(q, k, v, dout, lse, di, scale, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd_dq: no kernel for {q.device}")
+    _on_card(q, "flash_attention_bwd_dq")
     _check_bwd_inputs(q, k, v, dout, lse, di, causal)
     B, H, Sq, d = q.shape
     dq = torch.empty_like(q)
@@ -219,21 +236,23 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, di, scale, causal):
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), B, H, Sq, k.shape[2],
         d, _DTYPES[q.dtype], float(scale), int(bool(causal)), _stream(q))
     _build.check(err, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, q.dtype)
     return dq
 
 
-flash_attention_bwd_dq.launches = 0
+@_flash_bwd_dq_op.register_fake
+def _(q, k, v, dout, lse, di, scale, causal):
+    return torch.empty_like(q)
 
 
-def flash_attention_bwd_dkv(q, k, v, dout, lse, di, scale, causal):
-    """(dk, dv) [B, H, Skv, d] in k's dtype. CPU tensors run
-    :func:`bwd_dkv_ref`; CUDA tensors launch the dk/dv kernel or raise."""
+@torch.library.custom_op("paddle_tpu::flash_bwd_dkv", mutates_args=())
+def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      dout: torch.Tensor, lse: torch.Tensor,
+                      di: torch.Tensor, scale: float, causal: bool
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
     if q.device.type == "cpu":
         return bwd_dkv_ref(q, k, v, dout, lse, di, scale, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd_dkv: no kernel for "
-                         f"{q.device}")
+    _on_card(q, "flash_attention_bwd_dkv")
     _check_bwd_inputs(q, k, v, dout, lse, di, causal)
     B, H, Sq, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -243,11 +262,101 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, di, scale, causal):
         Sq, k.shape[2], d, _DTYPES[q.dtype], float(scale), int(bool(causal)),
         _stream(q))
     _build.check(err, "flash_attention_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv, q.dtype)
     return dk, dv
 
 
+@_flash_bwd_dkv_op.register_fake
+def _(q, k, v, dout, lse, di, scale, causal):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, scale, causal, _ = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.scale, ctx.causal = scale, causal
+
+
+def _fwd_backward(ctx, dout, dlse):
+    """The reference's ``custom_vjp`` backward: the dq and dk/dv ops on
+    the forward's f32 LSE (the LSE output itself has no gradient)."""
+    q, k, v, out, lse = ctx.saved_tensors
+    if lse.numel() == 0:
+        raise RuntimeError("paddle_tpu::flash_fwd was recorded with "
+                           "with_lse=False: its backward needs the LSE")
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                     ctx.scale, ctx.causal)
+    return dq, dk, dv, None, None, None
+
+
+torch.library.register_autograd("paddle_tpu::flash_fwd", _fwd_backward,
+                                setup_context=_fwd_setup)
+
+OPS = (torch.ops.paddle_tpu.flash_fwd, torch.ops.paddle_tpu.flash_bwd_dq,
+       torch.ops.paddle_tpu.flash_bwd_dkv)
+
+
+# -------------------------------------------------------------- wrappers
+def flash_attention(q, k, v, scale=None, causal=False, with_lse=False):
+    """q: [B, H, Sq, d], k/v: [B, H, Skv, d] -> [B, H, Sq, d] in q's
+    dtype (and the f32 LSE [B, H, Sq] with ``with_lse``).
+
+    CPU tensors run :func:`xla_attention` (autograd differentiates it);
+    CUDA tensors run the ``paddle_tpu::flash_fwd`` op, which launches the
+    kernel (bf16, f16 or f32, d in 16/32/64/128, any Sq and Skv) or
+    raises; under autograd its backward runs the two backward ops."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return xla_attention(q, k, v, scale, causal, with_lse)
+    _on_card(q, "flash_attention")
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    if with_lse and grad:
+        raise ValueError("flash_attention: the LSE output has no "
+                         "backward; call it under torch.no_grad()")
+    # the backward reads the LSE: keep it whenever autograd records
+    out, lse = torch.ops.paddle_tpu.flash_fwd(q, k, v, float(scale),
+                                              bool(causal),
+                                              bool(with_lse or grad))
+    return (out, lse) if with_lse else out
+
+
+flash_attention.launches = 0
+flash_attention.routes = dict.fromkeys(sorted(set(ROUTES.values())), 0)
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, di, scale, causal):
+    """dq [B, H, Sq, d] in q's dtype. CPU tensors run :func:`bwd_dq_ref`;
+    CUDA tensors launch the dq kernel (the ``paddle_tpu::flash_bwd_dq``
+    op) or raise."""
+    if q.device.type == "cpu":
+        return bwd_dq_ref(q, k, v, dout, lse, di, scale, causal)
+    _on_card(q, "flash_attention_bwd_dq")
+    return torch.ops.paddle_tpu.flash_bwd_dq(q, k, v, dout, lse, di,
+                                             float(scale), bool(causal))
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.routes = dict.fromkeys(
+    sorted(set(ROUTES.values())), 0)
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, di, scale, causal):
+    """(dk, dv) [B, H, Skv, d] in k's dtype. CPU tensors run
+    :func:`bwd_dkv_ref`; CUDA tensors launch the dk/dv kernel (the
+    ``paddle_tpu::flash_bwd_dkv`` op) or raise."""
+    if q.device.type == "cpu":
+        return bwd_dkv_ref(q, k, v, dout, lse, di, scale, causal)
+    _on_card(q, "flash_attention_bwd_dkv")
+    return torch.ops.paddle_tpu.flash_bwd_dkv(q, k, v, dout, lse, di,
+                                              float(scale), bool(causal))
+
+
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.routes = dict.fromkeys(
+    sorted(set(ROUTES.values())), 0)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, scale=None, causal=False):
@@ -260,23 +369,3 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale=None, causal=False):
     dq = flash_attention_bwd_dq(q, k, v, dout, lse, di, scale, causal)
     return (dq, *flash_attention_bwd_dkv(q, k, v, dout, lse, di, scale,
                                          causal))
-
-
-class FlashAttention(torch.autograd.Function):
-    """The reference's ``custom_vjp`` on the card: the forward kernel keeps
-    the LSE, the backward runs the dq and dk/dv kernels on it."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
-        out, lse = _launch_fwd(q, k, v, scale, causal, True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale, ctx.causal = scale, causal
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(), ctx.scale,
-                                         ctx.causal)
-        return dq, dk, dv, None, None

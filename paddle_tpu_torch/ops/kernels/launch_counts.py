@@ -1,7 +1,8 @@
 """The kernel wrappers' launch counters, read and added as one vector.
 
-Every wrapper counts its launches in ``fn.launches``; quant_matmul also
-by route (``fn.routes``) and the decode-attention forms by window width
+Every wrapper counts its launches in ``fn.launches``; quant_matmul, the
+fused LayerNorm and the three flash kernels also by route
+(``fn.routes``) and the decode-attention forms by window width
 (``fn.by_q``). A replayed CUDA graph launches its kernels without calling
 a wrapper, so the code that captures one (``framework.cuda_graph``) takes
 a :func:`snapshot` before and after the capture, puts the counters back

@@ -136,9 +136,15 @@ class Optimizer:
             self._states[id(p)] = new_st
         self._write(p, new)
 
+    @property
+    def _parameters_flat(self):
+        return [p for p, _, _ in self._all_params]
+
     @torch.no_grad()
     def step(self):
         self._step_count += 1
+        from ..amp import debugging as _dbg
+        _dbg._on_optimizer_step()
         lr = self.get_lr()
         params_grads, factors = [], []
         for p, wd, lr_factor in self._all_params:

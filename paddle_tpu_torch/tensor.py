@@ -488,7 +488,11 @@ def _torch_hook(hooks: list, hook: Callable):
 
 def _note_made(t: Tensor) -> Tensor:
     """Record ``t`` on the graph node that made it, so that a backward
-    consuming the node can turn ``t`` into a leaf."""
+    consuming the node can turn ``t`` into a leaf. Inside a compiled
+    program (``jit.to_static``) nothing is recorded: the program's outputs
+    are recorded on its node when it returns."""
+    if torch.compiler.is_compiling():
+        return t
     fn = t._value.grad_fn
     if fn is not None:
         fn.metadata.setdefault(_MADE, []).append(weakref.ref(t))
@@ -505,17 +509,49 @@ def _wrap_out(out, stop: bool):
     return out
 
 
+# the AMP dispatch hook, ``(name, args, kwargs) -> (args, kwargs)``; the
+# amp package installs it on import (reference: apply_op's AMP block)
+_autocast_hook = None
+
+# observers called with (op_name, output values) after every dispatch;
+# used by amp.debugging's operator stats and tensor checker
+_dispatch_observers: list = []
+
+
+def _notify_observers(name, out):
+    leaves = []
+
+    def walk(o):
+        if isinstance(o, Tensor):
+            leaves.append(o._value)
+        elif isinstance(o, (list, tuple)):
+            for x in o:
+                walk(x)
+        else:
+            leaves.append(o)
+    walk(out)
+    for obs in _dispatch_observers:
+        obs(name, leaves)
+
+
 def apply_op(name: str, fn: Callable, *args, **kwargs):
     """Run ``fn`` (a function of torch tensors) on Tensor args and wrap its
     results. Torch's autograd records the graph; this only sets paddle's
     ``stop_gradient`` on the outputs: False when grad is enabled and an
-    inexact input has ``stop_gradient=False``."""
+    inexact input has ``stop_gradient=False``. Under ``amp.auto_cast`` the
+    inputs are cast first, by the reference's lists; the observers of
+    ``amp.debugging`` see every op's outputs."""
+    if _autocast_hook is not None:
+        args, kwargs = _autocast_hook(name, args, kwargs)
     found: list[Tensor] = []
     a = _unwrap(args, found)
     kw = _unwrap(kwargs, found)
     record = torch.is_grad_enabled() and any(
         not t._stop and _inexact(t._value) for t in found)
-    return _wrap_out(fn(*a, **kw), not record)
+    out = _wrap_out(fn(*a, **kw), not record)
+    if _dispatch_observers:
+        _notify_observers(name, out)
+    return out
 
 
 def def_op(name: str):

@@ -238,6 +238,34 @@ def test_adamw_update_matches_reference(opt_dtype, fused):
     assert int(topt["step"]) == 2
 
 
+@pytest.mark.parametrize("opt_dtype", [torch.float32, torch.bfloat16])
+def test_adamw_cpu_blocks_are_the_whole_leaf_update(opt_dtype, monkeypatch):
+    """On the CPU the plain update runs flat blocks of _ADAMW_CPU_BLOCK
+    elements (a non-contiguous leaf takes the row slices): bitwise the
+    update of whole leaves."""
+    gen = torch.Generator().manual_seed(3)
+    shapes = {"a": (3, 5, 67), "b": {"c": (1000,), "d": ()}, "e": (40, 30)}
+
+    def tree(s):
+        return {k: tree(v) if isinstance(v, dict)
+                else torch.randn(v, generator=gen) for k, v in s.items()}
+    p, grads = tree(shapes), tree(shapes)
+    grads["e"] = grads["e"].t().contiguous().t()       # not contiguous
+    runs = []
+    for block in (64, 1 << 30):
+        monkeypatch.setattr(tg, "_ADAMW_CPU_BLOCK", block)
+        tp = {k: ({n: t.clone() for n, t in v.items()}
+                  if isinstance(v, dict) else v.clone())
+              for k, v in p.items()}
+        topt = tg.adamw_init(tp, dtype=opt_dtype, device="cpu")
+        for _ in range(2):
+            tp, topt = tg._adamw_update(tp, grads, topt, 1e-2)
+        runs.append([tree_flatten(t) for t in (tp, topt["m"], topt["v"])])
+    for blocked, whole in zip(*runs):
+        for x, y in zip(blocked, whole):
+            assert torch.equal(x, y)
+
+
 def test_trained_params_serve_without_conversion():
     cfg = tg.gpt_tiny(n_layers=2, fused_adamw=True)
     params = tg.init_params(cfg, seed=0, device="cpu")

@@ -141,9 +141,10 @@ def test_flash_fwd_model_diagonal_first_tile_and_ragged_edge():
 
 
 def test_flash_fwd_routes_by_dtype():
-    assert tfa.FWD_ROUTES == {torch.bfloat16: "wgmma",
-                              torch.float32: "cuda-core f32"}
-    assert set(tfa.FWD_ROUTES) == set(tfa._DTYPES)
+    assert tfa.ROUTES == {torch.bfloat16: "wgmma",
+                          torch.float16: "wgmma",
+                          torch.float32: "cuda-core f32"}
+    assert set(tfa.ROUTES) == set(tfa._DTYPES)
 
 
 # ------------------------------------------- quant_matmul's conversion

@@ -132,6 +132,23 @@ def test_counter_offset_draws_a_slice():
         prng.bits(key, (2,), "cpu", offset=-1)
 
 
+@pytest.mark.parametrize("name", ["bits", "uniform", "normal"])
+def test_cpu_blocks_are_the_one_pass_draw(name, monkeypatch):
+    """On the CPU a draw longer than _CPU_BLOCK runs a block at a time:
+    the same bits as jax's draw, and as the one-pass draw at an offset
+    whose counters cross the 2^32 boundary inside the draw."""
+    f = getattr(prng, name)
+    key, n = prng.PRNGKey(3), prng._CPU_BLOCK + 5
+    got = f(key, (2, n), device="cpu")
+    ref = np.asarray(getattr(jax.random, name)(jax.random.PRNGKey(3),
+                                               (2, n)))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  ref.view(np.uint32))
+    blocked = f(key, (n,), device="cpu", offset=M - 7)
+    monkeypatch.setattr(prng, "_CPU_BLOCK", 4 * n)
+    assert torch.equal(blocked, f(key, (n,), device="cpu", offset=M - 7))
+
+
 def test_fma32_rounds_once():
     """float32 a*b + c rounded once (XLA's contracted multiply-add),
     against exact rational arithmetic: random triples and the case where

@@ -180,9 +180,10 @@ def test_flash_bwd_kernel_rounding_points_stay_in_tolerance(causal):
 
 
 def test_flash_bwd_routes_by_dtype():
-    assert tfa.BWD_ROUTES == {torch.bfloat16: "wgmma",
-                              torch.float32: "cuda-core f32"}
-    assert set(tfa.BWD_ROUTES) == set(tfa._DTYPES)
+    assert tfa.ROUTES == {torch.bfloat16: "wgmma",
+                          torch.float16: "wgmma",
+                          torch.float32: "cuda-core f32"}
+    assert set(tfa.ROUTES) == set(tfa._DTYPES)
 
 
 def test_flash_bwd_masked_positions_are_exact_zero():
