@@ -58,7 +58,14 @@ from .autograd import PyLayer, grad  # noqa: F401,E402
 from .framework.io_state import load, save  # noqa: F401,E402
 from . import models  # noqa: F401,E402
 from . import amp, io, jit, metric, vision  # noqa: F401,E402
+from . import static  # noqa: F401,E402
+from .static import disable_static, enable_static  # noqa: F401,E402
 from . import inference  # noqa: F401,E402
 from . import hapi  # noqa: F401,E402
 from .hapi import Model, flops, summary  # noqa: F401,E402
 from . import callbacks  # noqa: F401,E402
+
+
+def in_dynamic_mode() -> bool:
+    from .static import _in_static_mode
+    return not _in_static_mode()

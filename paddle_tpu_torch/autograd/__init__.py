@@ -15,10 +15,15 @@ reference's walk drops every tape node it used: each node of the graph is
 marked, and each Tensor such a node made becomes a leaf
 (:meth:`Tensor._become_leaf`). So a later backward from a new output
 built on those Tensors stops at them, fills their ``grad`` and leaves the
-gradients behind them as they were, as in the reference. torch cannot
-cut a graph that already reaches a consumed node (one built before the
-consuming backward, or a Tensor made outside the ops): a backward from
-it raises, where the reference would send the gradient up to the cut.
+gradients behind them as they were, as in the reference. A graph built
+before the consuming backward still reaches the consumed nodes: the walk
+stops there, the gradient that arrives at each such node is captured
+(``torch.autograd.grad`` at its ``GradientEdge``, which runs no node
+behind it) and accumulated into the Tensors it made, and the leaves are
+filled by torch's engine with ``inputs=`` limited to those a live path
+reaches. A leaf reachable both ways makes torch run the consumed node
+again, its incoming gradient zeroed by a pre-hook; when that node has
+already freed its saved tensors the backward raises.
 """
 from __future__ import annotations
 
@@ -36,6 +41,9 @@ __all__ = ["backward", "grad", "no_grad", "enable_grad", "set_grad_enabled",
 
 # metadata key marking a graph node a backward without retain_graph ran
 _CONSUMED = "paddle_consumed"
+# metadata key of a consumed node: output index -> weak references to the
+# Tensors that came from that output and became leaves
+_OUTPUTS = "paddle_outputs"
 
 
 def _roots(tensors, grad_tensors):
@@ -59,35 +67,96 @@ def _roots(tensors, grad_tensors):
     return roots, grads
 
 
-def _graph(roots) -> list:
-    """The nodes a backward from ``roots`` runs, the leaves' gradient
-    sinks left out. Raises where the graph reaches a consumed node."""
+def _graph(roots):
+    """The live nodes a backward from ``roots`` runs (the leaves' gradient
+    sinks left out), the leaves a live path reaches, and the consumed
+    nodes where the walk stopped."""
     stack = [r.grad_fn for r in roots if r.grad_fn is not None]
-    seen = set(stack)
+    seen, leaves, cut = set(stack), {}, {}
+    live = []
     while stack:
         fn = stack.pop()
         if fn.metadata.get(_CONSUMED):
-            raise RuntimeError(
-                "backward() through a graph an earlier backward() without "
-                "retain_graph consumed: the graph was built before that "
-                "call; pass retain_graph=True to it")
+            cut[fn] = None
+            continue
+        live.append(fn)
         for nxt, _ in fn.next_functions:
-            if nxt is not None and nxt not in seen \
-                    and not hasattr(nxt, "variable"):
-                seen.add(nxt)
+            if nxt is None or nxt in seen:
+                continue
+            seen.add(nxt)
+            if hasattr(nxt, "variable"):
+                leaves[nxt] = nxt.variable
+            else:
                 stack.append(nxt)
-    return list(seen)
+    return live, list(leaves.values()), list(cut)
 
 
 def _consume(nodes):
-    """Mark ``nodes`` consumed and make the Tensors they made leaves."""
+    """Mark ``nodes`` consumed and make the Tensors they made leaves,
+    remembering which output of the node each one was."""
     for fn in nodes:
         md = fn.metadata
         md[_CONSUMED] = True
+        outs = md.setdefault(_OUTPUTS, {})
         for ref in md.pop(_MADE, ()):
             t = ref()
             if t is not None and t._value.grad_fn is fn:
+                outs.setdefault(t._value.output_nr, []).append(ref)
                 t._become_leaf()
+
+
+def _cut_edges(cut):
+    """(GradientEdge, Tensors made there) for each output of the consumed
+    nodes ``cut`` that a live Tensor came from."""
+    from torch.autograd.graph import GradientEdge
+    edges = []
+    for fn in cut:
+        for nr, refs in fn.metadata.get(_OUTPUTS, {}).items():
+            made = [t for t in (r() for r in refs) if t is not None]
+            if made:
+                edges.append((GradientEdge(fn, nr), made))
+    return edges
+
+
+def _zero_incoming(cut):
+    """Pre-hooks that zero what reaches the consumed nodes, for a backward
+    that must run them to reach a leaf a live path also reaches."""
+    def zero(grads):
+        return tuple(None if g is None else torch.zeros_like(g)
+                     for g in grads)
+    return [fn.register_prehook(zero) for fn in cut]
+
+
+def _through_consumed(roots, grads, leaves, cut, retain_graph):
+    """A backward from a graph that reaches consumed nodes: the gradient
+    at each of them goes into the Tensors it made, as the reference's
+    walk stops at a dropped tape node; the rest reaches the leaves a live
+    path reaches."""
+    edges = _cut_edges(cut)
+    if edges:
+        gs = torch.autograd.grad(roots, [e for e, _ in edges], grads,
+                                 retain_graph=True, allow_unused=True)
+        for (_, made), g in zip(edges, gs):
+            if g is not None:
+                for t in made:
+                    torch.autograd.backward([t._value], [g])
+    if not leaves:
+        return
+    handles = _zero_incoming(cut)
+    try:
+        torch.autograd.backward(roots, grads, retain_graph=retain_graph,
+                                inputs=leaves)
+    except RuntimeError as e:
+        if "second time" not in str(e):
+            raise
+        raise RuntimeError(
+            "backward() reaches a leaf both through a node an earlier "
+            "backward() without retain_graph consumed and through a live "
+            "path, and that node has freed its saved tensors; pass "
+            "retain_graph=True to the earlier backward") from e
+    finally:
+        for h in handles:
+            h.remove()
 
 
 def backward(tensors: Sequence[Tensor], grad_tensors=None,
@@ -95,8 +164,10 @@ def backward(tensors: Sequence[Tensor], grad_tensors=None,
     """paddle.autograd.backward: gradients accumulate into the ``grad`` of
     every leaf (and of tensors that called ``retain_grads``)."""
     roots, grads = _roots(tensors, grad_tensors)
-    nodes = _graph(roots)
-    if roots:
+    nodes, leaves, cut = _graph(roots)
+    if cut:
+        _through_consumed(roots, grads, leaves, cut, retain_graph)
+    elif roots:
         torch.autograd.backward(roots, grads, retain_graph=retain_graph)
     if not retain_graph:
         _consume(nodes)
@@ -107,15 +178,27 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
          no_grad_vars=None):
     """paddle.grad: gradients of ``outputs`` with respect to ``inputs``,
     returned (not accumulated into ``.grad``). ``create_graph`` gives
-    gradients that are themselves differentiable."""
+    gradients that are themselves differentiable. An input made by a
+    node an earlier backward consumed is taken at that node's output."""
     if isinstance(inputs, Tensor):
         inputs = [inputs]
     retain = bool(retain_graph) if retain_graph is not None else create_graph
     roots, grads = _roots(outputs, grad_outputs)
-    nodes = _graph(roots)
-    res = torch.autograd.grad(roots, [t._value for t in inputs], grads,
-                              retain_graph=retain, create_graph=create_graph,
-                              allow_unused=True)
+    nodes, _, cut = _graph(roots)
+    targets = [t._value for t in inputs]
+    handles = []
+    if cut:
+        at = {id(t): e for e, made in _cut_edges(cut) for t in made}
+        targets = [at.get(id(t), v) for t, v in zip(inputs, targets)]
+        handles = _zero_incoming(cut)
+    try:
+        res = torch.autograd.grad(roots, targets, grads,
+                                  retain_graph=retain,
+                                  create_graph=create_graph,
+                                  allow_unused=True)
+    finally:
+        for h in handles:
+            h.remove()
     if not retain:
         _consume(nodes)
     out = []

@@ -3,14 +3,19 @@
 ``to_static`` compiles with ``torch.compile`` where the reference jits with
 jax: one graph per (input shapes, train/eval, grad mode, amp policy),
 ``full_graph=True`` (the default) as ``fullgraph=True``, so a graph break
-raises instead of splitting the program. ``backend`` is torch's (None is
-inductor; the CPU tests pass ``"aot_eager"``). Training goes through the
-compiled graph's own backward (AOTAutograd) into the parameters' grads.
-The kernels are ``torch.library`` custom ops, so a compiled graph holds
-each launch as one node and counts it when it runs. Each call draws a
-fresh seed on the host and passes its threefry key into the program as a
-tensor (the reference passes a seed into every compiled call), so dropout
-masks differ from call to call without a recompile.
+raises instead of splitting the program. The function (or the Layer's
+``forward``) first goes through the dy2static AST pass
+(:mod:`.dy2static_ast`), as in the reference: Tensor-predicate
+``if``/``while``/``for`` become ``static.nn`` control flow, which lowers to
+``torch.cond`` / ``while_loop`` / ``scan`` in the one graph. ``backend`` is
+torch's (None is inductor; the CPU tests pass ``"aot_eager"``); inductor
+compiles under :data:`INDUCTOR_OPTIONS`. Training
+goes through the compiled graph's own backward (AOTAutograd) into the
+parameters' grads. The kernels are ``torch.library`` custom ops, so a
+compiled graph holds each launch as one node and counts it when it runs.
+Each call draws a fresh seed on the host and passes its threefry key into
+the program as a tensor (the reference passes a seed into every compiled
+call), so dropout masks differ from call to call without a recompile.
 
 ``save`` writes ``path.pdparams`` (the state dict), ``path.pdmodel`` (a
 ``torch.export`` program of the eval forward, ``torch.export.save``) and
@@ -38,9 +43,20 @@ from .functional import (collect_state, make_pure_callable,  # noqa: F401
 
 __all__ = ["to_static", "not_to_static", "InputSpec", "StaticFunction",
            "save", "load", "TranslatedLayer", "enable_to_static",
-           "set_code_level", "set_verbosity"]
+           "set_code_level", "set_verbosity", "INDUCTOR_OPTIONS"]
 
 _to_static_enabled = True
+
+# torch._inductor.config settings every inductor compile of to_static runs
+# under (as they stand when to_static is called): no Triton config search
+# for pointwise kernels (several configs compiled and benchmarked a kernel)
+# and no channels-last layout choice for convolutions. ResNet-50 (B=64,
+# 224x224, f32, train) on an H100, tools/torch_zoo_compile_probe.py: first
+# compiled step 218 s with inductor's defaults, 207 s with the search off,
+# 170 s with both off, and 79 ms a step after against 140 with the layout
+# choice on
+INDUCTOR_OPTIONS = {"triton.autotune_pointwise": False,
+                    "layout_optimization": False}
 
 
 def enable_to_static(flag: bool):
@@ -107,14 +123,18 @@ class StaticFunction:
     """A Layer's forward or a function compiled by ``torch.compile``
     (reference: dy2static/program_translator.py:305). ``compiles`` counts
     the graphs compiled and ``compile_seconds`` the wall time of each call
-    that compiled one."""
+    that compiled one. ``options`` are the inductor backend's config
+    settings (:data:`INDUCTOR_OPTIONS`; None for another backend)."""
 
     def __init__(self, function, layer=None, input_spec=None,
                  build_strategy=None, backend=None, full_graph=True):
-        self._function = function
+        from .dy2static_ast import convert_function
+        self._function = convert_function(function)
         self._layer = layer
         self._input_spec = input_spec
         self._backend = backend or "inductor"
+        self.options = (dict(INDUCTOR_OPTIONS)
+                        if self._backend == "inductor" else None)
         self._full_graph = bool(full_graph)
         self._compiled = None
         self.compiles = 0
@@ -135,13 +155,26 @@ class StaticFunction:
                 out = self._function(*args, **kwargs)
         return unwrap(out)
 
+    def _own_body(self):
+        """:meth:`_body` bound to this instance over a code object of its
+        own: dynamo caches graphs per code object, so instances sharing
+        one would share its recompile limit (8) and its guards."""
+        import types
+        fn = StaticFunction._body
+        code = fn.__code__.replace(co_name=f"_body_{id(self):x}")
+        return types.MethodType(
+            types.FunctionType(code, fn.__globals__, code.co_name), self)
+
     def _backend_fn(self):
         from torch._dynamo import lookup_backend
         inner = lookup_backend(self._backend)
 
         def backend(gm, example_inputs):
             self.compiles += 1
-            return inner(gm, example_inputs)
+            if self.options is None:
+                return inner(gm, example_inputs)
+            # compile_fx patches the backward's later compile as well
+            return inner(gm, example_inputs, config_patches=self.options)
         return backend
 
     def __call__(self, *args, **kwargs):
@@ -151,7 +184,7 @@ class StaticFunction:
             return self._function(*args, **kwargs)
         if self._compiled is None:
             self._compiled = torch.compile(
-                self._body, backend=self._backend_fn(),
+                self._own_body(), backend=self._backend_fn(),
                 fullgraph=self._full_graph, dynamic=False)
         arg_vals, kw_vals = unwrap(args), unwrap(kwargs)
         seed = _random.default_generator().next_seed()

@@ -473,6 +473,9 @@ def _unwrap(obj, found: list):
         return out if isinstance(obj, list) else tuple(out)
     if isinstance(obj, dict):
         return {k: _unwrap(v, found) for k, v in obj.items()}
+    if isinstance(obj, (np.ndarray, np.generic)) \
+            and torch.compiler.is_compiling():
+        return torch.as_tensor(obj)   # dynamo proxies no numpy operand
     return obj
 
 
@@ -615,8 +618,10 @@ def to_tensor(data, dtype=None, place=None, stop_gradient: bool = True
                    stop_gradient=stop_gradient)
         t.name = data.name
         return t
-    if isinstance(data, torch.Tensor):
-        v = data.detach().to(dev)
+    if isinstance(data, torch.Tensor) or torch.compiler.is_compiling():
+        # under a trace host data is a constant of the graph: dynamo
+        # traces torch.as_tensor, not numpy's dtype rules
+        v = torch.as_tensor(data).detach().to(dev)
         v = v.to(_dtype.to_torch(dtype)) if dtype is not None else _fold(v)
         return Tensor(v, stop_gradient=stop_gradient)
     arr = np.asarray(data)

@@ -212,17 +212,66 @@ def test_backward_from_a_new_root_on_a_consumed_graph(kind):
         np.testing.assert_allclose(b, a, rtol=TOL, atol=TOL)
 
 
+def _built_before_consumed(M, kind):
+    """``y`` is built on ``h`` BEFORE a backward consumes ``h``'s producer;
+    ``y.backward()`` then stops at the consumed node and fills ``h.grad``
+    (and ``x`` only by the live path of ``mixed``). ``two``: two made
+    Tensors of one consuming backward."""
+    x = M.to_tensor(A34, stop_gradient=False)
+    h, g = x + 1.0, x * x
+    y = {"smallest": lambda: M.sum(h * 3.0),
+         "mixed": lambda: M.sum(h * 3.0 + x),
+         "two": lambda: M.sum(h * 3.0 + g * 4.0)}[kind]()
+    M.sum(h * 2.0 + (g if kind == "two" else 0.0)).backward()
+    first = to_np(x.grad).copy()
+    y.backward()
+    out = [h.is_leaf, first, to_np(x.grad), to_np(h.grad)]
+    return out + [to_np(g.grad)] if kind == "two" else out
+
+
+@pytest.mark.parametrize("kind", ["smallest", "mixed", "two"])
+def test_backward_through_a_graph_built_before_it_was_consumed(kind):
+    """``smallest``: ``h = x + 1; y = (h * 3).sum(); (h * 2).sum()
+    .backward(); y.backward()`` gives ``x.grad`` 2 and ``h.grad`` 3, as
+    the reference's walk, which stops at the dropped tape node. ``mixed``:
+    ``x`` is reached through the consumed node and directly; only the live
+    path adds to it."""
+    r, t = _built_before_consumed(P, kind), _built_before_consumed(T, kind)
+    if kind == "smallest":
+        np.testing.assert_allclose(t[2], 2.0)
+        np.testing.assert_allclose(t[3], 3.0)
+    assert r[0] and t[0]
+    for a, b in zip(r[1:], t[1:]):
+        np.testing.assert_allclose(b, a, rtol=TOL, atol=TOL)
+
+
+def test_grad_through_a_consumed_node_takes_the_made_tensor():
+    """paddle.grad of a graph built before the consuming backward, with
+    respect to the Tensor the consumed node made."""
+    out = []
+    for M in (P, T):
+        x = M.to_tensor(A34, stop_gradient=False)
+        h = x * x
+        y = M.sum(h * 3.0)
+        M.sum(h * 2.0).backward()
+        (gh,) = M.grad(y, [h])
+        out.append((to_np(gh), to_np(x.grad)))
+    for a, b in zip(*out):
+        np.testing.assert_allclose(b, a, rtol=TOL, atol=TOL)
+
+
 def test_backward_through_a_graph_built_before_it_was_consumed_raises():
-    """A graph that already reaches nodes a later backward consumes cannot
-    be cut in torch: the port raises where the reference would send the
-    gradient up to the cut, never running a consumed node again."""
+    """What torch cannot cut: a leaf reached both through a consumed node
+    that freed its saved tensors (``x * x``) and through a live path. The
+    consumed node would have to run again; the port raises, where the
+    reference sends the gradient up to the cut."""
     x = T.to_tensor(A34, stop_gradient=False)
-    h = x + 1.0
-    y = T.sum(h * 3.0)
+    h = x * x
+    y = T.sum(h * 3.0 + x)
     T.sum(h * 2.0).backward()
     with pytest.raises(RuntimeError, match="retain_graph=True"):
         y.backward()
-    np.testing.assert_allclose(to_np(x.grad), 2.0)
+    np.testing.assert_allclose(to_np(x.grad), 4.0 * A34, rtol=TOL)
 
 
 def test_grad_accumulates_until_clear_grad():

@@ -321,3 +321,36 @@ def test_enable_to_static_false_runs_eagerly():
     finally:
         T.jit.enable_to_static(True)
     assert m._static_function.compiles == 0
+
+
+def _double(x):
+    return x * 2.0
+
+
+@pytest.mark.parametrize("update", [
+    {}, {"layout_optimization": True, "epilogue_fusion": False}])
+def test_inductor_compiles_under_to_static_options(monkeypatch, update):
+    """The inductor backend gets jit.INDUCTOR_OPTIONS, as they stand when
+    to_static is called, as compile_fx's config_patches (which also
+    cover the backward's later compile); another backend gets none (the
+    stand-in backend below takes the place of both)."""
+    import torch._dynamo
+    seen = []
+
+    def inductor(gm, example_inputs, **kwargs):
+        seen.append(kwargs)
+        return gm.forward
+    monkeypatch.setattr(torch._dynamo, "lookup_backend",
+                        lambda name: inductor)
+    want = {"triton.autotune_pointwise": False,
+            "layout_optimization": False, **update}
+    for k, v in update.items():
+        monkeypatch.setitem(T.jit.INDUCTOR_OPTIONS, k, v)
+    x = T.to_tensor(A(2, 8))
+    assert T.jit.to_static(_double)(x).shape == [2, 8]
+    assert T.jit.to_static(MLP())(x).shape == [2, 4]
+    assert seen == [{"config_patches": want}] * 2
+    seen.clear()
+    f = T.jit.to_static(_double, backend="aot_eager")
+    f(x)
+    assert f.options is None and seen == [{}]
