@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases build,eager,eager_parity
     python3 chip_smoke.py --phases build,kernels,amp,jit,hapi
     python3 chip_smoke.py --phases build,kernels,zoo,jit
+    python3 chip_smoke.py --phases build,kernels,rnn,jit
 
 Phases, each fatal on failure:
 
@@ -310,10 +311,12 @@ Phases, each fatal on failure:
 25. jit     — LeNet: 20 eager Adam steps, then 20 under to_static
               (inductor, full graph), losses within JIT_LENET_TOL of an
               eager twin from the same state, one compile. jit.save of
-              the O2 bf16 GPT with InputSpec([1, 2048], "int64"), served
+              the O2 bf16 GPT cut to its first JIT_GPT_LAYERS layers at
+              full width, with InputSpec([1, 2048], "int64"), served
               through jit.load and inference.create_predictor(Config(
-              path)): logits within JIT_EXPORT_TOL of the eager layer, 24
-              flash forwards a call, ms a call beside the eager layer's
+              path)): logits within JIT_EXPORT_TOL of the eager layer,
+              JIT_GPT_LAYERS flash forwards a call, ms a call beside the
+              eager layer's
               (the predictor's handle form, its outputs on the card; its
               list form with the logits' copy to the host beside it), the
               host's time to enqueue a call, device time, the file sizes.
@@ -367,6 +370,38 @@ Phases, each fatal on failure:
               ZOO_PARITY_GRAD_TOL), then in eval mode, and a 2-layer
               BERT-base, f32, 3 steps each from the same weights, losses
               within ZOO_PARITY_TOL.
+28. rnn     — the recurrent family at the PTB "medium" width of Zaremba et
+              al. (2014), as PaddleNLP's examples/language_model/rnnlm
+              trains it (RNN_LM): Embedding(10000, 650), LSTM(650, 650,
+              num_layers=2, dropout=0.5), dropout 0.5 on the embedding and
+              the output, Linear(650, 10000), every weight Uniform(-0.05,
+              0.05) through ParamAttr; batch 20, 35 steps unrolled, the
+              state carried across steps and detached, SGD(1.0) with
+              ClipGradByGlobalNorm(5.0), f32 on seeded random tokens:
+              RNN_LM_STEPS eager steps (step ms, tokens/s, peak GiB, the
+              device's idle share in one profiled step), the first loss
+              within RNN_FIRST_LOSS_TOL of ln 10000. GRU(650, 650,
+              num_layers=2) and LSTM(650, 650, direction="bidirect")
+              forward and backward once each at [20, 35, 650] (ms, shapes).
+              dynamic_decode(BeamSearchDecoder(the LM's first LSTMCell,
+              start 0, end 1, beam 4, its embedding and projection),
+              max_step_num=35) at batch 20 (ms a step; ids [20, T, 4],
+              best-first by their rescored log-probabilities). LBFGS (the
+              reference's TestLBFGS problems), jacobian and hessian on the
+              card against the CPU within RNN_SMALL_TOL. In a process of
+              its own (--profiler-child: kineto loses the device plane in
+              this long process), the port's Profiler over one scheduler
+              window with a RecordEvent around one bf16 causal flash
+              forward at [4, 16, 2048, 2048, 128]: the
+              merged trace holds the host span and the kernel, whose launch
+              (by correlation id) lies inside the span's record_function
+              range; summary() names the span. The CPU/card cut (hidden
+              32, vocab 64, T 8, B 4, dropout 0, f32): the LSTM LM and its
+              GRU and bidirectional twins, 3 SGD steps each, losses and
+              final states within RNN_PARITY_TOL; a beam search at that
+              size, its ids equal on both wherever every step's gap between
+              the last kept and the first dropped candidate exceeds
+              RNN_BEAM_GAP (the gaps printed).
 
 Every other phase runs the session's ticks and generate()'s steps as
 captured graphs too (each session's first tick is the warm-up, run
@@ -402,7 +437,7 @@ PHASES = ("build", "kernels", "generate", "server", "parity", "quant",
           "quant_parity", "paged", "paged_parity", "train", "train_parity",
           "incubate", "sampling", "spec", "graph", "buckets", "resil",
           "fleet", "moe", "moe_parity", "guards", "eager", "eager_parity",
-          "amp", "jit", "hapi", "zoo")
+          "amp", "jit", "hapi", "zoo", "rnn")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -506,7 +541,10 @@ JIT_LENET_TOL = 1e-4
 # to_static GPT under O1 bf16 against the eager O1 losses: inductor fuses
 # the bf16 casts and reorders the f32 reductions around them
 JIT_GPT_TOL = 2e-2
-# the depth of the to_static GPT (full width, O1 bf16): its first layers
+# the depth of the to_static GPT (full width, O1 bf16) and of the exported
+# O2 bf16 GPT served by jit.load and the predictor: their first layers. The
+# exported GPT at 24 layers took 13.2 ms of device time a call and its
+# files 2.6 GB; the phase's time went to the rnn phase
 JIT_GPT_LAYERS = 4
 # the zoo phase's compiled ResNet-50: one bottleneck block a stage (the
 # stem, 64-2048 channels, 1000 classes), the full depth's blocks [3, 4, 6, 3]
@@ -565,6 +603,34 @@ JIT_EXPORT_TOL = 1e-2
 # holds Model.fit to the reference's losses), reaches 0.72 after 2 epochs
 # and plateaus near 0.73 on the CPU (chance 0.1)
 HAPI_MIN_ACC = 0.6
+# the rnn phase's PTB "medium" LM (Zaremba et al. 2014; PaddleNLP's
+# examples/language_model/rnnlm with its medium settings)
+RNN_LM = dict(vocab=10000, hidden=650, layers=2, dropout=0.5,
+              init_scale=0.05, batch=20, steps=35, lr=1.0, max_grad_norm=5.0)
+RNN_LM_STEPS = 4
+# step 1's mean cross entropy: every weight lies in +-0.05, so a logit is a
+# sum of 650 products of two such uniforms damped by the LSTM's gates, of
+# order 1e-2, and the loss sits within ~1e-4 of ln 10000; 0.05 leaves room
+# for the dropout's upscaled activations and still fails a model whose
+# logits are not near 0 (a wrong init scale or a missing output layer)
+RNN_FIRST_LOSS_TOL = 0.05
+# LBFGS, jacobian and hessian on the card against the CPU: f32 products of
+# a few elements (the MLP's 32 x 4 GEMM) in another summation order
+RNN_SMALL_TOL = 1e-5
+# the CPU/card cut (hidden 32, vocab 64, T 8, B 4, dropout 0, f32, TF32
+# off): 3 SGD steps' losses relative, and the final states relative to
+# their largest value; cuBLAS against MKL sums 32- and 64-long products in
+# another order, ~1e-7 a step, which 3 steps of lr 1.0 carry on
+RNN_PARITY_TOL = 1e-4
+# the beam search's ids must agree on the CPU and the card in every batch
+# row where each step's gap between the last kept and the first dropped
+# candidate exceeds this on both (log-probabilities differ by ulps, ~1e-6,
+# and np.argsort is not stable, so a closer pair may swap)
+RNN_BEAM_GAP = 1e-4
+# windows the profiler check (a process of its own) may take before it
+# judges: a window can lose every kernel record (its runtime calls there,
+# no kernel), as device_ms now and then loses one
+RNN_PROFILER_WINDOWS = 3
 
 
 # the limits' names of the flash kernels' dtypes
@@ -6062,18 +6128,20 @@ class Smoke:
         tokens = batch[0]
         tmp = tempfile.mkdtemp(prefix="jit_save_")
         try:
-            # the O2 bf16 model exported and served, before and after the
-            # GPT's compile below (one process: the compile slows the
-            # host's dispatch of every later call)
-            paddle.amp.decorate(model, level="O2", dtype="bfloat16")
-            model.eval()
+            # the O2 bf16 model, cut to its first JIT_GPT_LAYERS layers at
+            # full width, exported and served, before and after the GPT's
+            # compile below (one process: the compile slows the host's
+            # dispatch of every later call)
+            exported = self._gpt_cut(model, JIT_GPT_LAYERS)
+            paddle.amp.decorate(exported, level="O2", dtype="bfloat16")
+            exported.eval()
             path = os.path.join(tmp, "gpt")
             t0 = time.perf_counter()
-            paddle.jit.save(model, path, input_spec=[
+            paddle.jit.save(exported, path, input_spec=[
                 paddle.jit.InputSpec([1, 2048], "int64")])
             save_s = time.perf_counter() - t0
             with paddle.no_grad():
-                want = model(tokens)._value
+                want = exported(tokens)._value
             loaded = paddle.jit.load(path)
             pred = paddle.inference.create_predictor(
                 paddle.inference.Config(path))
@@ -6087,10 +6155,10 @@ class Smoke:
 
             def eager():
                 with paddle.no_grad():
-                    return model(tokens)._value
+                    return exported(tokens)._value
             runs = {"jit.load": lambda: loaded(tokens)._value,
                     "predictor": handles, "eager layer": eager}
-            res = self._serve(runs, want, cfg.n_layers)
+            res = self._serve(runs, want, JIT_GPT_LAYERS)
             res["jit.load"]["host_profile"] = self._host_profile(
                 runs["jit.load"])
             # the list form returns the logits on the host, as the
@@ -6098,19 +6166,19 @@ class Smoke:
             res["predictor"]["list_form_ms_a_call_with_host_copy"] = round(
                 self.time_ms(lambda: pred.run([tok_np]), iters=3, warmup=1),
                 3)
-            line = dict(model="GPT(gpt3_1p3b) O2 bf16, eval", input=[1, 2048],
+            line = dict(model=f"GPT(gpt3_1p3b(n_layers={JIT_GPT_LAYERS})) O2 "
+                              "bf16, eval", input=[1, 2048],
                         save_s=round(save_s, 2), limit=JIT_EXPORT_TOL,
                         pdmodel_bytes=os.path.getsize(path + ".pdmodel"),
                         pdparams_bytes=os.path.getsize(path + ".pdparams"),
                         **res)
             log("[jit] " + json.dumps(line))
+            del exported
             # to_static of the f32 model under O1 bf16
-            model.train()
-            self._reset(model, init)
             self._jit_gpt(cfg, model, batch)
             # the exported forms again, after the compile
             del runs["eager layer"]
-            res = self._serve(runs, want, cfg.n_layers)
+            res = self._serve(runs, want, JIT_GPT_LAYERS)
             res["jit.load"]["host_profile"] = self._host_profile(
                 runs["jit.load"])
             import threading
@@ -6138,6 +6206,20 @@ class Smoke:
         del model, init
         torch.cuda.empty_cache()
 
+    @staticmethod
+    def _gpt_cut(model, n):
+        """GPT(gpt3_1p3b(n_layers=n)) in f32 holding copies of ``model``'s
+        first ``n`` layers, its embeddings and its final LayerNorm."""
+        import torch
+        from paddle_tpu_torch.models import gpt
+        cut = gpt.GPT(gpt.gpt3_1p3b(dtype=torch.float32, n_layers=n))
+        full = model.state_dict()
+        missing, unexpected = cut.set_state_dict(
+            {k: full[k]._value.detach().clone() for k in cut.state_dict()})
+        if missing or unexpected:
+            raise AssertionError(f"GPT cut keys: {missing} {unexpected}")
+        return cut
+
     def _jit_gpt(self, cfg, model, batch):
         """to_static(GPT) at full width cut to its first JIT_GPT_LAYERS
         layers, under O1 bf16 for 3 AdamW steps against the same cut's
@@ -6150,14 +6232,9 @@ class Smoke:
         from torch._inductor import config as inductor_config
         amp = dict(level="O1", dtype="bfloat16")
         n = JIT_GPT_LAYERS
-        cut_cfg = gpt.gpt3_1p3b(dtype=torch.float32, n_layers=n)
-        cut = gpt.GPT(cut_cfg)
-        full = model.state_dict()
-        init = {k: full[k]._value.detach().clone()
-                for k in cut.state_dict()}
-        missing, unexpected = cut.set_state_dict(init)
-        if missing or unexpected:
-            raise AssertionError(f"GPT cut keys: {missing} {unexpected}")
+        cut = self._gpt_cut(model, n)
+        init = {k: v._value.detach().clone()
+                for k, v in cut.state_dict().items()}
         cut.train()
         opt = paddle.optimizer.AdamW(3e-5, parameters=cut.parameters())
         losses, times, _ = self._gpt_steps(cut, opt, batch, 3, amp)
@@ -6662,6 +6739,517 @@ class Smoke:
             raise AssertionError(f"zoo parity, ResNet train step: {line}")
         return line
 
+    # ------------------------------------------------------------- rnn
+    def phase_rnn(self):
+        torch = self.torch
+        import numpy as np
+        import paddle_tpu_torch as paddle
+        paddle.set_device("gpu")
+        c = RNN_LM
+        V, H, B, S = c["vocab"], c["hidden"], c["batch"], c["steps"]
+        t0 = time.perf_counter()
+        paddle.seed(0)
+        lm = _rnn_lm(paddle, V, H, c["layers"], c["dropout"], c["init_scale"])
+        opt = _rnn_sgd(paddle, lm, c["lr"], c["max_grad_norm"])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        rng = np.random.default_rng(21)
+        batches = [rng.integers(0, V, (B, S + 1))
+                   for _ in range(RNN_LM_STEPS + 1)]
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses, times, states = _rnn_train(
+            torch, paddle, lm, opt, batches[:-1], _rnn_states(paddle, lm, B))
+        peak = torch.cuda.max_memory_allocated()
+        # one more step under the profiler: the device's busy share of it
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            more, _, states = _rnn_train(torch, paddle, lm, opt,
+                                         batches[-1:], states)
+            wall = time.perf_counter() - w0
+        dev_ms, top = _device_rows(torch, prof, 5)
+        step_s = sum(times[1:]) / len(times[1:])
+        first_err = abs(losses[0] - math.log(V))
+        line = dict(
+            model="PTB medium LM (Zaremba et al. 2014): Embedding(10000, "
+                  "650), LSTM(650, 650, 2 layers, dropout 0.5), Linear(650, "
+                  "10000), Uniform(-0.05, 0.05), f32",
+            batch=B, steps=S, optimizer="SGD(1.0), ClipGradByGlobalNorm(5)",
+            build_s=round(build_s, 2), losses=losses + more,
+            first_loss_minus_ln_vocab=first_err, limit=RNN_FIRST_LOSS_TOL,
+            step_ms=[round(t * 1e3, 3) for t in times],
+            step_ms_mean_after_first=round(step_s * 1e3, 3),
+            tokens_per_s=round(B * S / step_s, 1),
+            max_memory_allocated_gib=round(peak / 2 ** 30, 3),
+            peak_above_phase_start_gib=round((peak - base) / 2 ** 30, 3),
+            profiled_step=dict(wall_ms=round(wall * 1e3, 3),
+                               device_ms=round(dev_ms, 3),
+                               idle_share=round(1 - dev_ms / (wall * 1e3),
+                                                4),
+                               top_kernels=[(k[:60], round(ms, 3), n)
+                                            for k, ms, n in top]))
+        log("[rnn] " + json.dumps(line))
+        if not (np.isfinite(losses + more).all()
+                and first_err <= RNN_FIRST_LOSS_TOL):
+            raise AssertionError(f"PTB LM: {line}")
+        self._rnn_layers(paddle, B, S, H)
+        lm.eval()
+        inits = tuple(s[0] for s in states)
+        t0 = time.perf_counter()
+        ids = _rnn_beam(paddle, lm, inits, 4, S)
+        beam_s = time.perf_counter() - t0
+        score = _rnn_rescore(paddle, lm, ids, inits)
+        drop = float(np.max(np.diff(score, axis=1)))
+        line = dict(beam=4, batch=B, max_step_num=S, ids_shape=list(
+            ids.shape), ms_a_step=round(beam_s * 1e3 / ids.shape[1], 3),
+            rescored_first_row=[round(v, 4) for v in score[0]],
+            largest_rise_between_beams=drop)
+        log("[rnn] beam search " + json.dumps(line))
+        if ids.shape[0] != B or ids.shape[2] != 4 or not \
+                1 <= ids.shape[1] <= S or drop > 1e-3:
+            raise AssertionError(f"beam search: {line}")
+        del lm, opt, states, inits
+        torch.cuda.empty_cache()
+        self._rnn_small(paddle)
+        self._rnn_profiler(paddle)
+        self._rnn_parity(paddle)
+        paddle.set_device("gpu")
+
+    def _rnn_layers(self, paddle, B, S, H):
+        """GRU (2 layers) and a bidirectional LSTM at the LM's width:
+        forward and backward four times each (the first untimed: the host
+        sets the pace, so the median of the other three); shapes."""
+        torch = self.torch
+        import numpy as np
+        x = paddle.to_tensor(np.random.default_rng(22).standard_normal(
+            (B, S, H)).astype(np.float32))
+        want = {"GRU(650, 650, num_layers=2)": ([B, S, H], [[2, B, H]]),
+                "LSTM(650, 650, direction=bidirect)": (
+                    [B, S, 2 * H], [[2, B, H], [2, B, H]])}
+        layers = {"GRU(650, 650, num_layers=2)": paddle.nn.GRU(
+                      H, H, num_layers=2),
+                  "LSTM(650, 650, direction=bidirect)": paddle.nn.LSTM(
+                      H, H, direction="bidirect")}
+        for name, layer in layers.items():
+            ms = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y, st = layer(x)
+                paddle.sum(y * y).backward()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            shapes = (y.shape, [s.shape for s in (
+                st if isinstance(st, tuple) else (st,))])
+            line = dict(layer=name, input=[B, S, H],
+                        fwd_bwd_ms=[round(t, 3) for t in ms],
+                        fwd_bwd_ms_median=round(sorted(ms[1:])[1], 3),
+                        output_shape=shapes[0], state_shapes=shapes[1],
+                        grads=all(p.grad is not None
+                                  for p in layer.parameters()))
+            log("[rnn] " + json.dumps(line))
+            if shapes != want[name] or not line["grads"]:
+                raise AssertionError(f"{name}: {line}")
+        del layers, x, y, st
+
+    def _rnn_small(self, paddle):
+        """LBFGS, jacobian and hessian on the card against the CPU."""
+        import numpy as np
+        card = _rnn_small(paddle, "gpu")
+        cpu = _rnn_small(paddle, "cpu")
+        paddle.set_device("gpu")
+        errs = [float(np.abs(np.asarray(a) - np.asarray(b)).max()
+                      / max(1.0, float(np.abs(np.asarray(b)).max())))
+                for a, b in zip(card, cpu)]
+        names = ["lbfgs quadratic loss", "lbfgs quadratic p",
+                 "lbfgs mlp first loss", "lbfgs mlp loss", "lbfgs mlp w",
+                 "lbfgs mlp b", "jacobian sum(t*t)", "hessian sum(t*t)",
+                 "jacobian sum(tanh(t)*t*t)", "hessian sum(tanh(t)*t*t)"]
+        line = dict(zip(names, errs), limit=RNN_SMALL_TOL,
+                    quadratic_p=np.asarray(card[1]).tolist(),
+                    mlp_losses=[float(card[2]), float(card[3])])
+        log("[rnn] card against CPU " + json.dumps(line))
+        if max(errs) > RNN_SMALL_TOL or not card[3] < 0.1 * card[2]:
+            raise AssertionError(f"LBFGS/jacobian/hessian: {line}")
+
+    def _rnn_profiler(self, paddle):
+        """The profiler check, in a process of its own (this script,
+        --profiler-child): in this long process kineto loses the device
+        plane after the earlier phases (the whole runs read no kernel in
+        every window, and at last a plain torch.profiler session read 0
+        device ms too). The parent waits for it; no timed phase runs
+        meanwhile. Its flash launch adds to the kernels line."""
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--profiler-child"],
+            capture_output=True, text=True, timeout=600)
+        for out in child.stdout.splitlines()[:-1]:
+            log(out)
+        if child.returncode != 0:
+            raise AssertionError(f"profiler child exited {child.returncode}: "
+                                 f"{child.stderr[-3000:]}")
+        line = json.loads(child.stdout.splitlines()[-1])
+        line["child_s"] = round(time.perf_counter() - t0, 1)
+        log("[rnn] profiler " + json.dumps(line))
+        row = self.rows.setdefault("flash_attention_fwd", {})
+        row["launches"] = row.get("launches", 0) + line["flash_fwd_launches"]
+        # the host deque keeps every span of the process, as the
+        # reference's does: an earlier window's span stays in it
+        if not (line["host_spans"] >= 1 and
+                len(line["launches_inside_span"]) == 1 and
+                len(line["kernel_of_the_span"]) == 1 and
+                line["flash_fwd_launches"] == 1 and
+                line["summary_names_span"]):
+            raise AssertionError(f"profiler: {line}")
+
+    def profiler_child(self):
+        """The rnn phase's profiler check (a process of its own): the
+        port's Profiler over one scheduler window, a RecordEvent around
+        one bf16 causal flash forward at the kernels phase's shape; the
+        merged trace holds the host span and the kernel, whose launch
+        lies inside the span's record_function range; summary() names the
+        span. Flash forwards outside the span fill the window on either
+        side (kineto drops records at a window's edges: a lone kernel went
+        missing), and a window whose device plane holds no kernel at all
+        is taken again, up to RNN_PROFILER_WINDOWS times, as device_ms
+        retakes a session that lost its kernels. Prints its reading as
+        the last line."""
+        torch = self.torch
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch.ops.kernels import flash_attention as fa
+        paddle.set_device("gpu")
+        q, k, v = (torch.randn(4, 16, 2048, 128, device=self.dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        for attempt in range(1, RNN_PROFILER_WINDOWS + 1):
+            line = self._rnn_profile_window(lambda: fa.flash_attention(
+                q, k, v, causal=True))
+            line["window"] = attempt
+            if line["flash_kernels_in_window"]:
+                break
+            # the control: the same kernel under a plain torch.profiler
+            # session, to tell a lost device plane from a wrong one
+            line["plain_profiler_device_ms_a_call"] = round(
+                self.device_ms(lambda: fa.flash_attention(
+                    q, k, v, causal=True), iters=5), 4)
+            log("[rnn] profiler window without kernels "
+                + json.dumps(line))
+        print(json.dumps(line), flush=True)
+        return 0
+
+    def _rnn_profile_window(self, flash, pad=20):
+        """One window of the port's Profiler: ``pad`` flash forwards, the
+        span around one, ``pad`` more; the merged trace's reading."""
+        torch = self.torch
+        import shutil
+        import tempfile
+        from paddle_tpu_torch import profiler
+        tmp = tempfile.mkdtemp(prefix="rnn_profiler_")
+        old = os.environ.get("PADDLE_TPU_PROFILE_DIR")
+        os.environ["PADDLE_TPU_PROFILE_DIR"] = os.path.join(tmp, "dump")
+        name = "rnn/flash_attention_fwd"
+        try:
+            prof = profiler.Profiler(scheduler=profiler.make_scheduler(
+                closed=1, ready=0, record=1, repeat=1))
+            prof.start()
+            prof.step()             # CLOSED -> RECORD_AND_RETURN
+            for _ in range(pad):
+                flash()
+            torch.cuda.synchronize()
+            self._zero_counts()
+            with profiler.RecordEvent(name):
+                flash()
+                torch.cuda.synchronize()
+            counts = self._read_counts("rnn", ("flash_attention_fwd",))
+            for _ in range(pad):
+                flash()
+            torch.cuda.synchronize()
+            prof.step()             # -> CLOSED: the window's trace ends
+            prof.stop()
+            prof.export(os.path.join(tmp, "out"))
+            with open(os.path.join(tmp, "out", "merged_trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+            summary = prof.summary()
+        finally:
+            if old is None:
+                os.environ.pop("PADDLE_TPU_PROFILE_DIR", None)
+            else:
+                os.environ["PADDLE_TPU_PROFILE_DIR"] = old
+            shutil.rmtree(tmp, ignore_errors=True)
+        host_pid = next(e["pid"] for e in events if e.get("ph") == "M"
+                        and e.get("args", {}).get("name")
+                        == "paddle_tpu host plane")
+        host = [e for e in events if e.get("pid") == host_pid
+                and e.get("name") == name]
+        rng = [e for e in events if e.get("cat") == "user_annotation"
+               and e.get("name") == name]
+        kern = {e.get("args", {}).get("correlation"): e for e in events
+                if e.get("cat") == "kernel"
+                and "fwd_kernel" in e.get("name", "")}
+        launch = [e for e in events
+                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                  and e.get("args", {}).get("correlation") in kern]
+        inside = [e for e in launch if rng and rng[0]["ts"] <= e["ts"]
+                  <= rng[0]["ts"] + rng[0]["dur"]]
+        cats = {}
+        for e in events:
+            cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+        return dict(span=name, host_spans=len(host), ranges=len(rng),
+                    span_us=rng[0]["dur"] if rng else None,
+                    flash_kernels_in_window=len(kern),
+                    launches_in_window=len(launch),
+                    launches_inside_span=[e["name"] for e in inside],
+                    kernel_of_the_span=[
+                        (kern[e["args"]["correlation"]]["name"][:80],
+                         kern[e["args"]["correlation"]].get("dur"))
+                        for e in inside],
+                    flash_fwd_launches=counts["flash_attention_fwd"],
+                    summary_names_span=name in summary,
+                    events_by_category=cats)
+
+    def _rnn_parity(self, paddle):
+        """The CPU/card cut: the LSTM LM at hidden 32, vocab 64, T 8, B 4,
+        dropout 0, f32, and its GRU and bidirectional twins, 3 SGD steps
+        each from the same weights; a beam search at that size."""
+        import numpy as np
+        V, H, T_, B = 64, 32, 8, 4
+        batches = [np.random.default_rng(23 + i).integers(0, V, (B, T_ + 1))
+                   for i in range(3)]
+        for kind, direction in (("LSTM", "forward"), ("GRU", "forward"),
+                                ("LSTM", "bidirect")):
+            res, lms, init = {}, {}, None
+            for place in ("cpu", "gpu"):
+                paddle.set_device(place)
+                paddle.seed(3)
+                # weights in +-0.3: logits far enough apart for the beam
+                lm = _rnn_lm(paddle, V, H, 2, 0.0, 0.3, kind, direction)
+                if init is None:
+                    init = {k: v.numpy().copy()
+                            for k, v in lm.state_dict().items()}
+                missing, unexpected = lm.set_state_dict(init)
+                assert not missing and not unexpected
+                lms[place] = lm
+                losses, _, states = _rnn_train(
+                    self.torch, paddle, lm, _rnn_sgd(paddle, lm, 1.0, 5.0),
+                    batches, _rnn_states(paddle, lm, B))
+                res[place] = (losses, [s.numpy() for s in (
+                    states if isinstance(states, tuple) else (states,))])
+            (cl, cs), (gl, gs) = res["cpu"], res["gpu"]
+            loss_err = max(abs(a - b) / abs(a) for a, b in zip(cl, gl))
+            state_err = max(float(np.abs(a - b).max() / np.abs(a).max())
+                            for a, b in zip(cs, gs))
+            line = dict(lm=f"{kind} {direction}, hidden {H}, vocab {V}, "
+                           f"T {T_}, B {B}", cpu_losses=cl, card_losses=gl,
+                        loss_rel_err=loss_err, state_rel_err=state_err,
+                        limit=RNN_PARITY_TOL)
+            log("[rnn] CPU/card " + json.dumps(line))
+            if loss_err > RNN_PARITY_TOL or state_err > RNN_PARITY_TOL:
+                raise AssertionError(f"rnn CPU/card: {line}")
+            if kind == "LSTM" and direction == "forward":
+                beams = {}
+                for place in ("cpu", "gpu"):
+                    paddle.set_device(place)
+                    lm = lms[place]
+                    lm.eval()
+                    h0 = paddle.to_tensor(res["cpu"][1][0][0])
+                    c0 = paddle.to_tensor(res["cpu"][1][1][0])
+                    gaps = []
+                    beams[place] = (_rnn_beam(paddle, lm, (h0, c0), 4, T_,
+                                              gaps), np.stack(gaps))
+                (ci, cg), (gi, gg) = beams["cpu"], beams["gpu"]
+                n = min(len(cg), len(gg))
+                gap = np.minimum(cg[:n], gg[:n])          # [steps, B]
+                clear = gap.min(axis=0) > RNN_BEAM_GAP     # rows held equal
+                same = ci.shape == gi.shape and all(
+                    np.array_equal(ci[b], gi[b]) for b in range(B)
+                    if clear[b])
+                line = dict(beam=4, batch=B, ids_shape=list(gi.shape),
+                            smallest_gap_each_step=[float(g) for g in
+                                                    gap.min(axis=1)],
+                            rows_held_equal=int(clear.sum()),
+                            ids_equal_where_held=same,
+                            all_ids_equal=bool(ci.shape == gi.shape and
+                                               np.array_equal(ci, gi)),
+                            gap_limit=RNN_BEAM_GAP)
+                log("[rnn] CPU/card beam " + json.dumps(line))
+                if not same:
+                    raise AssertionError(f"rnn beam CPU/card: {line}")
+
+
+def _rnn_lm(paddle, vocab, hidden, layers, dropout, init_scale, kind="LSTM",
+            direction="forward"):
+    """PaddleNLP's RnnLm (examples/language_model/rnnlm/model.py): an
+    embedding, a ``kind`` RNN, dropout on its input and output, and a
+    projection to the vocabulary; every weight Uniform(+-init_scale)
+    through ParamAttr (the RNN's biases keep their own default)."""
+    nn = paddle.nn
+
+    def attr():
+        return nn.ParamAttr(initializer=nn.initializer.Uniform(
+            -init_scale, init_scale))
+
+    class RnnLm(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedder = nn.Embedding(vocab, hidden, weight_attr=attr())
+            self.rnn = getattr(nn, kind)(
+                hidden, hidden, num_layers=layers, dropout=dropout,
+                direction=direction, weight_ih_attr=attr(),
+                weight_hh_attr=attr())
+            width = hidden * (2 if direction == "bidirect" else 1)
+            self.fc = nn.Linear(width, vocab, weight_attr=attr(),
+                                bias_attr=attr())
+            self.dropout = nn.Dropout(p=dropout)
+
+        def forward(self, x, states):
+            y, states = self.rnn(self.dropout(self.embedder(x)), states)
+            return self.fc(self.dropout(y)), states
+
+    return RnnLm()
+
+
+def _rnn_states(paddle, lm, batch):
+    """Zero initial states of ``lm``'s RNN: (h, c) for an LSTM, h else,
+    each [layers * directions, batch, hidden]."""
+    rnn = lm.rnn
+    shape = [rnn.num_layers * rnn.num_directions, batch, rnn.hidden_size]
+    if rnn.mode == "LSTM":
+        return (paddle.zeros(shape), paddle.zeros(shape))
+    return paddle.zeros(shape)
+
+
+def _rnn_detach(states):
+    if isinstance(states, (tuple, list)):
+        return tuple(s.detach() for s in states)
+    return states.detach()
+
+
+def _rnn_train(torch, paddle, lm, opt, batches, states):
+    """SGD steps of ``lm`` over ``batches`` ([B, T + 1] numpy tokens), the
+    state carried across steps and detached, the mean cross entropy per
+    token. Returns (losses, step seconds, final states)."""
+    losses, times = [], []
+    for tok in batches:
+        t0 = time.perf_counter()
+        x = paddle.to_tensor(tok[:, :-1])
+        y = paddle.to_tensor(tok[:, 1:].reshape(-1))
+        logits, states = lm(x, states)
+        loss = paddle.nn.functional.cross_entropy(
+            paddle.reshape(logits, [-1, logits.shape[-1]]), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        states = _rnn_detach(states)
+        losses.append(float(loss))
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return losses, times, states
+
+
+def _rnn_sgd(paddle, lm, lr, max_grad_norm):
+    return paddle.optimizer.SGD(
+        learning_rate=lr, parameters=lm.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(max_grad_norm))
+
+
+def _rnn_beam(paddle, lm, inits, beam, steps, gaps=None):
+    """dynamic_decode over ``lm``'s first LSTM cell with its embedding and
+    projection (start 0, end 1). With ``gaps`` (a list), each step's gap
+    between the last kept and the first dropped candidate of every batch
+    row is appended to it. Returns the ids [B, T, beam] as numpy."""
+    import numpy as np
+    from paddle_tpu_torch.nn import layers_extra
+    top = layers_extra._top_beams
+
+    def spy(flat, k):
+        srt = -np.sort(-flat, axis=1)
+        gaps.append(srt[:, k - 1] - srt[:, k])
+        return top(flat, k)
+    if gaps is not None:
+        layers_extra._top_beams = spy
+    try:
+        dec = paddle.nn.BeamSearchDecoder(
+            lm.rnn.layer_list[0].cell, start_token=0, end_token=1,
+            beam_size=beam, embedding_fn=lm.embedder, output_fn=lm.fc)
+        ids, _ = paddle.nn.dynamic_decode(dec, inits=inits,
+                                          max_step_num=steps)
+    finally:
+        layers_extra._top_beams = top
+    return ids.numpy()
+
+
+def _rnn_rescore(paddle, lm, ids, inits, end=1):
+    """Each beam's log-probability, recomputed by running the cell over
+    its ids (teacher forcing, from the start token 0) up to and including
+    its first end token: [B, beam]."""
+    import numpy as np
+    B, T, K = ids.shape
+    seq = np.transpose(ids, (0, 2, 1)).reshape(B * K, T)
+    cell = lm.rnn.layer_list[0].cell
+    states = tuple(paddle.repeat_interleave(s, K, axis=0) for s in inits)
+    score = np.zeros(B * K, np.float64)
+    live = np.ones(B * K, bool)
+    tok = np.zeros(B * K, np.int64)
+    with paddle.no_grad():
+        for t in range(T):
+            out, states = cell(lm.embedder(paddle.to_tensor(tok)), states)
+            logp = paddle.nn.functional.log_softmax(lm.fc(out),
+                                                    axis=-1).numpy()
+            score += np.where(live, logp[np.arange(B * K), seq[:, t]], 0.0)
+            live &= seq[:, t] != end
+            tok = seq[:, t].astype(np.int64)
+    return score.reshape(B, K)
+
+
+def _rnn_small(paddle, place):
+    """The reference tests' LBFGS problems (tests/test_extensions_misc.py
+    TestLBFGS), jacobian and hessian (tests/test_autograd.py:151 and a
+    tanh form) on ``place``: a flat list of numpy results."""
+    import numpy as np
+    paddle.set_device(place)
+    out = []
+    p = paddle.Parameter(np.array([5.0, -3.0, 2.0], np.float32))
+    opt = paddle.optimizer.LBFGS(learning_rate=1.0, max_iter=20,
+                                 parameters=[p],
+                                 line_search_fn="strong_wolfe")
+    target = paddle.to_tensor(np.array([1.0, 2.0, 3.0], np.float32))
+
+    def quad():
+        opt.clear_grad()
+        loss = ((p - target) * (p - target)).sum()
+        loss.backward()
+        return loss
+    out += [opt.step(quad).numpy(), p.numpy()]
+    paddle.seed(1)
+    net = paddle.nn.Linear(4, 1)
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((32, 4)).astype(np.float32)
+    Y = X @ rng.standard_normal((4, 1)).astype(np.float32)
+    mlp = paddle.optimizer.LBFGS(learning_rate=0.5, max_iter=10,
+                                 parameters=net.parameters())
+
+    def fit():
+        mlp.clear_grad()
+        loss = ((net(paddle.to_tensor(X)) - paddle.to_tensor(Y)) ** 2
+                ).mean()
+        loss.backward()
+        return loss
+    out += [fit().numpy(), mlp.step(fit).numpy()]
+    out += [q.numpy() for q in net.parameters()]
+    x = paddle.to_tensor(np.array([1.0, 2.0], np.float32))
+    sq = lambda t: paddle.sum(t * t)                            # noqa: E731
+    th = lambda t: paddle.sum(paddle.tanh(t) * t * t)           # noqa: E731
+    xs = paddle.to_tensor(np.random.default_rng(1).standard_normal(
+        6).astype(np.float32))
+    out += [paddle.autograd.jacobian(sq, x).numpy(),
+            paddle.autograd.hessian(sq, x).numpy(),
+            paddle.autograd.jacobian(th, xs).numpy(),
+            paddle.autograd.hessian(th, xs).numpy()]
+    return out
+
 
 def _dy2static_cases(paddle):
     """The Tensor-predicate functions of the reference's
@@ -6770,6 +7358,9 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ",".join(PHASES))
     # the resil phase's crash victim, run as a process of its own
     ap.add_argument("--resil-child", default=None, help=argparse.SUPPRESS)
+    # the rnn phase's profiler check, run as a process of its own
+    ap.add_argument("--profiler-child", action="store_true",
+                    help=argparse.SUPPRESS)
     # the guards phase's trainer (DIR MODE), run as a process of its own
     ap.add_argument("--guards-child", nargs=2, default=None,
                     help=argparse.SUPPRESS)
@@ -6798,15 +7389,19 @@ def main(argv=None) -> int:
         return Smoke(torch).resil_child(args.resil_child)
     if args.guards_child:
         return Smoke(torch).guards_child(*args.guards_child)
+    if args.profiler_child:
+        return Smoke(torch).profiler_child()
     card = gpu_line()
     log(f"[device] {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | python {sys.version.split()[0]} | "
         f"{os.cpu_count()} CPUs, torch threads {torch.get_num_threads()}")
     smoke = Smoke(torch)
     t_all = time.perf_counter()
+    seconds = {}
     for p in phases:
         t0 = time.perf_counter()
         getattr(smoke, f"phase_{p}")()
+        seconds[p] = round(time.perf_counter() - t0, 1)
         # what the phase left on the card (a later phase's times read it)
         mem = torch.cuda.memory_stats() if p != "build" else {}
         gib = {k: mem.get(f"{k}_bytes.all.current", 0) / 2 ** 30
@@ -6849,6 +7444,7 @@ def main(argv=None) -> int:
                    replaces=pallas + rep)
         row.setdefault("launches", 0)
         kernels.append({k: row.get(k) for k in keys})
+    log(f"[phases] seconds {json.dumps(seconds)}")
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

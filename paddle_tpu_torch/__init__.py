@@ -32,7 +32,9 @@ lists, ``decorate``, ``GradScaler``, the numerics debugging), ``jit``
 (``to_static`` on ``torch.compile``, ``save``/``load`` of a
 ``torch.export`` program), ``inference.create_predictor``, ``io``
 (``DataLoader``, the samplers), ``vision.datasets``, ``metric``, and
-``Model`` / ``callbacks`` / ``summary`` / ``flops`` of the high-level API.
+``Model`` / ``callbacks`` / ``summary`` / ``flops`` of the high-level API,
+``profiler`` (host spans fused with ``torch.profiler``'s device trace),
+the recurrent layers, beam search, ``autograd.functional`` and L-BFGS.
 """
 from .device import resolve_device  # noqa: F401
 from .framework.dtype import (bfloat16, bool_, complex64,  # noqa: F401
@@ -64,6 +66,7 @@ from . import inference  # noqa: F401,E402
 from . import hapi  # noqa: F401,E402
 from .hapi import Model, flops, summary  # noqa: F401,E402
 from . import callbacks  # noqa: F401,E402
+from . import profiler, regularizer  # noqa: F401,E402
 
 
 def in_dynamic_mode() -> bool:

@@ -8,7 +8,7 @@ torch's autograd engine is the port's tape walk, so ``backward`` and
 :class:`saved_tensors_hooks` onto torch's. The reference's
 ``backward_engine.py`` (a reverse walk over its tape list) has no
 counterpart: torch's engine does that walk. ``autograd/functional.py``
-(vjp, jvp, jacobian, hessian) waits for a later slice.
+has vjp, jvp, jacobian and hessian.
 
 A backward without ``retain_graph`` consumes what it ran, as the
 reference's walk drops every tape node it used: each node of the graph is
@@ -22,8 +22,12 @@ stops there, the gradient that arrives at each such node is captured
 behind it) and accumulated into the Tensors it made, and the leaves are
 filled by torch's engine with ``inputs=`` limited to those a live path
 reaches. A leaf reachable both ways makes torch run the consumed node
-again, its incoming gradient zeroed by a pre-hook; when that node has
-already freed its saved tensors the backward raises.
+again, its incoming gradient zeroed by a pre-hook, so it adds nothing;
+for that the node must still hold its saved tensors. So a backward keeps
+them (torch's ``retain_graph=True``) when a node it runs has a user
+outside its graph: every op's output node records the made nodes its
+graph uses (``tensor._note_uses``). Otherwise torch frees them node by
+node as its engine goes, as in a plain backward.
 """
 from __future__ import annotations
 
@@ -31,13 +35,14 @@ from typing import Sequence
 
 import torch
 
-from ..tensor import (_MADE, Tensor, _inexact, _note_made, _val, _wrap_out,
-                      enable_grad, is_grad_enabled, no_grad,
+from ..tensor import (_ID, _MADE, _USERS, Tensor, _inexact, _note_made,
+                      _val, _wrap_out, enable_grad, is_grad_enabled, no_grad,
                       set_grad_enabled)
+from .functional import hessian, jacobian, jvp, vjp  # noqa: F401
 
 __all__ = ["backward", "grad", "no_grad", "enable_grad", "set_grad_enabled",
            "is_grad_enabled", "PyLayer", "PyLayerContext",
-           "saved_tensors_hooks"]
+           "saved_tensors_hooks", "hessian", "jacobian", "jvp", "vjp"]
 
 # metadata key marking a graph node a backward without retain_graph ran
 _CONSUMED = "paddle_consumed"
@@ -91,6 +96,14 @@ def _graph(roots):
     return live, list(leaves.values()), list(cut)
 
 
+def _shared(nodes):
+    """Whether a node of ``nodes`` (a backward's live nodes) has a user
+    outside them: a graph that could reach it after it is consumed."""
+    mds = [fn.metadata for fn in nodes]
+    serials = {md[_ID] for md in mds if _ID in md}
+    return any(u not in serials for md in mds for u in md.get(_USERS, ()))
+
+
 def _consume(nodes):
     """Mark ``nodes`` consumed and make the Tensors they made leaves,
     remembering which output of the node each one was."""
@@ -127,7 +140,7 @@ def _zero_incoming(cut):
     return [fn.register_prehook(zero) for fn in cut]
 
 
-def _through_consumed(roots, grads, leaves, cut, retain_graph):
+def _through_consumed(roots, grads, leaves, cut):
     """A backward from a graph that reaches consumed nodes: the gradient
     at each of them goes into the Tensors it made, as the reference's
     walk stops at a dropped tape node; the rest reaches the leaves a live
@@ -144,16 +157,17 @@ def _through_consumed(roots, grads, leaves, cut, retain_graph):
         return
     handles = _zero_incoming(cut)
     try:
-        torch.autograd.backward(roots, grads, retain_graph=retain_graph,
+        torch.autograd.backward(roots, grads, retain_graph=True,
                                 inputs=leaves)
     except RuntimeError as e:
         if "second time" not in str(e):
             raise
         raise RuntimeError(
             "backward() reaches a leaf both through a node an earlier "
-            "backward() without retain_graph consumed and through a live "
-            "path, and that node has freed its saved tensors; pass "
-            "retain_graph=True to the earlier backward") from e
+            "backward() consumed and through a live path, and that node "
+            "has freed its saved tensors (a graph built outside the "
+            "port's ops used it); pass retain_graph=True to the earlier "
+            "backward") from e
     finally:
         for h in handles:
             h.remove()
@@ -166,9 +180,12 @@ def backward(tensors: Sequence[Tensor], grad_tensors=None,
     roots, grads = _roots(tensors, grad_tensors)
     nodes, leaves, cut = _graph(roots)
     if cut:
-        _through_consumed(roots, grads, leaves, cut, retain_graph)
+        _through_consumed(roots, grads, leaves, cut)
     elif roots:
-        torch.autograd.backward(roots, grads, retain_graph=retain_graph)
+        # the port's consumption marks the nodes; torch keeps their saved
+        # tensors when a graph outside this one uses them
+        torch.autograd.backward(roots, grads, retain_graph=(
+            retain_graph or _shared(nodes)))
     if not retain_graph:
         _consume(nodes)
 
@@ -193,7 +210,7 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
         handles = _zero_incoming(cut)
     try:
         res = torch.autograd.grad(roots, targets, grads,
-                                  retain_graph=retain,
+                                  retain_graph=retain or _shared(nodes),
                                   create_graph=create_graph,
                                   allow_unused=True)
     finally:

@@ -89,6 +89,7 @@ Meshes belong to the multi-device slice and raise
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import time
@@ -108,6 +109,7 @@ from ..models.gpt import (SPEC_LANE_DRAFT, GPTConfig, _kv_index, _kv_leaves,
                           spec_sample_key, stochastic_acceptance,
                           verify_tokens)
 from ..observability import ServingMetrics
+from ..observability import enabled as _telemetry_on
 from ..observability import tracing as _tracing
 from ..observability.quant import record_session_quant
 from ..ops.kernels.decode_attention import MAX_Q
@@ -117,6 +119,19 @@ from ..serving.prefix_cache import PageSpan, span_concat
 _SESSION_SEQ = itertools.count()
 
 __all__ = ["GenerationSession", "eager_ticks"]
+
+
+@contextlib.contextmanager
+def _span(name: str):
+    """The reference's telemetry span of a session method: a profiler
+    ``RecordEvent`` under the telemetry flag, host-only, opened and closed
+    outside any captured tick."""
+    if not _telemetry_on():
+        yield
+        return
+    from .. import profiler
+    with profiler.RecordEvent(name):
+        yield
 
 
 class GenerationSession:
@@ -424,24 +439,30 @@ class GenerationSession:
         rows = torch.as_tensor(slots, device=dev)
         lens = torch.as_tensor(lengths, device=dev)
         toks = torch.as_tensor(prompts, device=dev)
-        if self._mode == "scan":
-            logits, _, _ = scan_prefill(self._params, self.cfg, toks,
-                                        self._kc, self._vc, lengths=lens,
-                                        rows=rows,
-                                        page_table=self._ptab_of(rows))
-        else:
-            logits, _, _ = prefill(self._params, self.cfg, toks, self._kc,
-                                   self._vc, lengths=lens, mode=self._mode,
-                                   rows=rows, page_table=self._ptab_of(rows))
-        if self._draft_mode:
-            # the separate draft shadows the admission so its cache holds
-            # the prompt (positions past a row's length are never read)
-            prefill(self._draft_params, self._dcfg, toks, self._dkc,
-                    self._dvc, lengths=lens, rows=rows,
-                    page_table=self._ptab_of(rows))
-        self._pos[rows] = lens
-        self._activ[rows] = True
-        self._logits[rows] = logits
+        with _span("session/prefill"):
+            if self._mode == "scan":
+                logits, _, _ = scan_prefill(self._params, self.cfg, toks,
+                                            self._kc, self._vc, lengths=lens,
+                                            rows=rows,
+                                            page_table=self._ptab_of(rows))
+            else:
+                logits, _, _ = prefill(self._params, self.cfg, toks,
+                                       self._kc, self._vc, lengths=lens,
+                                       mode=self._mode, rows=rows,
+                                       page_table=self._ptab_of(rows))
+            if self._draft_mode:
+                # the separate draft shadows the admission so its cache
+                # holds the prompt (positions past a row's length are
+                # never read)
+                prefill(self._draft_params, self._dcfg, toks, self._dkc,
+                        self._dvc, lengths=lens, rows=rows,
+                        page_table=self._ptab_of(rows))
+            self._pos[rows] = lens
+            self._activ[rows] = True
+            self._logits[rows] = logits
+            if dev.type == "cuda" and _telemetry_on():
+                # the span times the prefill, not its dispatch
+                torch.cuda.synchronize(dev)
         now = time.perf_counter()
         for j, s in enumerate(slots):
             self._occupied[s] = True
@@ -921,7 +942,8 @@ class GenerationSession:
             return
         t0 = time.perf_counter()
         self._assemble_chunks(chunks, width)
-        self._tick("chunk", self._chunk_body, width)
+        with _span("session/chunk_prefill"):
+            self._tick("chunk", self._chunk_body, width)
         self._telemetry.prefill_tick(time.perf_counter() - t0,
                                      rows=len(chunks))
         self._finalize_chunks(chunks, arrivals, queue_waits, t0, resumed)
@@ -937,7 +959,8 @@ class GenerationSession:
             return self.step()
         t0 = time.perf_counter()
         self._assemble_chunks(chunks, width)
-        toks = self._tick("fused", self._fused_body, width)
+        with _span("session/fused_tick"):
+            toks = self._tick("fused", self._fused_body, width)
         # the chunk half's wall is charged once, to the decode tick
         self._telemetry.prefill_tick(0.0, rows=len(chunks))
         self._finalize_chunks(chunks, arrivals, queue_waits, t0, resumed)
@@ -1116,7 +1139,9 @@ class GenerationSession:
         rows that emit eos (or fill the cache) freeze."""
         t0 = time.perf_counter()
         was = list(self._host_active)
-        return self._process_emitted(self._decode(), was, t0)
+        with _span("session/decode"):
+            toks = self._decode()
+        return self._process_emitted(toks, was, t0)
 
     @torch.no_grad()
     def _tick(self, kind: str, body, *args) -> np.ndarray:
@@ -1248,7 +1273,9 @@ class GenerationSession:
         self._need_spec("step")
         t0 = time.perf_counter()
         was = list(self._host_active)
-        return self._process_spec_emitted(self._spec_decode(), was, t0)
+        with _span("session/spec_tick"):
+            out = self._spec_decode()
+        return self._process_spec_emitted(out, was, t0)
 
     def spec_tick(self, chunks, width: int, arrivals=None,
                   queue_waits=None, resumed=None) -> dict[int, list[int]]:
@@ -1261,7 +1288,8 @@ class GenerationSession:
             return self.spec_step()
         t0 = time.perf_counter()
         self._assemble_chunks(chunks, width)
-        out = self._tick("spec_fused", self._spec_fused_body, width)
+        with _span("session/spec_tick"):
+            out = self._tick("spec_fused", self._spec_fused_body, width)
         # the chunk half's wall is charged once, to the spec tick
         self._telemetry.prefill_tick(0.0, rows=len(chunks))
         self._finalize_chunks(chunks, arrivals, queue_waits, t0, resumed)

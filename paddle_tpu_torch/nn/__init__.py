@@ -4,6 +4,7 @@ layers, the layer tail of ``layers_extra`` and gradient clipping.
 ``layers_rnn`` waits for a later slice."""
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
+from . import utils  # noqa: F401
 from .clip import (ClipGradBase, ClipGradByGlobalNorm,  # noqa: F401
                    ClipGradByNorm, ClipGradByValue)
 from .initializer import ParamAttr  # noqa: F401
@@ -12,6 +13,9 @@ from .layers_common import *  # noqa: F401,F403
 from .layers_conv import *  # noqa: F401,F403
 from .layers_extra import *  # noqa: F401,F403
 from .layers_loss import *  # noqa: F401,F403
+from .layers_rnn import (RNN, BiRNN, GRU, GRUCell, LSTM,  # noqa: F401
+                         LSTMCell, RNNCellBase, SimpleRNN, SimpleRNNCell,
+                         _RNNBase)
 from .layers_transformer import (MultiHeadAttention,  # noqa: F401
                                  Transformer, TransformerDecoder,
                                  TransformerDecoderLayer, TransformerEncoder,

@@ -279,3 +279,17 @@ class sdp_kernel:
         from ...framework import flags as _flags
         _flags.set_flags({"FLAGS_use_pallas_kernels": self._prev})
         return False
+
+
+@def_op("gather_tree")
+def gather_tree(ids, parents):
+    """Beam-search backtrace (reference: nn/functional gather_tree;
+    ids/parents: [T, B, beam]): from the last step back, each slot's token
+    and then its parent beam."""
+    beams = torch.arange(ids.shape[2], device=ids.device).expand(
+        ids.shape[1:])
+    toks = []
+    for t in range(ids.shape[0] - 1, -1, -1):
+        toks.append(torch.gather(ids[t], 1, beams))
+        beams = torch.gather(parents[t], 1, beams).long()
+    return torch.stack(toks[::-1], 0)

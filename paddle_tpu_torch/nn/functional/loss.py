@@ -294,3 +294,128 @@ def poisson_nll_loss(input, label, log_input=True, full=False,
         loss = loss + torch.where(label > 1, stirling,
                                   torch.zeros_like(stirling))
     return _reduce(loss, reduction)
+
+
+@def_op("ctc_loss_op")
+def _ctc(log_probs, labels, input_lengths, label_lengths, blank):
+    """Per-sequence CTC negative log-likelihood over [T, B, C] scores,
+    normalised first as the reference's optax.ctc_loss does (warpctc's
+    softmax in paddle)."""
+    logp = torch.log_softmax(log_probs.float(), -1)
+    return TF.ctc_loss(logp, labels.long(), input_lengths.long(),
+                       label_lengths.long(), blank=blank, reduction="none")
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False):
+    loss = _ctc(log_probs, labels, input_lengths, label_lengths, blank)
+    from ...ops import math as _m
+    if reduction == "mean":
+        return _m.mean(_m.divide(loss, label_lengths.astype("float32")))
+    if reduction == "sum":
+        return _m.sum(loss)
+    return loss
+
+
+def _l2_distance(a, b):
+    return torch.sqrt(torch.sum(torch.square(a - b), -1) + 1e-12)
+
+
+@def_op("triplet_margin_with_distance_loss")
+def _triplet_distance(input, positive, negative, margin, swap, reduction):
+    d_pos = _l2_distance(input, positive)
+    d_neg = _l2_distance(input, negative)
+    if swap:
+        d_neg = torch.minimum(d_neg, _l2_distance(positive, negative))
+    return _reduce(torch.clamp_min(d_pos - d_neg + margin, 0), reduction)
+
+
+def triplet_margin_with_distance_loss(input, positive, negative,
+                                      distance_function=None, margin=1.0,
+                                      swap=False, reduction="mean",
+                                      name=None):
+    """max(d(a, p) - d(a, n) + margin, 0); ``d`` the L2 distance, or
+    ``distance_function`` applied to the Tensors."""
+    if distance_function is None:
+        return _triplet_distance(input, positive, negative, margin, swap,
+                                 reduction)
+    from ...ops import math as _m
+    from .activation import relu
+    d_pos = distance_function(input, positive)
+    d_neg = distance_function(input, negative)
+    if swap:
+        d_neg = _m.minimum(d_neg, distance_function(positive, negative))
+    loss = relu(d_pos - d_neg + margin)
+    if reduction == "mean":
+        return _m.mean(loss)
+    if reduction == "sum":
+        return _m.sum(loss)
+    return loss
+
+
+@def_op("hsigmoid_loss")
+def hsigmoid_loss(input, label, num_classes, weight, bias=None,
+                  path_table=None, path_code=None, is_sparse=False,
+                  name=None):
+    """Hierarchical sigmoid over the default complete binary tree
+    (reference: nn/functional/loss.py hsigmoid_loss; custom trees through
+    path_table/path_code are not supported)."""
+    if path_table is not None or path_code is not None:
+        raise NotImplementedError("custom-tree hsigmoid not supported")
+    code_len = int(math.ceil(math.log2(num_classes))) + 1
+    # node walk on the implicit heap: leaf = label + num_classes, parent
+    # = cur // 2, stop at the root (cur == 1); steps past the root add 0
+    loss = torch.zeros(input.shape[0], dtype=input.dtype,
+                       device=input.device)
+    cur = label.long() + num_classes
+    for _ in range(code_len):
+        active = (cur > 1).to(input.dtype)
+        bit = (cur % 2).to(input.dtype)
+        parent = cur // 2
+        node = torch.clamp(parent - 1, 0, weight.shape[0] - 1)
+        logit = torch.sum(weight[node] * input, -1)
+        if bias is not None:
+            logit = logit + bias.reshape(-1)[node]
+        step = -(bit * TF.logsigmoid(logit)
+                 + (1 - bit) * TF.logsigmoid(-logit))
+        loss = loss + active * step
+        cur = parent
+    return loss[:, None]
+
+
+@def_op("rnnt_loss")
+def rnnt_loss(input, label, input_lengths, label_lengths, blank=0,
+              fastemit_lambda=0.0, reduction="mean", name=None):
+    """RNN-T transducer loss by the forward algorithm in log space
+    (reference: warprnnt; the reference's lax.scan dynamic program as
+    loops over t and u, vectorised over the batch) on [B, T, U+1, V]
+    scores."""
+    if fastemit_lambda:
+        raise NotImplementedError(
+            "FastEmit regularization is not implemented; pass "
+            "fastemit_lambda=0")
+    logp = torch.log_softmax(input, -1)
+    B, T, U1, _ = logp.shape
+    blank_lp = logp[..., blank]                                # [B, T, U1]
+    lab = label.long()
+    lab_pad = torch.cat([lab, lab.new_zeros(B, 1)], 1)[:, :U1]
+    emit_lp = torch.take_along_dim(
+        logp, lab_pad[:, None, :, None], dim=-1)[..., 0]       # [B, T, U1]
+    # t = 0: emissions along u only
+    row = [logp.new_zeros(B)]
+    for u in range(1, U1):
+        row.append(row[-1] + emit_lp[:, 0, u - 1])
+    hist = [torch.stack(row, 1)]
+    for t in range(1, T):
+        from_blank = hist[-1] + blank_lp[:, t - 1]
+        row = [from_blank[:, 0]]
+        for u in range(1, U1):
+            row.append(torch.logaddexp(from_blank[:, u],
+                                       row[-1] + emit_lp[:, t, u - 1]))
+        hist.append(torch.stack(row, 1))
+    full_hist = torch.stack(hist, 0)                            # [T, B, U1]
+    t_idx = torch.clamp(input_lengths.long() - 1, 0, T - 1)
+    u_idx = torch.clamp(label_lengths.long(), 0, U1 - 1)
+    b_idx = torch.arange(B, device=logp.device)
+    nll = -(full_hist[t_idx, b_idx, u_idx] + blank_lp[b_idx, t_idx, u_idx])
+    return _reduce(nll, reduction)

@@ -146,3 +146,14 @@ class TripletMarginLoss(Layer):
         return F.triplet_margin_loss(input, positive, negative, self.margin,
                                      self.p, self.epsilon, self.swap,
                                      self.reduction)
+
+
+class CTCLoss(Layer):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank, self.reduction = blank, reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self.blank, self.reduction, norm_by_times)

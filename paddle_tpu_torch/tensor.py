@@ -21,8 +21,8 @@ Paddle semantics kept on top of torch:
   ``grad``), so a second ``backward`` from the same output, or from a new
   graph built on the consumed one, sends nothing through it, where torch
   would raise or, for nodes with no saved tensors, accumulate again. A
-  graph built *before* the backward that consumed part of it cannot be
-  cut so in torch: a backward from it raises (``autograd.backward``).
+  graph built *before* the backward that consumed part of it stops at
+  the consumed nodes too (``autograd.backward``).
 * In-place ops (``x.add_(y)``, ``x[i] = v``) rebind ``x`` to the new
   value, as the reference does; an in-place op on a leaf that requires
   grad raises.
@@ -31,6 +31,7 @@ Paddle semantics kept on top of torch:
 """
 from __future__ import annotations
 
+import itertools
 import weakref
 from typing import Callable
 
@@ -49,6 +50,13 @@ is_grad_enabled = torch.is_grad_enabled
 
 # metadata of a torch graph node: weak references to the Tensors it made
 _MADE = "paddle_made"
+# metadata of a node that made a Tensor: its serial number, and the serials
+# of the made nodes whose graphs use its outputs (``autograd.backward``
+# keeps a consumed node's saved tensors only when such a user lies outside
+# the graph it runs)
+_ID = "paddle_id"
+_USERS = "paddle_users"
+_SERIAL = itertools.count(1)
 
 
 def _inexact(v: torch.Tensor) -> bool:
@@ -406,6 +414,8 @@ class Parameter(Tensor):
             Parameter._name_counter += 1
             name = f"param_{Parameter._name_counter}"
         v = _val(value) if isinstance(value, Tensor) else value
+        if not isinstance(v, torch.Tensor):
+            v = to_tensor(v)._value      # host data, as the reference takes
         self._value = torch.nn.Parameter(v.detach(),
                                          requires_grad=bool(trainable)
                                          and _inexact(v))
@@ -498,8 +508,31 @@ def _note_made(t: Tensor) -> Tensor:
         return t
     fn = t._value.grad_fn
     if fn is not None:
-        fn.metadata.setdefault(_MADE, []).append(weakref.ref(t))
+        md = fn.metadata
+        if _ID not in md:
+            md[_ID] = serial = next(_SERIAL)
+            _note_uses(fn, serial)
+        md.setdefault(_MADE, []).append(weakref.ref(t))
     return t
+
+
+def _note_uses(fn, serial):
+    """Record ``serial`` as a user of each made node that ``fn`` reaches
+    through nodes no Tensor was made by (the op's own inner nodes)."""
+    stack = [n for n, _ in fn.next_functions if n is not None]
+    seen = {}                   # id -> node (held, so the ids stay unique)
+    while stack:
+        n = stack.pop()
+        md = n.metadata
+        if _ID in md:
+            users = md.get(_USERS)
+            if users is None:
+                md[_USERS] = [serial]
+            elif users[-1] != serial:
+                users.append(serial)
+        elif id(n) not in seen:  # an inner node (or a leaf's sink)
+            seen[id(n)] = n
+            stack.extend(m for m, _ in n.next_functions if m is not None)
 
 
 def _wrap_out(out, stop: bool):

@@ -216,12 +216,17 @@ def _built_before_consumed(M, kind):
     """``y`` is built on ``h`` BEFORE a backward consumes ``h``'s producer;
     ``y.backward()`` then stops at the consumed node and fills ``h.grad``
     (and ``x`` only by the live path of ``mixed``). ``two``: two made
-    Tensors of one consuming backward."""
+    Tensors of one consuming backward. ``saved``: ``mixed`` through a
+    consumed node that saved its input (``x * x``). ``two_live``: ``h``
+    feeds two live consumers built before the consuming backward."""
     x = M.to_tensor(A34, stop_gradient=False)
-    h, g = x + 1.0, x * x
+    h = x * x if kind in ("saved", "two_live") else x + 1.0
+    g = x * x
     y = {"smallest": lambda: M.sum(h * 3.0),
          "mixed": lambda: M.sum(h * 3.0 + x),
-         "two": lambda: M.sum(h * 3.0 + g * 4.0)}[kind]()
+         "saved": lambda: M.sum(h * 3.0 + x),
+         "two": lambda: M.sum(h * 3.0 + g * 4.0),
+         "two_live": lambda: M.sum(M.tanh(h) * 3.0 + h * x)}[kind]()
     M.sum(h * 2.0 + (g if kind == "two" else 0.0)).backward()
     first = to_np(x.grad).copy()
     y.backward()
@@ -229,17 +234,25 @@ def _built_before_consumed(M, kind):
     return out + [to_np(g.grad)] if kind == "two" else out
 
 
-@pytest.mark.parametrize("kind", ["smallest", "mixed", "two"])
+@pytest.mark.parametrize("kind", ["smallest", "mixed", "two", "saved",
+                                  "two_live"])
 def test_backward_through_a_graph_built_before_it_was_consumed(kind):
     """``smallest``: ``h = x + 1; y = (h * 3).sum(); (h * 2).sum()
     .backward(); y.backward()`` gives ``x.grad`` 2 and ``h.grad`` 3, as
-    the reference's walk, which stops at the dropped tape node. ``mixed``:
-    ``x`` is reached through the consumed node and directly; only the live
-    path adds to it."""
+    the reference's walk, which stops at the dropped tape node. ``mixed``
+    and ``saved``: ``x`` is reached through the consumed node and
+    directly; only the live path adds to it. ``two_live``: both of ``h``'s
+    live consumers add to ``h.grad``, and ``x`` gets only ``h * x``'s
+    direct share."""
     r, t = _built_before_consumed(P, kind), _built_before_consumed(T, kind)
     if kind == "smallest":
         np.testing.assert_allclose(t[2], 2.0)
         np.testing.assert_allclose(t[3], 3.0)
+    if kind == "two_live":
+        h = A34 * A34
+        np.testing.assert_allclose(t[2], 4.0 * A34 + h, rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(t[3], 3.0 * (1.0 - np.tanh(h) ** 2) + A34,
+                                   rtol=TOL, atol=TOL)
     assert r[0] and t[0]
     for a, b in zip(r[1:], t[1:]):
         np.testing.assert_allclose(b, a, rtol=TOL, atol=TOL)
@@ -261,17 +274,23 @@ def test_grad_through_a_consumed_node_takes_the_made_tensor():
 
 
 def test_backward_through_a_graph_built_before_it_was_consumed_raises():
-    """What torch cannot cut: a leaf reached both through a consumed node
-    that freed its saved tensors (``x * x``) and through a live path. The
-    consumed node would have to run again; the port raises, where the
-    reference sends the gradient up to the cut."""
-    x = T.to_tensor(A34, stop_gradient=False)
-    h = x * x
-    y = T.sum(h * 3.0 + x)
-    T.sum(h * 2.0).backward()
-    with pytest.raises(RuntimeError, match="retain_graph=True"):
+    """The smallest input that raised until the consumed node kept its
+    saved tensors: a leaf reached both through a consumed node that saved
+    its input (``x * x``) and through a live path. The reference's walk
+    stops at the consumed node: ``x.grad`` becomes ``4x + 1`` and
+    ``h.grad`` 3, on both packages, and nothing raises."""
+    out = {}
+    for M in (P, T):
+        x = M.to_tensor(A34, stop_gradient=False)
+        h = x * x
+        y = M.sum(h * 3.0 + x)
+        M.sum(h * 2.0).backward()
         y.backward()
-    np.testing.assert_allclose(to_np(x.grad), 4.0 * A34, rtol=TOL)
+        out[M] = (to_np(x.grad), to_np(h.grad))
+    np.testing.assert_allclose(out[T][0], 4.0 * A34 + 1.0, rtol=TOL)
+    np.testing.assert_allclose(out[T][1], 3.0, rtol=TOL)
+    for a, b in zip(out[P], out[T]):
+        np.testing.assert_allclose(b, a, rtol=TOL, atol=TOL)
 
 
 def test_grad_accumulates_until_clear_grad():

@@ -130,6 +130,96 @@ def test_package_runs_with_jax_blocked():
     assert res.stdout.strip().endswith("OK")
 
 
+def test_rnn_slice_runs_with_jax_blocked(tmp_path):
+    """The profiler, the recurrent layers and beam search, the sequence
+    losses, autograd.functional, L-BFGS, nn.utils, regularizer and the
+    consumed-graph backward, with jax and the reference blocked."""
+    script = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "paddle_tpu"):
+            sys.modules[name] = None
+        import os
+        import numpy as np, torch
+        torch.set_num_threads(1)
+        import paddle_tpu_torch as paddle
+        from paddle_tpu_torch import profiler
+        paddle.set_device("cpu")
+        os.environ["PADDLE_TPU_PROFILE_DIR"] = {str(tmp_path)!r}
+        prof = profiler.Profiler()
+        prof.start()
+        with profiler.RecordEvent("lm_step"):
+            paddle.seed(0)
+            emb = paddle.nn.Embedding(50, 8)
+            lstm = paddle.nn.LSTM(8, 8, num_layers=2, dropout=0.5)
+            fc = paddle.nn.Linear(8, 50)
+            params = (emb.parameters() + lstm.parameters()
+                      + fc.parameters())
+            opt = paddle.optimizer.SGD(
+                1.0, parameters=params,
+                grad_clip=paddle.nn.ClipGradByGlobalNorm(5.0),
+                weight_decay=paddle.regularizer.L2Decay(1e-4))
+            tok = paddle.to_tensor(np.arange(40).reshape(4, 10) % 50)
+            y, (h, c) = lstm(emb(tok[:, :-1]))
+            loss = paddle.nn.functional.cross_entropy(
+                paddle.reshape(fc(y), [-1, 50]),
+                paddle.reshape(tok[:, 1:], [-1]))
+            loss.backward()
+            opt.step()
+        prof.stop()
+        prof.export({str(tmp_path / "out")!r})
+        assert os.path.exists({str(tmp_path / "out" / "merged_trace.json")!r})
+        assert "lm_step" in prof.summary()
+        assert np.isfinite(float(loss)) and h.shape == [2, 4, 8]
+        dec = paddle.nn.BeamSearchDecoder(
+            paddle.nn.LSTMCell(8, 8), 0, 1, 3, embedding_fn=emb,
+            output_fn=fc)
+        h0 = paddle.zeros([2, 8])
+        ids, lens = paddle.nn.dynamic_decode(dec, inits=(h0, h0),
+                                             max_step_num=4)
+        assert ids.shape[0] == 2 and ids.shape[2] == 3
+        for layer in (paddle.nn.GRU(8, 8, direction="bidirect"),
+                      paddle.nn.SimpleRNN(8, 8, time_major=True)):
+            assert layer(paddle.randn([3, 4, 8]))[0].shape[2] in (8, 16)
+        p = paddle.Parameter(np.array([5.0, -3.0], np.float32))
+        lb = paddle.optimizer.LBFGS(parameters=[p],
+                                    line_search_fn="strong_wolfe")
+        def closure():
+            lb.clear_grad()
+            loss = ((p - paddle.to_tensor([1.0, 2.0])) ** 2).sum()
+            loss.backward()
+            return loss
+        lb.step(closure)
+        assert np.allclose(p.numpy(), [1.0, 2.0], atol=1e-4)
+        x = paddle.to_tensor(np.array([1.0, 2.0], np.float32))
+        assert np.allclose(paddle.autograd.jacobian(
+            lambda t: paddle.sum(t * t), x).numpy(), [2.0, 4.0])
+        paddle.nn.utils.weight_norm(fc)
+        assert fc(paddle.zeros([1, 8])).shape == [1, 50]
+        F = paddle.nn.functional
+        assert F.rnnt_loss(paddle.randn([1, 3, 3, 4]),
+                           paddle.to_tensor([[1, 2]]), paddle.to_tensor([3]),
+                           paddle.to_tensor([2])).shape == []
+        assert F.ctc_loss(F.log_softmax(paddle.randn([5, 2, 4])),
+                          paddle.to_tensor([[1, 2], [3, 1]]),
+                          paddle.to_tensor([5, 5]),
+                          paddle.to_tensor([2, 2])).shape == []
+        x = paddle.to_tensor(np.ones((2, 2), np.float32),
+                             stop_gradient=False)
+        hh = x * x
+        yy = paddle.sum(hh * 3.0 + x)
+        paddle.sum(hh * 2.0).backward()
+        yy.backward()
+        assert np.allclose(x.grad.numpy(), 5.0)
+        assert not any(m and m.startswith(("jax", "paddle_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("OK")
+        """)
+    res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("OK")
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from paddle_tpu_torch import resolve_device
     from paddle_tpu_torch.framework import prng
